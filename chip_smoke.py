@@ -12,7 +12,9 @@ time, and any failure raises (exit code != 0):
 2. build: nvcc compiles corrla_rs_tpu_torch/csrc/*.cu (timed);
 3. kernels: both CUDA kernels against their plain PyTorch versions (run in
    f64 on the card) for every phi, f32 and f64, at odd shapes and at the
-   main path's shapes, with kernel and plain times;
+   main path's shapes, with kernel and plain times (the median of 5
+   windows of at least 20 ms each), the matvec's launch plan and its
+   bit-identical rerun;
 4. rsvd: A = U diag(s) V^T, 100,000 x 10,000 f32 with 200 known geometric
    sigma, rank 100, 8 iterations, 10 oversamples;
 5. rpca: 200,000 x 512 f32 with a known centered spectrum, rank 20;
@@ -22,9 +24,11 @@ time, and any failure raises (exit code != 0):
    (K is 16k x 16k f32), fit residual, then 1,048,576 predictions through
    the matvec kernel, the first 8,192 checked against the plain f64 path.
 
-The kernels' launch counts are set to 0 before phase 4 and read after phase
-7; both kernels must have launched on the main path. The last lines are the
-kernel table as JSON, the nvidia-smi line, and the result JSON. Nothing of
+The build phase prints ptxas's registers and spills for the matvec's
+instances and fails if any spills. The kernels' launch counts are set to 0
+before phase 4 and read after phase 7; both kernels must have launched on
+the main path. The last lines are the kernel table as JSON (every timed
+shape of each kernel), the nvidia-smi line, and the result JSON. Nothing of
 JAX is imported. Without a CUDA device it exits with code 2 and prints no
 result.
 """
@@ -34,6 +38,7 @@ import argparse
 import json
 import math
 import re
+import statistics
 import subprocess
 import sys
 import time
@@ -54,7 +59,10 @@ SIZES = {
     "podi": (2000, 200_000, 20, 512),             # snapshots, points, modes, queries
     "rbf": (16384, 1 << 20, 8192),                # support, queries, checked
 }
-SOURCE = "corrla_rs_tpu_torch/csrc/rbf_kernels.cu"
+SOURCE = {
+    "pairwise_kernel_matrix": "corrla_rs_tpu_torch/csrc/rbf_kernels.cu",
+    "rbf_matvec": "corrla_rs_tpu_torch/csrc/rbf_matvec.cuh",
+}
 REPLACES = {
     "pairwise_kernel_matrix": "corrla_rs_tpu/ops/pallas_kernels.py:100",
     "rbf_matvec": "corrla_rs_tpu/ops/pallas_kernels.py:154",
@@ -75,19 +83,28 @@ def report(phase: str, t0: float, detail: str) -> None:
           flush=True)
 
 
-def cuda_ms(fn, reps: int = 5) -> float:
-    """Mean device time of ``fn`` in ms over ``reps`` runs after a warm-up,
-    from CUDA events."""
+def cuda_ms(fn, window_ms: float = 20.0, windows: int = 5) -> float:
+    """Time of one call of ``fn`` in ms, from CUDA events: the median over
+    ``windows`` windows, each of back-to-back calls lasting at least
+    ``window_ms`` (or one call, if that is longer), after a warm-up."""
     fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     start.record()
-    for _ in range(reps):
-        fn()
+    fn()
     end.record()
     torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
+    reps = max(1, math.ceil(window_ms / max(start.elapsed_time(end), 1e-3)))
+    per_call = []
+    for _ in range(windows):
+        start.record()
+        for _ in range(reps):
+            fn()
+        end.record()
+        torch.cuda.synchronize()
+        per_call.append(start.elapsed_time(end) / reps)
+    return statistics.median(per_call)
 
 
 def wall(fn):
@@ -108,8 +125,9 @@ def nvidia_smi() -> str:
     return proc.stdout.strip().splitlines()[0]
 
 
-def ptxas_summary(log: str) -> str:
-    """Registers / spills per kernel from nvcc's -Xptxas=-v output."""
+def ptxas_rows(log: str) -> list:
+    """[mangled name, registers, spill bytes] per kernel from nvcc's
+    -Xptxas=-v output."""
     rows, name = [], None
     for line in log.splitlines():
         m = re.search(r"Compiling entry function '([^']+)'", line)
@@ -124,11 +142,60 @@ def ptxas_summary(log: str) -> str:
         m = re.search(r"Used (\d+) registers", line)
         if m and rows and rows[-1][0] == name:
             rows[-1][1] = int(m.group(1))
+    return rows
+
+
+def ptxas_summary(rows: list) -> str:
     if not rows:
         return "no ptxas report (library was already built)"
     regs = [r[1] for r in rows if r[1] is not None]
     return (f"{len(rows)} kernels, registers {min(regs)}-{max(regs)}, "
             f"spill bytes {sum(r[2] for r in rows)}")
+
+
+# rbf_matvec_kernel<T, PHI, D, CC> in a mangled name
+MATVEC_INSTANCE = re.compile(
+    r"rbf_matvec_kernelI([fd])Li(\d+)ELi(\d+)ELi(\d+)E")
+
+
+def main_path_plans(rk, sms: int) -> list:
+    """(label, m, n, d, c, plan) of the matvec's two main-path calls."""
+    n_snap, _, n_modes, n_pq = SIZES["podi"]
+    n_sup, n_q, _ = SIZES["rbf"]
+    return [(label, m, n, d, c, rk._matvec_plan(m, n, c, sms))
+            for label, m, n, d, c in (
+                ("PodI predict", n_pq, n_snap, 1, n_modes),
+                ("RbfInterp predict", n_q, n_sup, 3, 1))]
+
+
+def matvec_registers(rows: list, plans: list) -> None:
+    """Print the matvec instances' registers and spills, those of the
+    main path's instances (f32, linear) among them; fail on a spill."""
+    inst = []
+    for name, regs, spills in rows:
+        m = MATVEC_INSTANCE.search(name)
+        if m:
+            dt, phi, d, cc = m.groups()
+            inst.append((("f32" if dt == "f" else "f64", PHIS[int(phi) - 1],
+                          int(d), int(cc)), regs, spills))
+    if not inst:
+        print("    matvec: no ptxas report (library was already built)")
+        return
+    for dt in ("f32", "f64"):
+        rows_dt = [r for r in inst if r[0][0] == dt]
+        regs = [r[1] for r in rows_dt]
+        worst = max(rows_dt, key=lambda r: r[1])
+        print(f"    matvec {dt}: {len(rows_dt)} instances, registers "
+              f"{min(regs)}-{max(regs)} (most: phi={worst[0][1]} "
+              f"D={worst[0][2]} CC={worst[0][3]}), spill bytes "
+              f"{sum(r[2] for r in rows_dt)}", flush=True)
+    main = {r[0]: r[1] for r in inst}
+    print("    matvec main-path instances: " + ", ".join(
+        f"{label} f32 linear D={d} CC={plan.cols} "
+        f"{main.get(('f32', 'linear', d, plan.cols))} registers"
+        for label, _, _, d, _, plan in plans), flush=True)
+    spilling = [r for r in inst if r[2]]
+    check(not spilling, f"matvec instances spill: {spilling}")
 
 
 # ---------------------------------------------------------------------------
@@ -165,6 +232,8 @@ def matvec_case(rk, gen, dev, m, n, d, c, phi, dtype, eps=0.7, check_rows=None,
     got = rk.rbf_matvec(q, x, coef, phi, eps)
     check(got.shape == (m, c) and bool(torch.isfinite(got).all()),
           f"rbf_matvec {phi} {dtype}: bad output")
+    check(torch.equal(got, rk.rbf_matvec(q, x, coef, phi, eps)),
+          f"rbf_matvec {phi} {dtype} {m}x{n} d={d} C={c}: a rerun differs")
     qd, xd, cd = q[:rows].double(), x.double(), coef.double()
     want = rk.rbf_matvec_ref(qd, xd, cd, phi, eps)
     # every phi is >= 0, so sum_j |phi_ij c_j| = K |c|
@@ -178,10 +247,9 @@ def matvec_case(rk, gen, dev, m, n, d, c, phi, dtype, eps=0.7, check_rows=None,
     out = {"max_abs_err": err.max().item()}
     del got, want, scale, err
     if timed:
-        out["ms"] = cuda_ms(lambda: rk.rbf_matvec(q, x, coef, phi, eps),
-                            reps=3)
+        out["ms"] = cuda_ms(lambda: rk.rbf_matvec(q, x, coef, phi, eps))
         out["plain_ms"] = cuda_ms(
-            lambda: rk.rbf_matvec_ref(q, x, coef, phi, eps), reps=2)
+            lambda: rk.rbf_matvec_ref(q, x, coef, phi, eps))
     return out
 
 
@@ -193,17 +261,29 @@ def phase_kernels(rk, dev, seed):
             for na, nb, d in ((7, 13, 2), (1000, 1537, 3), (130, 70, 20)):
                 kmat_case(rk, gen, dev, na, nb, d, phi, dtype)
                 n_checks += 1
+            # d = 1..4 templated and 5, 20 the runtime loop; each of these
+            # splits the support (1 x 100,000 in 265 splits), the RbfInterp
+            # shape below does not
             for m, n, d, c in ((7, 13, 2, 1), (1000, 1537, 3, 8),
-                               (1000, 1537, 3, 37), (300, 200, 20, 3)):
+                               (1000, 1537, 3, 37), (300, 200, 20, 3),
+                               (1, 100_000, 1, 1), (513, 2001, 4, 20),
+                               (130, 700, 5, 2)):
                 matvec_case(rk, gen, dev, m, n, d, c, phi, dtype)
                 n_checks += 1
     print(f"    odd shapes: {n_checks} cases, all 4 phi, f32 and f64 "
           f"(kernel matrix rtol {KMAT_RTOL}, matvec rtol {MATVEC_RTOL} of "
           "sum |phi c|)", flush=True)
     # the main path's shapes: PodI (d = 1) and RbfInterp (d = 3), f32
-    timings = {}
     n_snap, _, n_modes, n_pq = SIZES["podi"]
     n_sup, n_q, n_check = SIZES["rbf"]
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    for label, m, n, _, c, plan in main_path_plans(rk, sms):
+        print(f"    matvec plan, {label} {m}x{n} C={c} on {sms} SMs: "
+              f"{plan.cols} columns x {plan.col_chunks} chunks, "
+              f"{plan.q_blocks} query blocks, {plan.splits} splits of "
+              f"{plan.split_len} -> {plan.blocks} blocks"
+              f"{', then the sum of splits' if plan.splits > 1 else ''}",
+              flush=True)
     shapes = [
         ("pairwise_kernel_matrix", f"PodI fit K {n_snap}x{n_snap} d=1",
          lambda: kmat_case(rk, gen, dev, n_snap, n_snap, 1, "linear",
@@ -220,12 +300,13 @@ def phase_kernels(rk, dev, seed):
                              torch.float32, eps=1.0, check_rows=n_check,
                              timed=True, uniform=True)),
     ]
+    timings = {"pairwise_kernel_matrix": [], "rbf_matvec": []}
     for name, label, run in shapes:
         res = run()
         print(f"    {name:24s} {label:44s} kernel {res['ms']:.4f} ms  "
               f"plain {res['plain_ms']:.4f} ms  max|err| "
               f"{res['max_abs_err']:.3e}", flush=True)
-        timings[name] = res          # the last (largest) shape is reported
+        timings[name].append({"shape": label, **res})
         torch.cuda.empty_cache()
     return timings
 
@@ -392,9 +473,13 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     _build.load_library()
     info = _build.build_info()
+    rows = ptxas_rows(info.get("log", ""))
+    matvec_registers(rows, main_path_plans(
+        rk, torch.cuda.get_device_properties(dev).multi_processor_count))
     report("build", t0, f"{'built' if info.get('built') else 'loaded'} "
-           f"{info['path']} nvcc {info.get('seconds', 0.0):.1f} s; "
-           f"{ptxas_summary(info.get('log', ''))}")
+           f"{info['path']} nvcc {info.get('seconds', 0.0):.1f} s "
+           f"({len(_build._sources())} sources at once); "
+           f"{ptxas_summary(rows)}")
 
     # 3. kernels against their plain versions
     t0 = time.perf_counter()
@@ -443,11 +528,15 @@ def main(argv=None) -> int:
         check(count > 0, f"{name} was not launched on the main path")
     print(f"[launches] ok  {launches}", flush=True)
 
+    # ms, plain_ms and max_abs_err of each kernel are its largest main-path
+    # shape's; "shapes" holds every timed shape
     table = {"kernels": [
-        {"name": name, "route": "cuda", "source": SOURCE,
+        {"name": name, "route": "cuda", "source": SOURCE[name],
          "replaces": REPLACES[name], "launches": launches[name],
-         "max_abs_err": timings[name]["max_abs_err"],
-         "ms": timings[name]["ms"], "plain_ms": timings[name]["plain_ms"]}
+         "max_abs_err": timings[name][-1]["max_abs_err"],
+         "ms": timings[name][-1]["ms"],
+         "plain_ms": timings[name][-1]["plain_ms"],
+         "shapes": timings[name]}
         for name in ("pairwise_kernel_matrix", "rbf_matvec")
     ]}
     print(json.dumps(table))

@@ -1,12 +1,14 @@
 """Build and load the port's CUDA kernels.
 
-``csrc/*.cu`` is compiled by ``nvcc`` into one shared library with a plain
+Each ``csrc/*.cu`` is compiled by its own ``nvcc`` process, all started
+together, and the objects are linked into one shared library with a plain
 C interface, which is loaded with ``ctypes``. The build runs on first use,
 never at import, and goes to ``build/corrla_rs_tpu_torch/`` beside the
 package (a directory that ``.gitignore`` lists), under a name keyed by a
-hash of the sources and flags: a checkout builds its own library the first
-time a kernel is launched, and an edited source builds anew. Only the
-sources in this package are compiled. Without ``nvcc`` the build raises.
+hash of the sources, the headers (``csrc/*.cuh``) and the flags: a checkout
+builds its own library the first time a kernel is launched, and an edited
+source builds anew. Only the sources in this package are compiled. Without
+``nvcc`` the build raises.
 """
 from __future__ import annotations
 
@@ -24,21 +26,21 @@ __all__ = ["load_library", "build_info", "BUILD_DIR"]
 _CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "corrla_rs_tpu_torch"
 _DEFAULT_NVCC = Path("/usr/local/cuda/bin/nvcc")
-_NVCC_FLAGS = (
-    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v",
-)
+_ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
+_NVCC_FLAGS = (*_ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
+               "-Xptxas=-v")
 
 _P, _I64, _F64 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_double
 _SIGNATURES = {
     # xa, xb, out, na, nb, d, phi, eps, stream
     "corrla_kernel_matrix_f32": (_P, _P, _P, _I64, _I64, _I64, _I64, _F64, _P),
     "corrla_kernel_matrix_f64": (_P, _P, _P, _I64, _I64, _I64, _I64, _F64, _P),
-    # q, x, c, out, m, n, d, ncols, phi, eps, stream
-    "corrla_rbf_matvec_f32": (_P, _P, _P, _P, _I64, _I64, _I64, _I64, _I64,
-                              _F64, _P),
-    "corrla_rbf_matvec_f64": (_P, _P, _P, _P, _I64, _I64, _I64, _I64, _I64,
-                              _F64, _P),
+    # q, x, c, out, scratch, m, n, d, ncols, phi, eps, cols, splits,
+    # split_len, stream
+    "corrla_rbf_matvec_f32": (_P, _P, _P, _P, _P, _I64, _I64, _I64, _I64,
+                              _I64, _F64, _I64, _I64, _I64, _P),
+    "corrla_rbf_matvec_f64": (_P, _P, _P, _P, _P, _I64, _I64, _I64, _I64,
+                              _I64, _F64, _I64, _I64, _I64, _P),
     # cudaError_t -> its message
     "corrla_error_string": (ctypes.c_int,),
 }
@@ -73,7 +75,7 @@ def _sources() -> list[Path]:
 
 def _library_path(srcs: list[Path]) -> Path:
     h = hashlib.sha256(" ".join(_NVCC_FLAGS).encode())
-    for src in srcs:
+    for src in [*srcs, *sorted(_CSRC.glob("*.cuh"))]:
         h.update(src.name.encode())
         h.update(src.read_bytes())
     return BUILD_DIR / f"libcorrla_kernels_{h.hexdigest()[:16]}.so"
@@ -83,17 +85,38 @@ def _build(srcs: list[Path], so: Path) -> None:
     nvcc = _find_nvcc()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = so.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [nvcc, *_NVCC_FLAGS, "-o", str(tmp), *map(str, srcs)]
+    objs = [tmp.with_name(f"{tmp.name}.{src.stem}.o") for src in srcs]
+    cmds = [[nvcc, *_NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
+            for src, obj in zip(srcs, objs)]
+    link = [nvcc, *_ARCH, "-shared", "-o", str(tmp), *map(str, objs)]
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True, check=False)
-    _info.update(seconds=time.perf_counter() - t0,
-                 log=proc.stdout + proc.stderr, command=" ".join(cmd))
-    if proc.returncode != 0:
-        tmp.unlink(missing_ok=True)
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}):\n{proc.stdout}{proc.stderr}"
-        )
-    os.replace(tmp, so)
+    procs: list[subprocess.Popen] = []
+    try:
+        for cmd in cmds:
+            procs.append(subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                          stderr=subprocess.STDOUT,
+                                          text=True))
+        outs = [proc.communicate()[0] for proc in procs]
+        log = "".join(outs)
+        failed = [cmd for cmd, proc in zip(cmds, procs) if proc.returncode]
+        if not failed:
+            proc = subprocess.run(link, capture_output=True, text=True,
+                                  check=False)
+            log += proc.stdout + proc.stderr
+            failed = [link] if proc.returncode else []
+        _info.update(seconds=time.perf_counter() - t0, log=log,
+                     command="\n".join(" ".join(c) for c in [*cmds, link]))
+        if failed:
+            tmp.unlink(missing_ok=True)
+            raise RuntimeError(f"nvcc failed: {' '.join(failed[0])}\n{log}")
+        os.replace(tmp, so)
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        for obj in objs:
+            obj.unlink(missing_ok=True)
 
 
 def load_library() -> ctypes.CDLL:
@@ -117,6 +140,6 @@ def load_library() -> ctypes.CDLL:
 
 def build_info() -> dict:
     """Path of the loaded library and, if this process built it, the nvcc
-    command, its wall time in seconds and its output (``-Xptxas=-v``
-    register and shared-memory report)."""
+    commands (one a line), their wall time in seconds and their output
+    (``-Xptxas=-v`` register, spill and shared-memory report)."""
     return dict(_info)

@@ -1,8 +1,9 @@
 """RBF kernel-matrix and streaming-matvec kernels (CUDA) and their plain versions.
 
 Counterparts of the two Pallas TPU kernels in
-``corrla_rs_tpu/ops/pallas_kernels.py``; the CUDA C++ sources are in
-``csrc/rbf_kernels.cu`` (sm_90a), built on first use by ``ops._build``.
+``corrla_rs_tpu/ops/pallas_kernels.py``; the CUDA C++ sources (sm_90a) are
+``csrc/rbf_kernels.cu`` (kernel matrix) and ``csrc/rbf_matvec.cuh`` (matvec),
+built on first use by ``ops._build``.
 
 - ``pairwise_kernel_matrix(xa, xb, kernel, eps)`` replaces
   ``pallas_kernels.pairwise_kernel_matrix`` (``pallas_call`` at :100):
@@ -13,10 +14,15 @@ Counterparts of the two Pallas TPU kernels in
 - ``rbf_matvec(x_query, x_support, coeffs, kernel, eps)`` replaces
   ``pallas_kernels.rbf_matvec_streaming`` (``pallas_call`` at :154):
   y_i = sum_j phi(||q_i - x_j||) c_j without forming the (M, N) matrix. On
-  the H100 it is bound by FMA throughput, about M N (3d + phi + 2C) flops.
-  Each thread owns one query and keeps its C partial sums in registers
-  while the block streams support tiles through shared memory; the sum runs
-  in support order, with no atomics, so it is deterministic.
+  the H100 it is bound by instruction issue, about 2d + 8 + C FP32
+  instructions a pair (7 of them the accurate sqrt, taken for a thread's
+  four queries at once). Each thread keeps four queries in registers and
+  their partial sums for a chunk of columns, and each packed support point
+  (coordinates and coefficients, one 16-byte shared load at d=3, C=1)
+  serves all four; support tiles stream through a ring of cp.async
+  buffers. When the grid would underfill the card, the
+  support is split over blocks and a second kernel adds the splits' partial
+  sums in order (``_matvec_plan``). No atomics: reruns are bit-identical.
 
 Both take f32 or f64 (all operands of one dtype) and return that dtype.
 Distances are direct differences, as the JAX XLA path computes them
@@ -29,6 +35,8 @@ plain PyTorch version (``pairwise_kernel_matrix_ref``, ``rbf_matvec_ref``),
 which nothing on the CUDA path calls.
 """
 from __future__ import annotations
+
+from typing import NamedTuple
 
 import torch
 
@@ -45,6 +53,69 @@ _PHI_CODES = {"linear": 1, "multiquadric": 2, "cubic": 3, "gaussian": 4}
 # plain matvec: query rows per chunk so a chunk's kernel matrix holds at
 # most this many elements
 _REF_CHUNK_ELEMS = 1 << 26
+
+# the matvec's launch shape (csrc/rbf_matvec.cuh): MV_THREADS x MV_QT
+# queries a block, column chunks of one of _MV_COLS (by element size: f64
+# has no 20-column instance), at most 65535 chunks or splits
+_MV_QUERIES_PER_BLOCK = 128 * 4
+_MV_COLS = {4: (1, 2, 4, 8, 16, 20), 8: (1, 2, 4, 8, 16)}
+_MV_MAX_GRID_YZ = 65535
+# instruction slots a (query, support point) pair spends on its distance and
+# phi, against one FMA a column: the price of one more column chunk
+_MV_PAIR_COST = 12
+# blocks an SM that the plan aims for before it splits the support
+_MV_BLOCKS_PER_SM = 2
+
+
+class MatvecPlan(NamedTuple):
+    """Launch plan of the CUDA matvec: ``cols`` columns a thread (the
+    instance), over ``col_chunks`` chunks; ``q_blocks`` query blocks;
+    ``splits`` slices of the support of ``split_len`` points each (the last
+    may hold fewer), summed in order by a second kernel when > 1."""
+    cols: int
+    col_chunks: int
+    q_blocks: int
+    splits: int
+    split_len: int
+
+    @property
+    def blocks(self) -> int:
+        return self.q_blocks * self.col_chunks * self.splits
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def _matvec_plan(m: int, n: int, c: int, n_sms: int,
+                 itemsize: int = 4) -> MatvecPlan:
+    """Plan for ``m`` queries, ``n`` support points, ``c`` columns of
+    ``itemsize``-byte floats on a card with ``n_sms`` SMs. A pure function of
+    its arguments, so the result, which depends on the summation order, is
+    the same run after run.
+
+    The column instance minimises chunks x (pair cost + cols), the work a
+    (query, support point) pair costs across all chunks. When the query
+    blocks times the chunks are fewer than ``_MV_BLOCKS_PER_SM`` blocks an
+    SM, the support is cut into equal splits of ``n // want`` points, which
+    gives at least ``want`` splits, every one non-empty."""
+    cols = min(_MV_COLS[itemsize],
+               key=lambda k: (_cdiv(c, k) * (_MV_PAIR_COST + k), -k))
+    chunks = _cdiv(c, cols)
+    q_blocks = _cdiv(m, _MV_QUERIES_PER_BLOCK)
+    target = _MV_BLOCKS_PER_SM * n_sms
+    splits, split_len = 1, n
+    if q_blocks * chunks < target:
+        # splits of n // want points number fewer than 2 want: half the
+        # grid's limit keeps them within it
+        want = min(_cdiv(target, q_blocks * chunks), _MV_MAX_GRID_YZ // 2)
+        split_len = max(1, n // want)
+        splits = _cdiv(n, split_len)
+    return MatvecPlan(cols, chunks, q_blocks, splits, split_len)
+
+
+def _sm_count(device: torch.device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 def pairwise_dists(xa: torch.Tensor, xb: torch.Tensor) -> torch.Tensor:
@@ -133,7 +204,9 @@ def _check_operands(name: str, **tensors: torch.Tensor) -> torch.Tensor:
 def _raise_on_error(lib, name: str, rc: int) -> None:
     """Raise on a refused launch. The C side refuses sizes its grid or
     shared memory cannot take (e.g. n_b > 4,194,240 for the kernel matrix,
-    or a feature dim too large for the matvec's tiles) as invalid value."""
+    or, for the matvec, more than 1,310,700 columns in f32 and 1,048,560 in
+    f64, or a feature dim above about 80 in f32 and 40 in f64, where its
+    queries no longer fit in shared memory) as invalid value."""
     if rc != 0:
         raise RuntimeError(f"{name}: CUDA kernel launch failed: "
                            f"{lib.corrla_error_string(rc).decode()} ({rc})")
@@ -182,7 +255,9 @@ def rbf_matvec(x_query: torch.Tensor, x_support: torch.Tensor,
     """sum_j phi(||q_i - x_j||) coeffs[j] without forming the (M, N) matrix.
 
     x_query (M, d), x_support (N, d), coeffs (N, C); returns (M, C). CUDA
-    tensors launch the kernel; CPU tensors run ``rbf_matvec_ref``.
+    tensors launch the kernel (``_matvec_plan`` picks its launch shape, and
+    a second, small kernel when it splits the support; ``launches`` counts
+    one a call); CPU tensors run ``rbf_matvec_ref``.
     """
     first = _check_operands("rbf_matvec", x_query=x_query,
                             x_support=x_support, coeffs=coeffs)
@@ -198,13 +273,21 @@ def rbf_matvec(x_query: torch.Tensor, x_support: torch.Tensor,
     if n_q == 0 or n_s == 0:
         return torch.zeros((n_q, n_c), dtype=coeffs.dtype,
                            device=coeffs.device)
+    plan = _matvec_plan(n_q, n_s, n_c, _sm_count(coeffs.device),
+                        coeffs.element_size())
     out = torch.empty((n_q, n_c), dtype=coeffs.dtype, device=coeffs.device)
+    # the splits' partial sums; freed when this returns, which the caching
+    # allocator orders after the kernels on this stream
+    scratch = (torch.empty((plan.splits, n_c, n_q), dtype=coeffs.dtype,
+                           device=coeffs.device) if plan.splits > 1 else None)
     lib = load_library()
     fn = getattr(lib, f"corrla_rbf_matvec_{_suffix(coeffs.dtype)}")
     with torch.cuda.device(coeffs.device):
         stream = torch.cuda.current_stream(coeffs.device).cuda_stream
         rc = fn(x_query.data_ptr(), x_support.data_ptr(), coeffs.data_ptr(),
-                out.data_ptr(), n_q, n_s, d, n_c, phi, float(eps), stream)
+                out.data_ptr(), None if scratch is None else scratch.data_ptr(),
+                n_q, n_s, d, n_c, phi, float(eps), plan.cols, plan.splits,
+                plan.split_len, stream)
     _raise_on_error(lib, "rbf_matvec", rc)
     rbf_matvec.launches += 1
     return out

@@ -10,6 +10,7 @@ import pytest
 import torch
 
 from corrla_rs_tpu_torch.ops import rbf_kernels as rk
+from corrla_rs_tpu_torch.ops._build import load_library
 
 pytestmark = pytest.mark.cuda
 
@@ -44,11 +45,9 @@ def test_kernel_matrix_matches_plain(dev, phi, dtype, na, nb, d):
                 .all())
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
-@pytest.mark.parametrize("phi", PHIS)
-@pytest.mark.parametrize("m,n,d,c", [(7, 13, 2, 1), (1000, 1537, 3, 8),
-                                     (300, 200, 1, 37), (129, 65, 20, 20)])
-def test_matvec_matches_plain(dev, phi, dtype, m, n, d, c):
+def _check_matvec(dev, phi, dtype, m, n, d, c):
+    """One launch of the matvec against the plain version in f64; returns
+    the launch plan."""
     gen = torch.Generator(device=dev).manual_seed(m + n + d + c)
     q = torch.randn(m, d, generator=gen, device=dev, dtype=dtype)
     x = torch.randn(n, d, generator=gen, device=dev, dtype=dtype)
@@ -57,19 +56,90 @@ def test_matvec_matches_plain(dev, phi, dtype, m, n, d, c):
     got = rk.rbf_matvec(q, x, coef, phi, 0.7)
     torch.cuda.synchronize()
     assert rk.rbf_matvec.launches == before + 1
+    assert got.shape == (m, c) and got.dtype == dtype
     qd, xd, cd = q.double(), x.double(), coef.double()
     want = rk.rbf_matvec_ref(qd, xd, cd, phi, 0.7)
     scale = rk.rbf_matvec_ref(qd, xd, cd.abs(), phi, 0.7)
     assert bool(((got.double() - want).abs() <= MATVEC_RTOL[dtype] * scale)
                 .all())
+    return rk._matvec_plan(m, n, c, rk._sm_count(q.device),
+                           q.element_size())
 
 
-def test_matvec_is_deterministic(dev):
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("phi", PHIS)
+@pytest.mark.parametrize("m,n,d,c", [(7, 13, 2, 1), (1000, 1537, 3, 8),
+                                     (300, 200, 1, 37), (129, 65, 20, 20)])
+def test_matvec_matches_plain(dev, phi, dtype, m, n, d, c):
+    _check_matvec(dev, phi, dtype, m, n, d, c)
+
+
+# every instance: d = 1..4 templated, 5, 11 and 20 the runtime loop; each
+# column chunk width, several chunks, and C past 32
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("phi", PHIS)
+@pytest.mark.parametrize("d", [1, 2, 3, 4, 5, 11, 20])
+@pytest.mark.parametrize("c", [1, 3, 8, 20, 33, 100])
+def test_matvec_every_instance_matches_plain(dev, phi, dtype, d, c):
+    _check_matvec(dev, phi, dtype, 600, 777, d, c)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("phi", PHIS)
+@pytest.mark.parametrize("m,n,d,c,split", [
+    (1, 13, 3, 1, True),            # one query, less than a tile
+    (7, 1, 2, 4, False),            # one support point
+    (7, 13, 1, 20, True),           # fewer queries than a thread holds
+    (1, 100_000, 3, 1, True),       # one query, long support
+    (512, 2000, 1, 20, True),       # PodI predict; 2000 not a multiple
+    (70, 5000, 11, 3, True),        # runtime d, split
+    (264 * 512, 100, 2, 1, False),  # the grid fills the card: no split
+], ids=["1x13", "7x1", "7x13", "1x100k", "podi", "d11", "nosplit"])
+def test_matvec_edge_shapes_match_plain(dev, phi, dtype, m, n, d, c, split):
+    plan = _check_matvec(dev, phi, dtype, m, n, d, c)
+    if rk._sm_count(dev) == 132:   # the split flags are for an H100 SXM
+        assert (plan.splits > 1) == split
+
+
+@pytest.mark.parametrize("m,n,d,c", [(5000, 3000, 3, 4), (512, 2000, 1, 20),
+                                     (1, 100_000, 3, 1)],
+                         ids=["whole", "podi-split", "one-query-split"])
+def test_matvec_is_deterministic(dev, m, n, d, c):
     gen = torch.Generator(device=dev).manual_seed(0)
-    q, x = (torch.rand(n, 3, generator=gen, device=dev) for n in (5000, 3000))
-    c = torch.randn(3000, 4, generator=gen, device=dev)
-    first = rk.rbf_matvec(q, x, c, "cubic", 1.0)
-    assert torch.equal(first, rk.rbf_matvec(q, x, c, "cubic", 1.0))
+    q, x = (torch.rand(k, d, generator=gen, device=dev) for k in (m, n))
+    coef = torch.randn(n, c, generator=gen, device=dev)
+    first = rk.rbf_matvec(q, x, coef, "cubic", 1.0)
+    for _ in range(3):
+        assert torch.equal(first, rk.rbf_matvec(q, x, coef, "cubic", 1.0))
+
+
+def test_matvec_refuses_a_bad_plan(dev):
+    # the C side checks the plan it is given: splits must cover the support
+    # exactly, and more than one needs scratch
+    lib = load_library()
+    q = torch.rand(10, 1, device=dev)
+    x = torch.rand(100, 1, device=dev)
+    c = torch.rand(100, 1, device=dev)
+    out = torch.empty(10, 1, device=dev)
+    scratch = torch.empty(4, 10, 1, device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    ptrs = (q.data_ptr(), x.data_ptr(), c.data_ptr(), out.data_ptr())
+    invalid = 1   # cudaErrorInvalidValue
+    for scr, cols, splits, split_len in [
+            (scratch.data_ptr(), 1, 4, 10),     # covers 40 of 100
+            (scratch.data_ptr(), 1, 4, 34),     # the last split is empty
+            (None, 1, 4, 25),                   # no scratch
+            (scratch.data_ptr(), 3, 4, 25),     # no such column instance
+    ]:
+        rc = lib.corrla_rbf_matvec_f32(*ptrs, scr, 10, 100, 1, 1, 1, 1.0,
+                                       cols, splits, split_len, stream)
+        assert rc == invalid
+    rc = lib.corrla_rbf_matvec_f32(*ptrs, scratch.data_ptr(), 10, 100, 1, 1,
+                                   1, 1.0, 1, 4, 25, stream)
+    assert rc == 0
+    torch.testing.assert_close(
+        out, rk.rbf_matvec_ref(q.double(), x.double(), c.double()).float(),
+        rtol=1e-5, atol=1e-5)
 
 
 def test_kernel_matrix_diagonal_is_exact_zero(dev):

@@ -144,6 +144,91 @@ def test_wrappers_reject_bad_operands(rng):
     assert empty.shape == (0, 1)
 
 
+# the launch plan of the CUDA matvec: a pure function of the shape and the
+# SM count, checked here because the kernel itself runs only on the card
+H100_SMS = 132
+
+
+@pytest.mark.parametrize("m,n,c,split", [
+    (1 << 20, 16384, 1, False),      # RbfInterp predict fills the card
+    (264 * 512, 100, 1, False),      # exactly two blocks an SM
+    (512, 2000, 20, True),           # PodI predict: one query block
+    (1, 100_000, 1, True),           # one query
+    (7, 13, 3, True),                # smaller than a block and a tile
+], ids=["interp-1M", "two-per-sm", "podi-512", "one-query", "tiny"])
+def test_matvec_plan_splits_only_grids_that_underfill(m, n, c, split):
+    plan = rbf_kernels._matvec_plan(m, n, c, H100_SMS)
+    if split:
+        assert plan.splits > 1
+        assert plan.blocks >= min(2 * H100_SMS,
+                                  plan.q_blocks * plan.col_chunks * n)
+    else:
+        assert (plan.splits, plan.split_len) == (1, n)
+        assert plan.blocks >= 2 * H100_SMS
+
+
+def test_matvec_plan_podi_shape():
+    # more than one split and at least two blocks an SM; 2000 is not a
+    # multiple of the split, so the last split is short
+    plan = rbf_kernels._matvec_plan(512, 2000, 20, H100_SMS)
+    assert plan.splits > 1 and plan.blocks >= 2 * H100_SMS
+    assert 2000 % plan.split_len != 0
+    assert plan.cols < 32
+
+
+@pytest.mark.parametrize("n", [1, 13, 2000, 16384])
+@pytest.mark.parametrize("m,c", [(1, 1), (512, 20), (1 << 20, 1)],
+                         ids=["one-query", "podi", "interp-1M"])
+def test_matvec_plan_splits_cover_the_support(m, c, n):
+    # every split non-empty, in order, covering [0, n) exactly
+    plan = rbf_kernels._matvec_plan(m, n, c, H100_SMS)
+    bounds = [(z * plan.split_len, min((z + 1) * plan.split_len, n))
+              for z in range(plan.splits)]
+    assert all(lo < hi for lo, hi in bounds)
+    assert bounds[0][0] == 0 and bounds[-1][1] == n
+    assert all(a[1] == b[0] for a, b in zip(bounds, bounds[1:]))
+    assert plan.splits <= 65535
+
+
+@pytest.mark.parametrize("itemsize,c,cols,chunks", [
+    (4, 1, 1, 1), (4, 2, 2, 1), (4, 3, 4, 1), (4, 8, 8, 1), (4, 16, 16, 1),
+    (4, 20, 20, 1), (4, 33, 20, 2), (4, 100, 20, 5),
+    (8, 1, 1, 1), (8, 20, 16, 2), (8, 100, 16, 7),   # f64: no 20-wide
+])
+def test_matvec_plan_column_chunks_fit(itemsize, c, cols, chunks):
+    plan = rbf_kernels._matvec_plan(512, 2000, c, H100_SMS, itemsize)
+    assert (plan.cols, plan.col_chunks) == (cols, chunks)
+    assert (chunks - 1) * cols < c <= chunks * cols
+
+
+def test_matvec_plan_is_the_same_for_the_same_inputs():
+    shapes = [(512, 2000, 20, 132), (1, 100_000, 1, 114), (1 << 20, 16384, 1,
+                                                           132),
+              (3000, 50_000, 4, 78)]
+    first = [rbf_kernels._matvec_plan(*s) for s in shapes]
+    assert first == [rbf_kernels._matvec_plan(*s) for s in shapes]
+    # a card with more SMs splits more, never fewer
+    assert (rbf_kernels._matvec_plan(512, 2000, 20, 264).splits
+            >= first[0].splits)
+
+
+@pytest.mark.parametrize("m,n,c", [(512, 2000, 20), (3, 1001, 2)])
+def test_matvec_split_sums_match_the_whole(rng, m, n, c):
+    # the splits' partial sums, added in split order as the second kernel
+    # does, give the whole matvec
+    q, x = rng.standard_normal((m, 1)), rng.standard_normal((n, 1))
+    coef = rng.standard_normal((n, c))
+    plan = rbf_kernels._matvec_plan(m, n, c, H100_SMS)
+    total = torch.zeros((m, c), dtype=torch.float64)
+    for z in range(plan.splits):
+        lo, hi = z * plan.split_len, min((z + 1) * plan.split_len, n)
+        total += rbf_matvec_ref(_t(q), _t(x[lo:hi]), _t(coef[lo:hi]),
+                                "cubic", 1.0)
+    torch.testing.assert_close(total, rbf_matvec_ref(_t(q), _t(x), _t(coef),
+                                                     "cubic", 1.0),
+                               rtol=1e-12, atol=1e-12)
+
+
 def test_build_without_nvcc_raises(monkeypatch, tmp_path):
     # the kernels are built from source on first CUDA use; with no nvcc the
     # build raises instead of falling back
@@ -165,4 +250,16 @@ def test_library_name_follows_sources(tmp_path, monkeypatch):
     assert first.parent == _build.BUILD_DIR
     src.write_text("// v2\n")
     assert _build._library_path([src]) != first
-    assert [p.name for p in _build._sources()] == ["rbf_kernels.cu"]
+    assert [p.name for p in _build._sources()] == [
+        "rbf_kernels.cu", "rbf_matvec_f32.cu", "rbf_matvec_f64.cu"]
+
+
+def test_library_name_follows_headers(tmp_path, monkeypatch):
+    # the kernels include csrc/*.cuh, so an edited header builds anew too
+    monkeypatch.setattr(_build, "_CSRC", tmp_path)
+    src, header = tmp_path / "k.cu", tmp_path / "k.cuh"
+    src.write_text('#include "k.cuh"\n')
+    header.write_text("// v1\n")
+    first = _build._library_path([src])
+    header.write_text("// v2\n")
+    assert _build._library_path([src]) != first
