@@ -22,15 +22,30 @@ time, and any failure raises (exit code != 0):
    family, 20 modes, predicted at 512 held-out t against the family;
 7. RbfInterp: 16,384 support points in 3-D, linear kernel, poly degree 1
    (K is 16k x 16k f32), fit residual, then 1,048,576 predictions through
-   the matvec kernel, the first 8,192 checked against the plain f64 path.
+   the matvec kernel, the first 8,192 checked against the plain f64 path;
+8. dmdc: DMDc of a known linear system (200,000 states x 1,001 snapshots,
+   2 controls, 8 latent states), 10 modes, rolled out 1,000 steps by the
+   'modes' and 'reduced' methods; PyDMDc's dense-A rollout at 20,000
+   states; dmdc_fit_ensemble and rollout_ensemble over 8 members of 20,000
+   states. Each against the true trajectory;
+9. active_ss: api.active_ss on 8,192 samples in 8-D of y = exp(0.3 a.x),
+   order 2, 64 neighbours (the kNN distance tile goes through the kernel
+   matrix), the leading direction against a;
+10. samplers: cs_dirichlet_sample, 1,000,000 samples in 8-D against a numpy
+    rejection reference; cs_mcmc_dirichlet_sample with 1,024 seed chains x
+    2,000 generations on the device, and at the reference's 12 x 3,000 on
+    the C++ host route.
 
-The build phase prints ptxas's registers and spills for the matvec's
-instances and fails if any spills. The kernels' launch counts are set to 0
-before phase 4 and read after phase 7; both kernels must have launched on
-the main path. The last lines are the kernel table as JSON (every timed
-shape of each kernel), the nvidia-smi line, and the result JSON. Nothing of
-JAX is imported. Without a CUDA device it exits with code 2 and prints no
-result.
+After phase 10 come the timing details of phases 9-10 (the kNN and grads
+steps of active_ss, a DEMC generation) and the kNN against its plain
+version. The build phase prints ptxas's registers and spills for
+the matvec's instances and fails if any spills. The kernels' launch counts
+are set to 0 before phase 4 and read after phase 7, and again before phase
+8 and after phase 10; every kernel of a path must have launched on it. The
+last lines are the kernel table as JSON (every timed shape of each kernel,
+with its bound and, where one exists, a one-call PyTorch equivalent's
+time), the nvidia-smi line, and the result JSON. Nothing of JAX is
+imported. Without a CUDA device it exits with code 2 and prints no result.
 """
 from __future__ import annotations
 
@@ -43,6 +58,7 @@ import subprocess
 import sys
 import time
 
+import numpy as np
 import torch
 
 PHIS = ("linear", "multiquadric", "cubic", "gaussian")
@@ -58,7 +74,26 @@ SIZES = {
     "rpca": (200_000, 512, 20, 64),               # n, m, rank, #sigma
     "podi": (2000, 200_000, 20, 512),             # snapshots, points, modes, queries
     "rbf": (16384, 1 << 20, 8192),                # support, queries, checked
+    "dmdc": (200_000, 1001, 10, 10),              # states, snapshots, modes, iters
+    "dmdc_dense": 20_000,                         # states of PyDMDc's dense A
+    "ensemble": (8, 20_000),                      # members, states each
+    # n cut from 32,768: there the batched SVD of the local fits took 44.5 s
+    "active_ss": (8192, 8, 64, 2, 4096),          # n, dims, nbrs, comps, checked
+    "dirichlet": (1_000_000, 8, 1 << 20),         # samples, ndim, chunk
+    "demc": (1024, 2000),                         # seed chains, generations
+    "demc_ref": (12, 3000),                       # the reference's scale
 }
+# H100 SXM peaks (NVIDIA data sheet, at 700 W): HBM bytes/s, f32 FLOP/s
+# outside the tensor cores
+PEAK_BYTES_S, PEAK_F32_FLOPS = 3.35e12, 67e12
+# the bounds of cs_dirichlet_sample's phase (about 26% acceptance) and the
+# reference's enrichment bounds of the DEMC runs (space_samplers.rs:430-434)
+DIRICHLET_BOUNDS = [[0.01, 0.30]] * 8
+DEMC_BOUNDS = [[0.0, 0.0026], [0.1955, 0.1995], [0.80, 0.825]]
+# kNN tie rule: a neighbour set may differ from the plain f64 one only by
+# points whose f64 distance lies within this relative gap of the k-th
+# nearest distance (near-ties at the boundary, which f32 cannot order)
+KNN_TIE_RTOL = 1e-5
 SOURCE = {
     "pairwise_kernel_matrix": "corrla_rs_tpu_torch/csrc/rbf_kernels.cu",
     "rbf_matvec": "corrla_rs_tpu_torch/csrc/rbf_matvec.cuh",
@@ -201,11 +236,37 @@ def matvec_registers(rows: list, plans: list) -> None:
 # ---------------------------------------------------------------------------
 # phase 3: each kernel against its plain version
 
-def kmat_case(rk, gen, dev, na, nb, d, phi, dtype, eps=0.7, timed=False):
+def bound(n_bytes: float, n_ops: float):
+    """(bound_ms, bound_by): the least time the card could take, the larger
+    of the bytes over the HBM rate and the f32 operations over the f32
+    peak (PEAK_BYTES_S, PEAK_F32_FLOPS)."""
+    t_bytes = n_bytes / PEAK_BYTES_S * 1e3
+    t_ops = n_ops / PEAK_F32_FLOPS * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def kmat_bound(na, nb, d, itemsize=4):
+    """Each input read once, the (na, nb) output written once; a pair costs
+    d subtractions, d multiply-adds (2 operations each) and a square root
+    (linear phi)."""
+    return bound(itemsize * (na * d + nb * d + na * nb), na * nb * (3 * d + 1))
+
+
+def matvec_bound(m, n, d, c, itemsize=4):
+    """Inputs read once and the (m, c) output written once; a pair costs
+    the distance's 3d + 1 operations and one multiply-add a column."""
+    return bound(itemsize * (m * d + n * d + n * c + m * c),
+                 m * n * (3 * d + 1 + 2 * c))
+
+
+def kmat_case(rk, gen, dev, na, nb, d, phi, dtype, eps=0.7, timed=False,
+              check_rows=None):
     xa = torch.randn(na, d, generator=gen, device=dev, dtype=dtype)
     xb = torch.randn(nb, d, generator=gen, device=dev, dtype=dtype)
-    got = rk.pairwise_kernel_matrix(xa, xb, phi, eps)
-    want = rk.pairwise_kernel_matrix_ref(xa.double(), xb.double(), phi, eps)
+    rows = na if check_rows is None else min(na, check_rows)
+    got = rk.pairwise_kernel_matrix(xa, xb, phi, eps)[:rows]
+    want = rk.pairwise_kernel_matrix_ref(xa[:rows].double(), xb.double(), phi,
+                                         eps)
     err = (got.double() - want).abs()
     rtol = KMAT_RTOL[dtype]
     ok = bool((err <= rtol * (want.abs() + want.abs().max())).all())
@@ -214,11 +275,18 @@ def kmat_case(rk, gen, dev, na, nb, d, phi, dtype, eps=0.7, timed=False):
           f"{err.max().item():.3e}")
     out = {"max_abs_err": err.max().item()}
     del got, want, err
+    torch.cuda.empty_cache()
     if timed:
         out["ms"] = cuda_ms(lambda: rk.pairwise_kernel_matrix(xa, xb, phi,
                                                               eps))
         out["plain_ms"] = cuda_ms(
             lambda: rk.pairwise_kernel_matrix_ref(xa, xb, phi, eps))
+        out["bound_ms"], out["bound_by"] = kmat_bound(na, nb, d,
+                                                      xa.element_size())
+        # the one-call PyTorch equivalent (linear phi: the distances)
+        out["library_ms"] = cuda_ms(lambda: torch.cdist(
+            xa, xb, compute_mode="donot_use_mm_for_euclid_dist")) \
+            if phi == "linear" else None
     return out
 
 
@@ -250,6 +318,9 @@ def matvec_case(rk, gen, dev, m, n, d, c, phi, dtype, eps=0.7, check_rows=None,
         out["ms"] = cuda_ms(lambda: rk.rbf_matvec(q, x, coef, phi, eps))
         out["plain_ms"] = cuda_ms(
             lambda: rk.rbf_matvec_ref(q, x, coef, phi, eps))
+        out["bound_ms"], out["bound_by"] = matvec_bound(m, n, d, c,
+                                                        q.element_size())
+        out["library_ms"] = None   # no one PyTorch call: cdist, then a GEMM
     return out
 
 
@@ -284,6 +355,7 @@ def phase_kernels(rk, dev, seed):
               f"{plan.split_len} -> {plan.blocks} blocks"
               f"{', then the sum of splits' if plan.splits > 1 else ''}",
               flush=True)
+    n_as, k_as = SIZES["active_ss"][:2]
     shapes = [
         ("pairwise_kernel_matrix", f"PodI fit K {n_snap}x{n_snap} d=1",
          lambda: kmat_case(rk, gen, dev, n_snap, n_snap, 1, "linear",
@@ -291,6 +363,11 @@ def phase_kernels(rk, dev, seed):
         ("pairwise_kernel_matrix", f"RbfInterp fit K {n_sup}x{n_sup} d=3",
          lambda: kmat_case(rk, gen, dev, n_sup, n_sup, 3, "linear",
                            torch.float32, eps=1.0, timed=True)),
+        ("pairwise_kernel_matrix",
+         f"active_ss kNN tile {n_as}x{n_as} d={k_as}",
+         lambda: kmat_case(rk, gen, dev, n_as, n_as, k_as, "linear",
+                           torch.float32, eps=1.0, timed=True,
+                           check_rows=2048)),
         ("rbf_matvec", f"PodI predict {n_pq} q x {n_snap} s d=1 C={n_modes}",
          lambda: matvec_case(rk, gen, dev, n_pq, n_snap, 1, n_modes,
                              "linear", torch.float32, eps=1.0, timed=True,
@@ -303,8 +380,11 @@ def phase_kernels(rk, dev, seed):
     timings = {"pairwise_kernel_matrix": [], "rbf_matvec": []}
     for name, label, run in shapes:
         res = run()
+        lib = ("none" if res["library_ms"] is None
+               else f"{res['library_ms']:.4f} ms")
         print(f"    {name:24s} {label:44s} kernel {res['ms']:.4f} ms  "
-              f"plain {res['plain_ms']:.4f} ms  max|err| "
+              f"plain {res['plain_ms']:.4f} ms  library {lib}  bound "
+              f"{res['bound_ms']:.4f} ms ({res['bound_by']})  max|err| "
               f"{res['max_abs_err']:.3e}", flush=True)
         timings[name].append({"shape": label, **res})
         torch.cuda.empty_cache()
@@ -443,6 +523,203 @@ def phase_rbf(port, rk, dev, gen):
             "predict_1M_s": sorted(times), "plain_ratio": ratio}
 
 
+
+# ---------------------------------------------------------------------------
+# phases 8-10: the slice of DMDc, active subspaces and the samplers
+
+def latent_system(n_t: int, seed: int):
+    """z_{t+1} = M z_t + G u_t in f64 on the host: 8 latent states in four
+    rotation blocks of radii 0.995-0.97, turned by a random orthogonal Q;
+    u = a sine and a damped cosine. Returns (z (8, n_t), u (2, n_t))."""
+    gen = torch.Generator().manual_seed(seed)
+    m = torch.zeros(8, 8, dtype=torch.float64)
+    for i, (r, w) in enumerate(((0.995, 0.05), (0.99, 0.11), (0.98, 0.23),
+                                (0.97, 0.4))):
+        m[2 * i:2 * i + 2, 2 * i:2 * i + 2] = r * torch.tensor(
+            [[math.cos(w), -math.sin(w)], [math.sin(w), math.cos(w)]],
+            dtype=torch.float64)
+    q = torch.linalg.qr(torch.randn(8, 8, generator=gen,
+                                    dtype=torch.float64)).Q
+    m = q @ m @ q.T
+    g = 0.1 * torch.randn(8, 2, generator=gen, dtype=torch.float64)
+    t = torch.arange(n_t, dtype=torch.float64)
+    u = torch.stack([torch.sin(0.07 * t),
+                     torch.exp(-0.002 * t) * torch.cos(0.031 * t)])
+    z = torch.empty(8, n_t, dtype=torch.float64)
+    z[:, 0] = torch.randn(8, generator=gen, dtype=torch.float64)
+    for k in range(n_t - 1):
+        z[:, k + 1] = m @ z[:, k] + g @ u[:, k]
+    return z, u
+
+
+def lifted(z, n_x, gen, dev, batch=None):
+    """x = Phi z in f32 with Phi (n_x, 8) orthonormal (a batch of them)."""
+    shape = (n_x, 8) if batch is None else (batch, n_x, 8)
+    phi = torch.linalg.qr(torch.randn(shape, generator=gen, device=dev,
+                                      dtype=torch.float64)).Q
+    return (phi @ z.to(dev)).float()
+
+
+def traj_err(pred, x):
+    """max |pred - x[..., 1:]| / max |x| over the rolled steps."""
+    n = pred.shape[-1]
+    return ((pred - x[..., 1:n + 1]).abs().max() / x.abs().max()).item()
+
+
+def phase_dmdc(port, dev, gen, seed):
+    n_x, n_t, n_modes, n_iters = SIZES["dmdc"]
+    n_steps = n_t - 1
+    z, u = latent_system(n_t, seed)
+    u = u.float().to(dev)
+    x = lifted(z, n_x, gen, dev)
+    tol = 1e-3
+    model, fit_s = wall(lambda: port.DMDc(x, u, n_modes, n_iters, key=seed))
+    out = {"fit_s": fit_s, "lambda_max": float(abs(model.lambdas).max())}
+    for method in ("modes", "reduced"):
+        pred, sec = wall(lambda: model.predict_multiple(x[:, :1],
+                                                        u[:, :n_steps],
+                                                        method))
+        check(pred.shape == (n_x, n_steps) and bool(torch.isfinite(pred).all()),
+              f"DMDc {method} rollout shape / finite")
+        err = traj_err(pred, x)
+        check(err <= tol, f"DMDc {method} rollout err {err:.3e} > {tol}")
+        out[method] = (err, sec)
+    del x, model, pred
+    torch.cuda.empty_cache()
+    # PyDMDc: predict rolls the sequence through the dense (n_x, n_x) A
+    xd = lifted(z, SIZES["dmdc_dense"], gen, dev)
+    pyd, fit_d = wall(lambda: port.PyDMDc(xd, u, n_modes, n_iters, key=seed))
+    pred, sec = wall(lambda: pyd.predict(xd[:, :1], u[:, :n_steps]))
+    err = traj_err(pred, xd)
+    check(err <= tol, f"PyDMDc dense rollout err {err:.3e} > {tol}")
+    out["dense"] = (err, sec, fit_d)
+    del xd, pyd, pred
+    torch.cuda.empty_cache()
+    # the ensemble: members share the latent dynamics, each its own Phi
+    n_b, n_xe = SIZES["ensemble"]
+    xb = lifted(z, n_xe, gen, dev, batch=n_b)
+    ub = u.expand(n_b, -1, -1)
+    fit, fit_e = wall(lambda: port.dmdc_fit_ensemble(xb, ub, n_modes,
+                                                     n_iters, key=seed))
+    for method in ("reduced", "modes"):
+        pred, sec = wall(lambda: port.rollout_ensemble(
+            fit, xb[:, :, :1], u[:, :n_steps], method))
+        err = max(traj_err(pred[i], xb[i]) for i in range(n_b))
+        check(err <= tol, f"ensemble {method} rollout err {err:.3e} > {tol}")
+        out["ens_" + method] = (err, sec)
+    out["ens_fit_s"] = fit_e
+    return out
+
+
+def phase_active_ss(port, dev, gen):
+    n, k, n_nbr, n_comps, _ = SIZES["active_ss"]
+    x = torch.rand(n, k, generator=gen, device=dev) * 2 - 1
+    a = torch.randn(k, generator=gen, device=dev)
+    a /= torch.linalg.vector_norm(a)
+    y = torch.exp(0.3 * (x @ a))
+    (comps, vals, sensi), sec = wall(lambda: port.active_ss(x, y, 2, n_nbr,
+                                                            n_comps))
+    check(comps.shape == (k, n_comps) and vals.shape == (k, n_comps)
+          and sensi.shape == (k,), "active_ss shapes")
+    check(all(bool(torch.isfinite(t).all()) for t in (comps, vals, sensi)),
+          "active_ss non-finite output")
+    gap = 1.0 - abs(float(comps[:, 0].double() @ a.double()))
+    tol = 1e-3
+    check(gap <= tol, f"active_ss leading direction: 1-|cos| {gap:.3e} > {tol}")
+    return {"wall_s": sec, "gap": gap, "x": x, "y": y}
+
+
+def phase_samplers(port, dev, seed):
+    from corrla_rs_tpu_torch.ops import samplers
+
+    n, ndim, chunk = SIZES["dirichlet"]
+    bounds = np.asarray(DIRICHLET_BOUNDS)
+    out = {}
+    s, sec = wall(lambda: port.cs_dirichlet_sample(
+        bounds, n, 500, chunk, 1.0, np.ones(ndim), seed=seed, device=dev))
+    check(s.shape == (n, ndim) and s.device == dev,
+          "cs_dirichlet_sample shape / device")
+    sum_err = (s.sum(1) - 1.0).abs().max().item()
+    b = torch.as_tensor(bounds, device=dev, dtype=s.dtype)
+    inside = bool(((s >= b[:, 0]) & (s <= b[:, 1])).all())
+    check(sum_err <= 1e-6 and inside,
+          f"cs_dirichlet_sample sums {sum_err:.3e} / inside bounds {inside}")
+    # acceptance of one device chunk, and a numpy rejection reference
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    zs = samplers._draw_dirichlet(gen, chunk, torch.ones(ndim, device=dev),
+                                  True, torch.float64, dev)
+    acc = ((zs >= b[:, 0]) & (zs <= b[:, 1])).all(1).double().mean().item()
+    rng = np.random.default_rng(seed)
+    e = rng.exponential(size=(2_000_000, ndim))
+    ref = e / e.sum(1, keepdims=True)
+    ref = ref[((ref >= bounds[:, 0]) & (ref <= bounds[:, 1])).all(1)]
+    mean, var = s.mean(0).cpu().numpy(), s.var(0).cpu().numpy()
+    z_max = float(np.max(np.abs(mean - ref.mean(0)) / np.sqrt(
+        var / n + ref.var(0) / len(ref))))
+    check(0.05 <= acc <= 0.5, f"acceptance {acc:.3f} outside 5-50%")
+    check(z_max <= 4.0, f"coordinate means {z_max:.2f} standard errors off")
+    out["dirichlet"] = (sec, acc, sum_err, z_max, len(ref))
+    # DEMC: 1,024 seed chains (the device route), then the reference scale
+    for label, (chains, gens) in (("device", SIZES["demc"]),
+                                  ("reference", SIZES["demc_ref"])):
+        (smp, ar), sec = wall(lambda: port.cs_mcmc_dirichlet_sample(
+            DEMC_BOUNDS, gens, chains, 500, chunk if chains >= 512 else
+            20000, 1.0, np.ones(3), 0.8, 1e-12, seed=seed, device=dev))
+        route = "device" if isinstance(smp, torch.Tensor) else "host C++"
+        smp = torch.as_tensor(smp)
+        check(smp.shape == (gens * chains, 3), f"DEMC {label} shape")
+        sum_err = (smp.sum(1) - 1.0).abs().max().item()
+        check(sum_err <= 1e-6 and 0.3 <= ar <= 0.7,
+              f"DEMC {label}: sums {sum_err:.3e}, acceptance {ar:.3f}")
+        out[label] = (sec, ar, sum_err, route)
+    return out
+
+
+def detail_active_ss(rk, dev, x, y):
+    """Times of the kNN and grads steps alone, and the kNN against its
+    plain version on the first queries under the tie rule."""
+    from corrla_rs_tpu_torch.models.active_subspaces import local_poly_grads
+    from corrla_rs_tpu_torch.ops.knn import knn
+
+    _, _, n_nbr, _, n_chk = SIZES["active_ss"]
+    (_, idx), knn_s = wall(lambda: knn(x, x, n_nbr))
+    y2 = y[:, None]
+    _, grads_s = wall(lambda: local_poly_grads(x[idx], y2[idx], x, 2))
+    xq = x[:n_chk]
+    d_k, i_k = knn(xq, x, n_nbr)
+    dist = rk.pairwise_kernel_matrix_ref(xq.double(), x.double(), "linear")
+    d_r, i_r = torch.topk(dist, n_nbr, dim=1, largest=False, sorted=True)
+    kth = d_r[:, -1:]
+    mark_k = torch.zeros_like(dist, dtype=torch.bool).scatter_(1, i_k, True)
+    mark_r = torch.zeros_like(dist, dtype=torch.bool).scatter_(1, i_r, True)
+    differ = mark_k ^ mark_r
+    near_tie = (dist - kth).abs() <= KNN_TIE_RTOL * kth
+    bad = int((differ & ~near_tie).sum())
+    tied_rows = int(differ.any(1).sum())
+    d_err = ((d_k.double() - torch.gather(dist, 1, i_k)).abs()
+             / torch.gather(dist, 1, i_k).clamp_min(1e-30)).max().item()
+    check(bad == 0, f"kNN: {bad} neighbours differ from plain beyond ties")
+    check(d_err <= KMAT_RTOL[torch.float32],
+          f"kNN distances vs f64: rel err {d_err:.3e}")
+    return {"knn_s": knn_s, "grads_s": grads_s, "tied_rows": tied_rows,
+            "dist_rel_err": d_err}
+
+
+def detail_demc(dev, seed):
+    """Per-generation time of DEMC at the device route's population."""
+    from corrla_rs_tpu_torch.ops import samplers
+
+    chains, gens = SIZES["demc"]
+    seeds = samplers.constr_dirichlet_sample(
+        DEMC_BOUNDS, chains, 500, SIZES["dirichlet"][2], key=seed, device=dev)
+    ln_post = samplers.ln_like_sum(samplers.ln_like_dirichlet(np.ones(3)),
+                                   samplers.ln_prior_uniform(DEMC_BOUNDS))
+    _, sec = wall(lambda: samplers.demc_run(
+        seeds, ln_post, gens, 0.8, 1e-12, seed,
+        lambda v: v / torch.sum(v)))
+    return sec / gens * 1e3
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--seed", type=int, default=0,
@@ -522,23 +799,93 @@ def main(argv=None) -> int:
            f"plain f64: err/scale {r['plain_ratio']:.3e} "
            f"(tol {MATVEC_RTOL[torch.float32]})")
 
-    launches = {"pairwise_kernel_matrix": rk.pairwise_kernel_matrix.launches,
-                "rbf_matvec": rk.rbf_matvec.launches}
-    for name, count in launches.items():
+    first = {"pairwise_kernel_matrix": rk.pairwise_kernel_matrix.launches,
+             "rbf_matvec": rk.rbf_matvec.launches}
+    for name, count in first.items():
         check(count > 0, f"{name} was not launched on the main path")
-    print(f"[launches] ok  {launches}", flush=True)
+    print(f"[launches] ok  rsvd/rpca/PodI/RbfInterp: {first}", flush=True)
+    torch.cuda.empty_cache()
 
-    # ms, plain_ms and max_abs_err of each kernel are its largest main-path
-    # shape's; "shapes" holds every timed shape
-    table = {"kernels": [
-        {"name": name, "route": "cuda", "source": SOURCE[name],
-         "replaces": REPLACES[name], "launches": launches[name],
-         "max_abs_err": timings[name][-1]["max_abs_err"],
-         "ms": timings[name][-1]["ms"],
-         "plain_ms": timings[name][-1]["plain_ms"],
-         "shapes": timings[name]}
-        for name in ("pairwise_kernel_matrix", "rbf_matvec")
-    ]}
+    # 8-10. this slice's path, with the launch counts from 0 again
+    rk.pairwise_kernel_matrix.launches = 0
+    rk.rbf_matvec.launches = 0
+
+    t0 = time.perf_counter()
+    r = phase_dmdc(port, dev, gen, args.seed + 2)
+    n_x, n_t, n_modes, _ = SIZES["dmdc"]
+    report("dmdc", t0, f"{n_x}x{n_t} f32, 2 controls, {n_modes} modes: fit "
+           f"{r['fit_s']:.4f} s (max |lambda| {r['lambda_max']:.4f}); "
+           f"{n_t - 1}-step rollouts, err / max|x| (tol 1e-3): modes "
+           f"{r['modes'][0]:.3e} in {r['modes'][1]:.4f} s "
+           f"({r['modes'][1] / (n_t - 1) * 1e3:.4f} ms a step), reduced "
+           f"{r['reduced'][0]:.3e} in {r['reduced'][1]:.4f} s "
+           f"({r['reduced'][1] / (n_t - 1) * 1e3:.4f} ms a step); PyDMDc dense "
+           f"A at {SIZES['dmdc_dense']}: fit {r['dense'][2]:.4f} s, "
+           f"{r['dense'][0]:.3e} in {r['dense'][1]:.4f} s; ensemble "
+           f"{SIZES['ensemble'][0]}x{SIZES['ensemble'][1]}: fit "
+           f"{r['ens_fit_s']:.4f} s, reduced {r['ens_reduced'][0]:.3e} in "
+           f"{r['ens_reduced'][1]:.4f} s, modes {r['ens_modes'][0]:.3e} in "
+           f"{r['ens_modes'][1]:.4f} s")
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    ass = phase_active_ss(port, dev, gen)
+    n, k, n_nbr, _, _ = SIZES["active_ss"]
+    report("active_ss", t0, f"{n} samples {k}-D, order 2, {n_nbr} nbrs: "
+           f"1-|cos(w1, a)| {ass['gap']:.3e} (tol 1e-3); "
+           f"{ass['wall_s']:.4f} s")
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    r = phase_samplers(port, dev, args.seed + 3)
+    n, ndim, chunk = SIZES["dirichlet"]
+    sec, acc, sum_err, z_max, n_ref = r["dirichlet"]
+    lines = [f"cs_dirichlet_sample {n}x{ndim} chunk {chunk}: {sec:.4f} s, "
+             f"acceptance {acc:.4f}, max |sum-1| {sum_err:.1e}, means within "
+             f"{z_max:.2f} SE of numpy ({n_ref} rows; tol 4)"]
+    for label, (chains, gens) in (("device", SIZES["demc"]),
+                                  ("reference", SIZES["demc_ref"])):
+        sec, ar, sum_err, route = r[label]
+        lines.append(f"cs_mcmc_dirichlet_sample {chains} chains x {gens}: "
+                     f"route {route}, {sec:.4f} s, acceptance {ar:.4f} (0.3-"
+                     f"0.7), max |sum-1| {sum_err:.1e}")
+    report("samplers", t0, "; ".join(lines))
+
+    second = {"pairwise_kernel_matrix": rk.pairwise_kernel_matrix.launches,
+              "rbf_matvec": rk.rbf_matvec.launches}
+    check(second["pairwise_kernel_matrix"] > 0,
+          "pairwise_kernel_matrix was not launched by the kNN of active_ss")
+    print(f"[launches] ok  dmdc/active_ss/samplers: {second}", flush=True)
+    torch.cuda.empty_cache()
+
+    # timing details and the kNN against its plain version (not counted)
+    t0 = time.perf_counter()
+    knn_r = detail_active_ss(rk, dev, ass["x"], ass["y"])
+    torch.cuda.empty_cache()
+    gen_ms = detail_demc(dev, args.seed + 3)
+    report("details", t0, f"active_ss kNN {knn_r['knn_s']:.4f} s, grads step "
+           f"{knn_r['grads_s']:.4f} s; kNN vs plain f64 on "
+           f"{SIZES['active_ss'][4]} queries: {knn_r['tied_rows']} rows "
+           f"differ only at near-ties (gap < {KNN_TIE_RTOL} rel), distance "
+           f"rel err {knn_r['dist_rel_err']:.3e}; DEMC generation at "
+           f"{SIZES['demc'][0]} chains {gen_ms:.4f} ms")
+
+    # a kernel's numbers are those of its largest timed shape (by bound);
+    # "shapes" holds every timed shape, "launches" both paths' counts
+    paths = {"rsvd/rpca/PodI/RbfInterp": first,
+             "dmdc/active_ss/samplers": second}
+    table = {"kernels": []}
+    for name in ("pairwise_kernel_matrix", "rbf_matvec"):
+        top = max(timings[name], key=lambda row: row["bound_ms"])
+        table["kernels"].append({
+            "name": name, "route": "cuda", "source": SOURCE[name],
+            "replaces": REPLACES[name],
+            "launches": sum(p[name] for p in paths.values()),
+            "launches_by_path": {k: p[name] for k, p in paths.items()},
+            **{key: top[key] for key in ("max_abs_err", "ms", "plain_ms",
+                                         "bound_ms", "bound_by",
+                                         "library_ms")},
+            "shapes": timings[name]})
     print(json.dumps(table))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -1,1 +1,1 @@
-"""Fitted models of the port: PCA and POD."""
+"""Fitted models of the port: PCA, POD, DMD/DMDc and active subspaces."""

@@ -1,0 +1,454 @@
+"""Dynamic Mode Decomposition with control (DMDc) and plain DMD.
+
+Counterpart of ``corrla_rs_tpu/models/dmd.py`` (Proctor / Brunton / Kutz,
+"Dynamic Mode Decomposition with Control"; parity with reference
+dmd_rom.rs:20-225). DMDc represents x_{t+1} = A x_t + B u_t:
+
+- Omega = vstack(X; U), input space Omega[:, :-1], output space X'
+  (dmd_rom.rs:66,149-162);
+- RSVD of both spaces with 12 oversamples (dmd_rom.rs:72,82), the two
+  sketches drawn from two child generators of ``key`` (``_split_seed``);
+- A~ from eq. 29, B~ from eq. 30 (dmd_rom.rs:90-106);
+- complex eigendecomposition of the r x r A~ (dmd_rom.rs:112-125): on the
+  host (``eig_backend="host"``, LAPACK) or on the tensor's device
+  (``"device"``, ``torch.linalg.eig``, which synchronises on CUDA);
+- DMD modes from eq. 36 kept as real/imag parts (dmd_rom.rs:128-146), and
+  the factored dynamics W = diag(lambda) Phi^+ through a rank-cutoff
+  complex pseudoinverse, so A = Phi_r W_r - Phi_i W_i;
+- ``est_a_til`` builds the dense (n_x, n_x) A lazily (dmd_rom.rs:165-175).
+
+The products of eq. 36 are reassociated so that no (n_x, n_x) intermediate
+forms: the mode prefactor is (X' V) (S^+ U_1^T U^), not ((X' V S^+) U_1^T) U^.
+Rollouts are loops over steps of a few matrix-vector products on the
+device, with no synchronisation inside the loop. ``dmdc_fit_ensemble``
+fits the members one after another and takes their eigendecompositions in
+one batched call; ``rollout_ensemble`` steps all members at once. The
+``mesh=`` path is not ported.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from corrla_rs_tpu_torch.ops.eig import eig, eig_host
+from corrla_rs_tpu_torch.ops.mat_utils import pinv_comp_parts, pinv_diag
+from corrla_rs_tpu_torch.ops.random_svd import random_svd
+from corrla_rs_tpu_torch.utils.config import DmdConfig
+from corrla_rs_tpu_torch.utils.device import as_tensor
+from corrla_rs_tpu_torch.utils.prng import split_seed
+
+__all__ = ["DMDc", "DMD", "dmdc_fit_ensemble", "rollout_ensemble"]
+
+# relative cutoff of the host backend's complex pinv (the JAX package's
+# _pinv_complex_np): junk mode columns of an over-parameterized fit would be
+# amplified by ~1e16 under the reference's additive eps (dmd_rom.rs parity
+# stays available as ops.mat_utils.mat_pinv_comp(mode="reference"))
+_HOST_PINV_RTOL = 1.0e-10
+
+# The one place DMDc derives its RSVD seeds: child generators of a seed or
+# generator. The parity tests replace it to hand the JAX package's split
+# keys to ops.random_svd._draw_sketch.
+_split_seed = split_seed
+
+
+def _check_backend(eig_backend: str) -> None:
+    if eig_backend not in ("host", "device"):
+        raise ValueError(
+            f"eig_backend must be 'host' or 'device', got {eig_backend!r}"
+        )
+
+
+def _check_shape(name: str, t: torch.Tensor, rows: int, cols=None) -> None:
+    if t.ndim != 2 or t.shape[0] != rows or cols not in (None, t.shape[1]):
+        want = f"({rows}, {'n' if cols is None else cols})"
+        raise ValueError(f"{name} must be {want}, got {tuple(t.shape)}")
+
+
+def _dmdc_reduce(x, u, n_modes, n_iters, n_oversamples, key):
+    """Stage 1: both RSVDs and the reduced operators (eqs. 29-30).
+
+    Returns (a_til (r, r), b_op (n_x, n_u), tmp_modes_scale (n_x, r),
+    u_hat (n_x, r)).
+    """
+    n_x, n_u = x.shape[0], u.shape[0]
+    omega = torch.cat([x, u], dim=0)
+    x_in = omega[:, :-1]              # input space (state + control)
+    y_out = x[:, 1:]                  # output space (state only)
+    k1, k2 = _split_seed(key, 2, x.device)
+    u_til, s_til, vt_til = random_svd(x_in, n_modes, n_iters, n_oversamples,
+                                      key=k1)
+    v_til = vt_til.mT
+    u_til_1 = u_til[:n_x, :]
+    u_til_2 = u_til[n_x:n_x + n_u, :]
+    u_hat, _s, _vt = random_svd(y_out, n_modes, n_iters, n_oversamples,
+                                key=k2)
+    s_til_inv = pinv_diag(torch.diag(s_til))
+    y_v = y_out @ v_til                                    # (n_x, r)
+    # eq. 29 (dmd_rom.rs:90-97)
+    tmp_op_scale = (u_hat.mT @ y_v) @ s_til_inv
+    u1t_uhat = u_til_1.mT @ u_hat                          # (r, r)
+    a_til = tmp_op_scale @ u1t_uhat
+    # eq. 30 (dmd_rom.rs:100-106)
+    b_op = u_hat @ (tmp_op_scale @ u_til_2.mT)
+    # eq. 36 mode prefactor (dmd_rom.rs:134-139)
+    tmp_modes_scale = y_v @ (s_til_inv @ u1t_uhat)
+    return a_til, b_op, tmp_modes_scale, u_hat
+
+
+def _factored(lam_re, lam_im, modes_re, modes_im, rtol=None):
+    """W = diag(lambda) Phi^+ as (w_re, w_im), leading dims batch."""
+    p_re, p_im = pinv_comp_parts(modes_re, modes_im, rtol)
+    w_re = lam_re[..., :, None] * p_re - lam_im[..., :, None] * p_im
+    w_im = lam_re[..., :, None] * p_im + lam_im[..., :, None] * p_re
+    return w_re, w_im
+
+
+def _spectrum(a_til, eig_backend):
+    """(lambdas as host complex numpy, lam_re, lam_im, v_re, v_im) with the
+    parts as tensors of a_til's dtype and device."""
+    if eig_backend == "device":
+        lam, v = eig(a_til)
+        lam_np = lam.cpu().numpy()
+    else:
+        lam_np, v_np = eig_host(a_til)
+        lam = torch.as_tensor(lam_np, device=a_til.device)
+        v = torch.as_tensor(v_np, device=a_til.device)
+    dt = a_til.dtype
+    return (lam_np, lam.real.to(dt), lam.imag.to(dt), v.real.to(dt),
+            v.imag.to(dt))
+
+
+def _roll(step, x0: torch.Tensor, n_steps: int) -> torch.Tensor:
+    """Apply ``step(x, j)`` n_steps times from x0 (..., n_x, 1); returns
+    (..., n_x, n_steps), column j the state after step j."""
+    out = x0.new_empty((n_steps,) + x0.shape[:-1])
+    x = x0
+    for j in range(n_steps):
+        x = step(x, j)
+        out[j] = x[..., 0]
+    return out.movedim(0, -1)
+
+
+def _controls(b_op, u_seq):
+    """B u_t for every column t, step-major: (n_times, ..., n_x, 1)."""
+    return (b_op @ u_seq).movedim(-1, 0).contiguous()[..., None]
+
+
+def _rollout_dense(a_op, b_op, x0, u_seq):
+    bu = _controls(b_op, u_seq)
+    return _roll(lambda x, j: a_op @ x + bu[j], x0, u_seq.shape[-1])
+
+
+def _rollout_factored(phi_re, phi_im, w_re, w_im, b_op, x0, u_seq):
+    """A x = Phi_r (W_r x) - Phi_i (W_i x) as one product pair, O(n_x r)."""
+    phi = torch.cat([phi_re, -phi_im], dim=-1)
+    w = torch.cat([w_re, w_im], dim=-2)
+    bu = _controls(b_op, u_seq)
+    return _roll(lambda x, j: phi @ (w @ x) + bu[j], x0, u_seq.shape[-1])
+
+
+def _rollout_reduced(u_hat, a_til, b_op, x0, u_seq):
+    """Eig-free rollout in the POD basis: U^ (A~ (U^T x)) + B u."""
+    bu = _controls(b_op, u_seq)
+    u_hat_t = u_hat.mT
+    return _roll(lambda x, j: u_hat @ (a_til @ (u_hat_t @ x)) + bu[j], x0,
+                 u_seq.shape[-1])
+
+
+class DMDc:
+    """DMD with control. Constructor mirrors PyDMDc
+    (lib_math_utils_py.rs:262-271): ``DMDc(x_data, u_data, n_modes,
+    n_iters)`` with dt fixed at 1.0 like the binding.
+
+    x_data: (n_x, n_t) snapshot columns; u_data: (n_u, n_t) control
+    columns, taken to x's device and dtype. ``key`` is an int seed or a
+    ``torch.Generator``; ``device`` is where numpy ``x_data`` goes (default
+    ``utils.device.default_device()``).
+
+    eig_backend: 'host' (LAPACK on the host for the tiny r x r
+    eigensolve, between the two device stages) or 'device'
+    (``torch.linalg.eig`` on the data's device). ``lambdas`` is a host
+    numpy complex array in both.
+    """
+
+    def __init__(self, x_data, u_data, n_modes: int, n_iters: int,
+                 dt: float | None = None, key=0, mesh=None,
+                 config: DmdConfig | None = None, eig_backend: str = "host",
+                 device=None):
+        cfg = config or DmdConfig()
+        _check_backend(eig_backend)
+        if mesh is not None:
+            raise NotImplementedError("DMDc(mesh=...) is not ported")
+        x = as_tensor(x_data, device=device)
+        u = as_tensor(u_data, device=x.device, dtype=x.dtype)
+        self.n_snapshots = x.shape[1]
+        self.n_x = x.shape[0]
+        self.n_u = u.shape[0]
+        self.n_modes = int(n_modes)
+        self.dt_snapshots = float(dt if dt is not None else cfg.dt)
+        self._A, self._B, tmp_modes_scale, self._u_hat = _dmdc_reduce(
+            x, u, self.n_modes, int(n_iters), int(cfg.n_oversamples), key)
+        self.lambdas, lam_re, lam_im, v_re, v_im = _spectrum(self._A,
+                                                             eig_backend)
+        self.modes_re = tmp_modes_scale @ v_re
+        self.modes_im = tmp_modes_scale @ v_im
+        self._a_full = None
+        rtol = None if eig_backend == "device" else _HOST_PINV_RTOL
+        self._w_re, self._w_im = _factored(lam_re, lam_im, self.modes_re,
+                                           self.modes_im, rtol)
+
+    def est_a_til(self) -> torch.Tensor:
+        """Full-state A = Phi_r W_r - Phi_i W_i (dmd_rom.rs:165-175), built
+        once on first use: O(n_x^2) memory."""
+        if self._a_full is None:
+            self._a_full = (self.modes_re @ self._w_re
+                            - self.modes_im @ self._w_im)
+        return self._a_full
+
+    def est_b_til(self) -> torch.Tensor:
+        """Full-state B operator. dmd_rom.rs:178-180."""
+        return self._B
+
+    def _input(self, v) -> torch.Tensor:
+        return as_tensor(v, device=self._B.device, dtype=self._B.dtype)
+
+    def predict(self, x_0, u_input) -> torch.Tensor:
+        """One step: A x_0 + B u. Parity with dmd_rom.rs:185-194."""
+        x0, u = self._input(x_0), self._input(u_input)
+        _check_shape("x_0", x0, self.n_x, 1)
+        _check_shape("u_input", u, self.n_u, 1)
+        return self.est_a_til() @ x0 + self._B @ u
+
+    def predict_multiple(self, x_0, u_seq, method: str = "dense"):
+        """Roll the dynamics over the columns of u_seq. dmd_rom.rs:199-225.
+
+        Returns (n_x, n_times); column j is the state after stepping with
+        u_seq[:, j]. method='modes' applies A in factored form (O(n_x r) a
+        step, no dense A); method='reduced' rolls in the POD basis
+        U^ A~ U^T and needs no eigendecomposition.
+        """
+        x0, u = self._input(x_0), self._input(u_seq)
+        _check_shape("x_0", x0, self.n_x, 1)
+        _check_shape("u_seq", u, self.n_u)
+        if method == "modes":
+            return _rollout_factored(self.modes_re, self.modes_im,
+                                     self._w_re, self._w_im, self._B, x0, u)
+        if method == "reduced":
+            return _rollout_reduced(self._u_hat, self._A, self._B, x0, u)
+        return _rollout_dense(self.est_a_til(), self._B, x0, u)
+
+
+def dmdc_fit_ensemble(x_batch, u_batch, n_modes: int, n_iters: int, key=0,
+                      config: DmdConfig | None = None, device=None):
+    """DMDc fits over an ensemble of snapshot families (EXTENSION).
+
+    x_batch: (B, n_x, n_t); u_batch: (B, n_u, n_t). Member b's RSVD seeds
+    are the children of the b-th child of ``key``, as the JAX package splits
+    its keys. The members' eigendecompositions run as one batched
+    ``torch.linalg.eig`` on the device, and the factored dynamics use the
+    dtype-aware cutoff of ``pinv_comp_parts``. Returns a dict of batched
+    tensors: ``lambdas_re/lambdas_im`` (B, r), ``modes_re/modes_im``
+    (B, n_x, r), ``a_til`` (B, r, r), ``b_op`` (B, n_x, n_u), ``u_hat``
+    (B, n_x, r), ``w_re/w_im`` (B, r, n_x), ready for ``rollout_ensemble``.
+    """
+    cfg = config or DmdConfig()
+    x_batch = as_tensor(x_batch, device=device)
+    u_batch = as_tensor(u_batch, device=x_batch.device, dtype=x_batch.dtype)
+    if x_batch.ndim != 3 or u_batch.ndim != 3:
+        raise ValueError(
+            f"expected (B, n_x, n_t) and (B, n_u, n_t) batches, got "
+            f"{tuple(x_batch.shape)} and {tuple(u_batch.shape)}"
+        )
+    keys = _split_seed(key, x_batch.shape[0], x_batch.device)
+    parts = [_dmdc_reduce(x, u, int(n_modes), int(n_iters),
+                          int(cfg.n_oversamples), k)
+             for x, u, k in zip(x_batch, u_batch, keys)]
+    a_til, b_op, tmp_modes_scale, u_hat = (torch.stack(p) for p in
+                                           zip(*parts))
+    lam, v = torch.linalg.eig(a_til)
+    dt = a_til.dtype
+    lam_re, lam_im = lam.real.to(dt), lam.imag.to(dt)
+    modes_re = tmp_modes_scale @ v.real.to(dt)
+    modes_im = tmp_modes_scale @ v.imag.to(dt)
+    w_re, w_im = _factored(lam_re, lam_im, modes_re, modes_im)
+    return dict(lambdas_re=lam_re, lambdas_im=lam_im, modes_re=modes_re,
+                modes_im=modes_im, a_til=a_til, b_op=b_op, u_hat=u_hat,
+                w_re=w_re, w_im=w_im)
+
+
+def rollout_ensemble(fit, x0_batch, u_seq, method: str = "reduced"):
+    """Roll every ensemble member forward, all members in each step.
+
+    fit: output of ``dmdc_fit_ensemble``; x0_batch: (B, n_x, 1); u_seq:
+    (n_u, n_times) shared controls or (B, n_u, n_times) per member.
+    method: 'reduced' (POD-basis rollout) or 'modes' (factored
+    eigendynamics). Returns (B, n_x, n_times).
+    """
+    b_op = fit["b_op"]
+    x0 = as_tensor(x0_batch, device=b_op.device, dtype=b_op.dtype)
+    u = as_tensor(u_seq, device=b_op.device, dtype=b_op.dtype)
+    if u.ndim == 2:
+        u = u.expand((x0.shape[0],) + u.shape)
+    if method == "reduced":
+        return _rollout_reduced(fit["u_hat"], fit["a_til"], b_op, x0, u)
+    if method == "modes":
+        return _rollout_factored(fit["modes_re"], fit["modes_im"],
+                                 fit["w_re"], fit["w_im"], b_op, x0, u)
+    raise ValueError(f"method must be 'reduced' or 'modes', got {method!r}")
+
+
+# ---------------------------------------------------------------------------
+# Plain (uncontrolled) DMD: EXTENSION, no reference analogue
+# ---------------------------------------------------------------------------
+
+def _dmd_reduce_exact(x, n_modes, n_iters, n_oversamples, key,
+                      rank_rtol=0.0):
+    """Exact DMD stage 1 (Tu et al. 2014): rank-r RSVD of X1, A~ = U^T X2 V
+    S^{-1}, and the exact-mode prefactor X2 V S^{-1}. rank_rtol=0 keeps the
+    reference's eps-pinv of S; rank_rtol > 0 zeroes directions with
+    s < rank_rtol * s_max (they surface as lambda ~= 0 modes)."""
+    x1, x2 = x[:, :-1], x[:, 1:]
+    u_r, s_r, vt_r = random_svd(x1, n_modes, n_iters, n_oversamples, key=key)
+    if rank_rtol > 0.0:
+        inv = torch.where(s_r > rank_rtol * s_r[0],
+                          1.0 / s_r.clamp_min(1e-300), torch.zeros_like(s_r))
+        s_inv = torch.diag(inv)
+    else:
+        s_inv = pinv_diag(torch.diag(s_r))
+    proj = (x2 @ vt_r.mT) @ s_inv
+    return u_r.mT @ proj, proj, u_r
+
+
+def _pod_project(x, n_modes, n_iters, n_oversamples, key):
+    u_pod, _, _ = random_svd(x, n_modes, n_iters, n_oversamples, key=key)
+    return u_pod, u_pod.mT @ x[:, :-1], u_pod.mT @ x[:, 1:]
+
+
+def _dmd_reduce_tls(x, n_modes, n_iters, n_oversamples, key):
+    """Total-least-squares DMD stage 1 (Hemati et al. 2017): the leading r
+    left singular directions U_z = [U11; U21] of the stacked projected
+    snapshots [X1r; X2r], from one eigh of their (2r, 2r) Gram;
+    A~ = U21 U11^{-1}."""
+    u_pod, x1r, x2r = _pod_project(x, n_modes, n_iters, n_oversamples, key)
+    z = torch.cat([x1r, x2r], dim=0)
+    _, evecs = torch.linalg.eigh(z @ z.mT)                 # ascending
+    uz = evecs.flip(-1)[:, :n_modes]
+    u11, u21 = uz[:n_modes], uz[n_modes:]
+    a_til = torch.linalg.solve(u11.mT, u21.mT).mT
+    return a_til, u_pod, u_pod
+
+
+def _sqrtm_db(a: torch.Tensor, n_steps: int = 30) -> torch.Tensor:
+    """Principal matrix square root by the Denman-Beavers iteration:
+    Y <- (Y + Z^{-1})/2, Z <- (Z + Y^{-1})/2 from Y0=A, Z0=I."""
+    y, z = a, torch.eye(a.shape[0], dtype=a.dtype, device=a.device)
+    for _ in range(n_steps):
+        y, z = 0.5 * (y + torch.linalg.inv(z)), 0.5 * (z + torch.linalg.inv(y))
+    return y
+
+
+def _dmd_reduce_fb(x, n_modes, n_iters, n_oversamples, key):
+    """Forward-backward DMD stage 1 (Dawson et al. 2016): the geometric
+    mean A = (A_f A_b^{-1})^{1/2} of the forward and backward operators in
+    one shared POD basis, through the real Denman-Beavers root."""
+    u_pod, x1r, x2r = _pod_project(x, n_modes, n_iters, n_oversamples, key)
+    g11, g22, g21 = x1r @ x1r.mT, x2r @ x2r.mT, x2r @ x1r.mT
+    a_f = torch.linalg.solve(g11.mT, g21.mT).mT
+    a_b = torch.linalg.solve(g22.mT, g21).mT
+    a_sq = torch.linalg.solve(a_b.mT, a_f.mT).mT
+    return _sqrtm_db(a_sq), u_pod, u_pod
+
+
+class DMD:
+    """Exact Dynamic Mode Decomposition (no control input), EXTENSION.
+
+    x_data: (n_x, n_t) snapshot columns of x_{t+1} ~= A x_t. Rank-r fit via
+    the randomized SVD; ``key`` is an int seed or a ``torch.Generator``.
+
+    eig_backend: 'host' (LAPACK) or 'device' (``torch.linalg.eig``).
+    rank_rtol (solver='exact' only): 0 = reference eps-pinv semantics;
+    > 0 truncates singular values below rank_rtol * s_max.
+    solver: 'exact' (ordinary LS, exact modes), 'tls' (total least
+    squares) or 'fb' (forward-backward); 'tls'/'fb' return projected modes
+    Phi = U_pod W.
+
+    Attributes after fit: ``lambdas`` and ``amplitudes`` (b = Phi^+ x_0) as
+    host numpy complex arrays, ``modes_re``/``modes_im`` (n_x, r).
+    """
+
+    def __init__(self, x_data, n_modes: int, n_iters: int = 10, key=0,
+                 eig_backend: str = "host", solver: str = "exact",
+                 config: DmdConfig | None = None, rank_rtol: float = 0.0,
+                 device=None):
+        cfg = config or DmdConfig()
+        _check_backend(eig_backend)
+        if solver not in ("exact", "tls", "fb"):
+            raise ValueError(
+                f"solver must be 'exact', 'tls' or 'fb', got {solver!r}"
+            )
+        if rank_rtol and solver != "exact":
+            raise ValueError(
+                "rank_rtol is only meaningful for solver='exact' (tls/fb "
+                "regularize through their POD projection instead)"
+            )
+        x = as_tensor(x_data, device=device)
+        self.n_x, self.n_t = x.shape
+        self.n_modes = int(n_modes)
+        self.solver = solver
+        args = (x, self.n_modes, int(n_iters), int(cfg.n_oversamples), key)
+        if solver == "exact":
+            a_til, proj, u_r = _dmd_reduce_exact(*args,
+                                                 rank_rtol=float(rank_rtol))
+        else:
+            reduce = {"tls": _dmd_reduce_tls, "fb": _dmd_reduce_fb}[solver]
+            a_til, proj, u_r = reduce(*args)
+        self._A = a_til
+        self._u_r = u_r
+        self.lambdas, lam_re, lam_im, v_re, v_im = _spectrum(a_til,
+                                                             eig_backend)
+        self.modes_re = proj @ v_re
+        self.modes_im = proj @ v_im
+        rtol = None if eig_backend == "device" else _HOST_PINV_RTOL
+        p_re, p_im = pinv_comp_parts(self.modes_re, self.modes_im, rtol)
+        self._w_re = lam_re[:, None] * p_re - lam_im[:, None] * p_im
+        self._w_im = lam_re[:, None] * p_im + lam_im[:, None] * p_re
+        p = torch.complex(p_re, p_im)
+        self.amplitudes = (p @ x[:, 0:1].to(p.dtype))[:, 0].cpu().numpy()
+
+    def eigs_continuous(self, dt: float = 1.0) -> np.ndarray:
+        """Continuous-time eigenvalues log(lambda)/dt: real part = growth
+        rate, imaginary part = angular frequency."""
+        return np.log(self.lambdas.astype(np.complex128)) / float(dt)
+
+    def predict_multiple(self, x_0, n_steps: int,
+                         method: str = "modes") -> torch.Tensor:
+        """Roll x <- A x for ``n_steps`` from x_0 (n_x, 1); returns
+        (n_x, n_steps), column j = state after j+1 steps. method='modes'
+        (factored A, O(n_x r) a step) or 'reduced' (U_r A~ U_r^T)."""
+        x0 = as_tensor(x_0, device=self._A.device, dtype=self._A.dtype)
+        _check_shape("x_0", x0, self.n_x, 1)
+        n_steps = int(n_steps)
+        if method == "reduced":
+            u_t = self._u_r.mT
+            return _roll(lambda x, j: self._u_r @ (self._A @ (u_t @ x)), x0,
+                         n_steps)
+        if method != "modes":
+            raise ValueError(
+                f"method must be 'modes' or 'reduced', got {method!r}"
+            )
+        phi = torch.cat([self.modes_re, -self.modes_im], dim=1)
+        w = torch.cat([self._w_re, self._w_im], dim=0)
+        return _roll(lambda x, j: phi @ (w @ x), x0, n_steps)
+
+    def reconstruct(self, n_steps: int | None = None) -> torch.Tensor:
+        """Best-fit reconstruction of the training trajectory from the
+        fitted spectrum: columns 1..n_steps regenerated from snapshot 0
+        (host complex arithmetic, returned on the modes' device)."""
+        n = self.n_t - 1 if n_steps is None else int(n_steps)
+        phi = (self.modes_re.cpu().numpy()
+               + 1j * self.modes_im.cpu().numpy())
+        ks = np.arange(1, n + 1)
+        lam_pow = self.lambdas[None, :] ** ks[:, None]      # (n, r)
+        states = (lam_pow * self.amplitudes[None, :]) @ phi.T
+        return torch.as_tensor(np.real(states).T.copy(),
+                               device=self.modes_re.device)

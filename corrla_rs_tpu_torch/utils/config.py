@@ -7,12 +7,18 @@ under ``corrla_rs_tpu`` imports JAX.
 - RSVD: 10 iterations, 10 oversamples
 - PCA: 20 power iterations, min(n_dim, 10) oversamples (pca_rsvd.rs:65-66)
 - POD: 10 iterations, 10 oversamples (pod_rom.rs:56)
+- DMDc: 12 oversamples (dmd_rom.rs:72,82)
+- active-subspace fit_svd: 8 iterations, 10 oversamples
+  (active_subspaces.rs:243)
+- rejection sampler chunking (space_samplers.rs:98, benchmark defaults)
+- DEMC: gamma 0.8, jitter width 1e-12
 """
 from __future__ import annotations
 
 from dataclasses import dataclass
 
-__all__ = ["RsvdConfig", "PcaConfig", "PodConfig"]
+__all__ = ["RsvdConfig", "PcaConfig", "PodConfig", "DmdConfig",
+           "ActiveSsConfig", "DirichletSamplerConfig", "DemcConfig"]
 
 
 @dataclass(frozen=True)
@@ -36,3 +42,28 @@ class PcaConfig:
 class PodConfig:
     n_iter: int = 10
     n_oversamples: int = 10
+
+
+@dataclass(frozen=True)
+class DmdConfig:
+    n_oversamples: int = 12
+    dt: float = 1.0
+
+
+@dataclass(frozen=True)
+class ActiveSsConfig:
+    n_iter: int = 8
+    n_oversamples: int = 10
+
+
+@dataclass(frozen=True)
+class DirichletSamplerConfig:
+    max_zshots: int = 500
+    chunk_size: int = 20000
+    c_scale: float = 1.0
+
+
+@dataclass(frozen=True)
+class DemcConfig:
+    gamma: float = 0.8
+    var_epsilon: float = 1e-12

@@ -12,6 +12,8 @@ import numpy as np
 import pytest
 import torch
 
+from corrla_rs_tpu.utils.prng import as_key
+from corrla_rs_tpu_torch.models import dmd as port_dmd
 from corrla_rs_tpu_torch.ops import random_svd as port_random_svd
 from corrla_rs_tpu_torch.utils.device import default_device, set_default_device
 
@@ -22,12 +24,20 @@ EPS = {np.float32: float(np.finfo(np.float32).eps),
 
 
 def jax_sketch(seed, shape, dtype, device):
-    """The JAX package's sketch for an int seed: ``jax.random.normal(
-    jax.random.key(seed), shape, dtype)``, drawn in that dtype (f32 and
-    f64 draws differ, so it is not cast)."""
+    """The JAX package's sketch for an int seed or a JAX key:
+    ``jax.random.normal(as_key(seed), shape, dtype)``, drawn in that dtype
+    (f32 and f64 draws differ, so it is not cast)."""
     jdt = jnp.float32 if dtype == torch.float32 else jnp.float64
-    draw = np.array(jax.random.normal(jax.random.key(int(seed)), shape, jdt))
+    key = jax.random.key(int(seed)) if isinstance(seed, (int, np.integer)) \
+        else seed
+    draw = np.array(jax.random.normal(key, shape, jdt))
     return torch.from_numpy(draw).to(device)
+
+
+def jax_split(seed, n, device):
+    """The JAX package's ``jax.random.split(as_key(seed), n)``, in place of
+    the port's child generators."""
+    return jax.random.split(as_key(seed), int(n))
 
 
 @pytest.fixture
@@ -41,8 +51,10 @@ def cpu_device():
 
 @pytest.fixture
 def same_sketch(cpu_device, monkeypatch):
-    """Port on the CPU, drawing the JAX package's sketch."""
+    """Port on the CPU, drawing the JAX package's sketch from the JAX
+    package's keys (DMDc splits its seed as JAX does)."""
     monkeypatch.setattr(port_random_svd, "_draw_sketch", jax_sketch)
+    monkeypatch.setattr(port_dmd, "_split_seed", jax_split)
 
 
 def decaying(rng, shape, dtype, rate=0.8):

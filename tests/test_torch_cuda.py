@@ -169,3 +169,88 @@ def test_wrappers_raise_instead_of_falling_back(dev):
         rk.rbf_matvec(x, x.cpu(), torch.ones(10, 1))
     with pytest.raises(ValueError, match="contiguous"):
         rk.pairwise_kernel_matrix(x, torch.rand(2, 10, device=dev).mT)
+
+
+# ---------------------------------------------------------------------------
+# the kNN on the kernel-matrix kernel, and the slice's models on the card
+
+
+def _knn_plain(xq, xs, k):
+    d = rk.pairwise_kernel_matrix_ref(xq.double(), xs.double(), "linear")
+    return torch.topk(d, k, dim=1, largest=False, sorted=True)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("kw", [{}, {"query_chunk": 100},
+                                {"support_chunk": 256},
+                                {"support_chunk": 300, "query_chunk": 77}],
+                         ids=["dense", "query-chunks", "support-stream",
+                              "both-ragged"])
+def test_knn_on_the_kernel_matches_plain(dev, dtype, kw):
+    from corrla_rs_tpu_torch.ops.knn import knn
+
+    gen = torch.Generator(device=dev).manual_seed(5)
+    xs = torch.randn(1000, 5, generator=gen, device=dev, dtype=dtype)
+    xq = torch.randn(333, 5, generator=gen, device=dev, dtype=dtype)
+    before = rk.pairwise_kernel_matrix.launches
+    d, idx = knn(xq, xs, 16, **kw)
+    torch.cuda.synchronize()
+    assert rk.pairwise_kernel_matrix.launches > before
+    d_ref, i_ref = _knn_plain(xq, xs, 16)
+    # random normal data: no near-ties at this size, so the sets agree
+    assert torch.equal(idx.sort(1).values, i_ref.sort(1).values)
+    torch.testing.assert_close(d.double(), d_ref, rtol=KMAT_RTOL[dtype],
+                               atol=0)
+
+
+def test_dmdc_on_cuda_matches_cpu_f64(dev, monkeypatch):
+    import numpy as np
+
+    from corrla_rs_tpu_torch.models import dmd
+    from corrla_rs_tpu_torch.ops import random_svd
+    from corrla_rs_tpu_torch.utils.prng import as_generator, split_seed
+
+    # both devices draw the same sketches: from CPU generators, moved over
+    monkeypatch.setattr(dmd, "_split_seed",
+                        lambda key, n, device: split_seed(key, n, "cpu"))
+    monkeypatch.setattr(
+        random_svd, "_draw_sketch",
+        lambda key, shape, dtype, device: torch.randn(
+            shape, generator=as_generator(key, "cpu"), dtype=dtype).to(device))
+    rng = np.random.default_rng(0)
+    x = np.cumsum(rng.standard_normal((300, 61)), axis=1)
+    u = rng.standard_normal((2, 61))
+    for backend in ("host", "device"):
+        mc = dmd.DMDc(x, u, 6, 10, key=3, eig_backend=backend, device="cpu")
+        mg = dmd.DMDc(x, u, 6, 10, key=3, eig_backend=backend, device=dev)
+        assert mg.modes_re.device.type == "cuda"
+        np.testing.assert_allclose(np.sort_complex(mg.lambdas),
+                                   np.sort_complex(mc.lambdas), atol=1e-9)
+        for method in ("dense", "modes", "reduced"):
+            pc = mc.predict_multiple(x[:, :1], u, method)
+            pg = mg.predict_multiple(x[:, :1], u, method).cpu()
+            assert pg.dtype == torch.float64
+            scale = float(pc.abs().max())
+            assert float((pg - pc).abs().max()) <= 1e-8 * scale, method
+
+
+def test_active_ss_on_cuda_matches_cpu_f64(dev):
+    import numpy as np
+
+    import corrla_rs_tpu_torch as port
+    from corrla_rs_tpu_torch.ops import rbf_kernels
+
+    # four well-separated eigenvalues of C, so every component is defined
+    rng = np.random.default_rng(1)
+    x = rng.uniform(-1, 1, (3000, 4))
+    y = np.sin(2 * x[:, 0]) + 0.5 * x[:, 1] ** 2 + 0.3 * x[:, 2] * x[:, 3] \
+        + 0.1 * x[:, 3]
+    before = rbf_kernels.pairwise_kernel_matrix.launches
+    cg, vg, sg = port.active_ss(x, y, 2, 40, 2, device=dev)
+    torch.cuda.synchronize()
+    assert rbf_kernels.pairwise_kernel_matrix.launches > before
+    cc, vc, sc = port.active_ss(x, y, 2, 40, 2, device="cpu")
+    sign = torch.sign((cg.cpu() * cc).sum(0))
+    torch.testing.assert_close(cg.cpu() * sign, cc, rtol=0, atol=1e-8)
+    torch.testing.assert_close(vg.cpu(), vc, rtol=1e-8, atol=1e-12)
+    torch.testing.assert_close(sg.cpu(), sc, rtol=1e-8, atol=1e-12)
