@@ -11,10 +11,15 @@ time, and any failure raises (exit code != 0):
 1. device: name and power limit from nvidia-smi, TF32 off;
 2. build: nvcc compiles corrla_rs_tpu_torch/csrc/*.cu (timed);
 3. kernels: both CUDA kernels against their plain PyTorch versions (run in
-   f64 on the card) for every phi, f32 and f64, at odd shapes and at the
-   main path's shapes, with kernel and plain times (the median of 5
-   windows of at least 20 ms each), the matvec's launch plan and its
-   bit-identical rerun;
+   f64 on the card) for every phi, f32 and f64, at odd shapes (ragged
+   ones on the kernel matrix's direct stores, aligned ones on its TMA
+   stores, and blocks of a larger matrix whose guard cells must stay
+   untouched) and at the main path's shapes, called as the main path calls
+   them (the fits' K into the block of their saddle matrix), with kernel
+   and plain times (the median of 5 windows of at least 20 ms each),
+   bit-identical reruns and the kernel matrix's exact phi(0) diagonal. For
+   the kernel matrix also its device time (torch.profiler) and the store
+   path it took; the wrappers' host time a call; the matvec's launch plans;
 4. rsvd: A = U diag(s) V^T, 100,000 x 10,000 f32 with 200 known geometric
    sigma, rank 100, 8 iterations, 10 oversamples;
 5. rpca: 200,000 x 512 f32 with a known centered spectrum, rank 20;
@@ -33,13 +38,15 @@ time, and any failure raises (exit code != 0):
    matrix), the leading direction against a;
 10. samplers: cs_dirichlet_sample, 1,000,000 samples in 8-D against a numpy
     rejection reference; cs_mcmc_dirichlet_sample with 1,024 seed chains x
-    2,000 generations on the device, and at the reference's 12 x 3,000 on
-    the C++ host route.
+    2,000 generations and at the reference's 12 x 3,000, both on the
+    device, and 12 x 3,000 asked for on the CPU (the C++ host route).
 
-After phase 10 come the timing details of phases 9-10 (the kNN and grads
-steps of active_ss, a DEMC generation) and the kNN against its plain
-version. The build phase prints ptxas's registers and spills for
-the matvec's instances and fails if any spills. The kernels' launch counts
+After phase 10 come the timing details of phases 7 and 9-10 (RbfInterp's
+fit with its saddle matrix built by concatenation, as before the kernel
+matrix wrote K in place, and built in place; the kNN and grads steps of
+active_ss; a DEMC generation) and the kNN against its plain version. The
+build phase prints ptxas's registers and spills for both kernels'
+instances and fails if any spills. The kernels' launch counts
 are set to 0 before phase 4 and read after phase 7, and again before phase
 8 and after phase 10; every kernel of a path must have launched on it. The
 last lines are the kernel table as JSON (every timed shape of each kernel,
@@ -83,13 +90,17 @@ SIZES = {
     "demc": (1024, 2000),                         # seed chains, generations
     "demc_ref": (12, 3000),                       # the reference's scale
 }
-# H100 SXM peaks (NVIDIA data sheet, at 700 W): HBM bytes/s, f32 FLOP/s
-# outside the tensor cores
-PEAK_BYTES_S, PEAK_F32_FLOPS = 3.35e12, 67e12
+# H100 SXM peaks (NVIDIA data sheet, at 700 W): HBM bytes/s, f32 and f64
+# FLOP/s outside the tensor cores
+PEAK_BYTES_S, PEAK_F32_FLOPS, PEAK_F64_FLOPS = 3.35e12, 67e12, 34e12
 # the bounds of cs_dirichlet_sample's phase (about 26% acceptance) and the
 # reference's enrichment bounds of the DEMC runs (space_samplers.rs:430-434)
 DIRICHLET_BOUNDS = [[0.01, 0.30]] * 8
 DEMC_BOUNDS = [[0.0, 0.0026], [0.1955, 0.1995], [0.80, 0.825]]
+# (label, (seed chains, generations), device) of the DEMC runs
+DEMC_RUNS = (("device", SIZES["demc"], "cuda"),
+             ("reference", SIZES["demc_ref"], "cuda"),
+             ("host", SIZES["demc_ref"], "cpu"))
 # kNN tie rule: a neighbour set may differ from the plain f64 one only by
 # points whose f64 distance lies within this relative gap of the k-th
 # nearest distance (near-ties at the boundary, which f32 cannot order)
@@ -142,6 +153,24 @@ def cuda_ms(fn, window_ms: float = 20.0, windows: int = 5) -> float:
     return statistics.median(per_call)
 
 
+def host_us(fn, calls: int = 5000, rounds: int = 3) -> float:
+    """Host time of one call of ``fn`` in µs: the best of ``rounds`` loops
+    of ``calls`` back-to-back calls on the host clock, for a call whose
+    kernel is shorter than its host work, so the launch queue never
+    fills."""
+    for _ in range(100):
+        fn()
+    torch.cuda.synchronize()
+    best = math.inf
+    for _ in range(rounds):
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        best = min(best, (time.perf_counter() - t0) / calls)
+        torch.cuda.synchronize()
+    return best * 1e6
+
+
 def wall(fn):
     """(result, host seconds) of ``fn`` ending in a device synchronise."""
     torch.cuda.synchronize()
@@ -188,9 +217,14 @@ def ptxas_summary(rows: list) -> str:
             f"spill bytes {sum(r[2] for r in rows)}")
 
 
-# rbf_matvec_kernel<T, PHI, D, CC> in a mangled name
+# rbf_matvec_kernel<T, PHI, D, CC> and kernel_matrix_kernel<T, PHI, D> in
+# a mangled name
 MATVEC_INSTANCE = re.compile(
     r"rbf_matvec_kernelI([fd])Li(\d+)ELi(\d+)ELi(\d+)E")
+KMAT_INSTANCE = re.compile(r"kernel_matrix_kernelI([fd])Li(\d+)ELi(\d+)E")
+# the kernel matrix's main-path instances: (dtype, phi, D)
+KMAT_MAIN = (("f32", "linear", 1), ("f32", "linear", 3), ("f32", "linear", 8),
+             ("f64", "linear", 3))
 
 
 def main_path_plans(rk, sms: int) -> list:
@@ -233,15 +267,41 @@ def matvec_registers(rows: list, plans: list) -> None:
     check(not spilling, f"matvec instances spill: {spilling}")
 
 
+def kmat_registers(rows: list) -> None:
+    """Print the kernel matrix's instances' registers and spills, those of
+    the main path's instances among them; fail on a spill."""
+    inst = {}
+    for name, regs, spills in rows:
+        m = KMAT_INSTANCE.search(name)
+        if m:
+            dt, phi, d = m.groups()
+            inst[("f32" if dt == "f" else "f64", PHIS[int(phi) - 1],
+                  int(d))] = (regs, spills)
+    if not inst:
+        print("    kernel matrix: no ptxas report (library was already "
+              "built)")
+        return
+    regs = [r for r, _ in inst.values()]
+    print(f"    kernel matrix: {len(inst)} instances, registers "
+          f"{min(regs)}-{max(regs)}, spill bytes "
+          f"{sum(sp for _, sp in inst.values())}; main-path instances: "
+          + ", ".join(f"{dt} {phi} D={d} "
+                      f"{inst.get((dt, phi, d), ('?',))[0]} registers"
+                      for dt, phi, d in KMAT_MAIN), flush=True)
+    spilling = [k for k, (_, sp) in inst.items() if sp]
+    check(not spilling, f"kernel-matrix instances spill: {spilling}")
+
+
 # ---------------------------------------------------------------------------
 # phase 3: each kernel against its plain version
 
-def bound(n_bytes: float, n_ops: float):
+def bound(n_bytes: float, n_ops: float, itemsize: int = 4):
     """(bound_ms, bound_by): the least time the card could take, the larger
-    of the bytes over the HBM rate and the f32 operations over the f32
-    peak (PEAK_BYTES_S, PEAK_F32_FLOPS)."""
+    of the bytes over the HBM rate and the operations over the peak of
+    their type outside the tensor cores (PEAK_BYTES_S, PEAK_F32_FLOPS,
+    PEAK_F64_FLOPS)."""
     t_bytes = n_bytes / PEAK_BYTES_S * 1e3
-    t_ops = n_ops / PEAK_F32_FLOPS * 1e3
+    t_ops = n_ops / (PEAK_F32_FLOPS if itemsize == 4 else PEAK_F64_FLOPS) * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -249,7 +309,26 @@ def kmat_bound(na, nb, d, itemsize=4):
     """Each input read once, the (na, nb) output written once; a pair costs
     d subtractions, d multiply-adds (2 operations each) and a square root
     (linear phi)."""
-    return bound(itemsize * (na * d + nb * d + na * nb), na * nb * (3 * d + 1))
+    return bound(itemsize * (na * d + nb * d + na * nb), na * nb * (3 * d + 1),
+                 itemsize)
+
+
+def device_ms(fn, names, calls: int = 20) -> float:
+    """Device time of one call of ``fn`` in ms: the time torch.profiler
+    records for the CUDA kernels whose names contain one of ``names``,
+    over ``calls`` calls, divided by the calls."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    total = sum(ev.device_time_total for ev in prof.key_averages()
+                if any(n in ev.key for n in names))
+    check(total > 0, f"torch.profiler recorded no device time for {names}")
+    return total / 1e3 / calls
 
 
 def matvec_bound(m, n, d, c, itemsize=4):
@@ -259,35 +338,99 @@ def matvec_bound(m, n, d, c, itemsize=4):
                  m * n * (3 * d + 1 + 2 * c))
 
 
+GUARD = -7.5   # what the cells around a kernel matrix's block hold
+
+
 def kmat_case(rk, gen, dev, na, nb, d, phi, dtype, eps=0.7, timed=False,
-              check_rows=None):
+              check_rows=None, square=False, pad=None):
+    """The kernel matrix against its plain version in f64 (``square``: xb
+    is xa, and the diagonal must be exactly phi(0)), and a bit-identical
+    rerun; with ``timed``, its times beside the bound and the library.
+
+    Without ``pad`` the call is ``pairwise_kernel_matrix``. With it (square
+    only), the call is ``_pairwise_kernel_matrix_into`` on the top-left
+    (na, na) block of an (na + pad)^2 matrix laid out as ``rbf_fit`` lays
+    out its saddle matrix, and the cells around the block must keep their
+    GUARD value."""
+    from corrla_rs_tpu_torch.ops.interp import _padded_square
+
     xa = torch.randn(na, d, generator=gen, device=dev, dtype=dtype)
-    xb = torch.randn(nb, d, generator=gen, device=dev, dtype=dtype)
+    xb = xa if square else torch.randn(nb, d, generator=gen, device=dev,
+                                       dtype=dtype)
     rows = na if check_rows is None else min(na, check_rows)
-    got = rk.pairwise_kernel_matrix(xa, xb, phi, eps)[:rows]
+    what = f"pairwise_kernel_matrix {phi} {dtype} {na}x{nb} d={d}"
+    if pad is None:
+        def call():
+            return rk.pairwise_kernel_matrix(xa, xb, phi, eps)
+        full = call()
+        again = call()
+    else:
+        big = _padded_square(na + pad, dtype, dev).fill_(GUARD)
+        what += (f" into the block of a {na + pad}^2 matrix with rows "
+                 f"{big.stride(0)} apart")
+        full = big[:na, :nb]
+
+        def call():
+            return rk._pairwise_kernel_matrix_into(full, xa, xb, phi, eps)
+        call()
+        twin = _padded_square(na + pad, dtype, dev).fill_(GUARD)
+        again = rk._pairwise_kernel_matrix_into(twin[:na, :nb], xa, xb, phi,
+                                                eps)
+        check(bool((big[na:] == GUARD).all())
+              and bool((big[:na, nb:] == GUARD).all()),
+              f"{what}: a guard cell was written")
+    check(torch.equal(full, again), f"{what}: a rerun differs")
+    del again
+    if square:
+        phi0 = rk.rbf_kernel_eval(torch.zeros(1, dtype=dtype, device=dev),
+                                  phi, eps)
+        check(bool((torch.diagonal(full) == phi0).all()),
+              f"{what}: the diagonal is not exactly phi(0)")
+    got = full[:rows]
     want = rk.pairwise_kernel_matrix_ref(xa[:rows].double(), xb.double(), phi,
                                          eps)
     err = (got.double() - want).abs()
     rtol = KMAT_RTOL[dtype]
     ok = bool((err <= rtol * (want.abs() + want.abs().max())).all())
     check(ok and bool(torch.isfinite(got).all()),
-          f"pairwise_kernel_matrix {phi} {dtype} {na}x{nb} d={d}: max err "
-          f"{err.max().item():.3e}")
-    out = {"max_abs_err": err.max().item()}
+          f"{what}: max err {err.max().item():.3e}")
+    out = {"max_abs_err": err.max().item(), "store": rk._kmat_store_path(full),
+           "checked_rows": rows}
     del got, want, err
-    torch.cuda.empty_cache()
     if timed:
-        out["ms"] = cuda_ms(lambda: rk.pairwise_kernel_matrix(xa, xb, phi,
-                                                              eps))
+        out["ms"] = cuda_ms(call)
+        out["profile"] = lambda: device_ms(call, ("kernel_matrix_kernel",))
         out["plain_ms"] = cuda_ms(
             lambda: rk.pairwise_kernel_matrix_ref(xa, xb, phi, eps))
         out["bound_ms"], out["bound_by"] = kmat_bound(na, nb, d,
                                                       xa.element_size())
+        out["share"] = out["bound_ms"] / out["ms"]
         # the one-call PyTorch equivalent (linear phi: the distances)
         out["library_ms"] = cuda_ms(lambda: torch.cdist(
             xa, xb, compute_mode="donot_use_mm_for_euclid_dist")) \
             if phi == "linear" else None
     return out
+
+
+def kmat_view_case(rk, gen, dev, phi, dtype, ld, off, na=1000, nb=2000,
+                   d=3, eps=0.7):
+    """The kernel matrix into a block of a larger matrix: right, and the
+    guard cells around the block untouched. Returns the store path."""
+    xa = torch.randn(na, d, generator=gen, device=dev, dtype=dtype)
+    xb = torch.randn(nb, d, generator=gen, device=dev, dtype=dtype)
+    big = torch.full((na + 2, ld), GUARD, dtype=dtype, device=dev)
+    view = big[1:na + 1, off:off + nb]
+    rk._pairwise_kernel_matrix_into(view, xa, xb, phi, eps)
+    want = rk.pairwise_kernel_matrix_ref(xa.double(), xb.double(), phi, eps)
+    err = (view.double() - want).abs()
+    guard = torch.ones_like(big, dtype=torch.bool)
+    guard[1:na + 1, off:off + nb] = False
+    check(bool((err <= KMAT_RTOL[dtype] * (want.abs() + want.abs().max()))
+               .all()) and bool((big[guard] == GUARD).all()),
+          f"pairwise_kernel_matrix into a ({na + 2}, {ld}) matrix at column "
+          f"{off}, {phi} {dtype}: max err {err.max().item():.3e} or a guard "
+          "cell written")
+    return rk._kmat_store_path(view)
 
 
 def matvec_case(rk, gen, dev, m, n, d, c, phi, dtype, eps=0.7, check_rows=None,
@@ -327,11 +470,23 @@ def matvec_case(rk, gen, dev, m, n, d, c, phi, dtype, eps=0.7, check_rows=None,
 def phase_kernels(rk, dev, seed):
     gen = torch.Generator(device=dev).manual_seed(seed)
     n_checks = 0
+    stores = set()
     for dtype in (torch.float32, torch.float64):
         for phi in PHIS:
-            for na, nb, d in ((7, 13, 2), (1000, 1537, 3), (130, 70, 20)):
-                kmat_case(rk, gen, dev, na, nb, d, phi, dtype)
+            # ragged rows (direct stores), aligned ones (TMA), d templated
+            # (1-8) and the runtime loop (20), and a square one
+            for na, nb, d in ((7, 13, 2), (1000, 1537, 3), (130, 70, 20),
+                              (2001, 2003, 8), (300, 256, 5)):
+                stores.add(kmat_case(rk, gen, dev, na, nb, d, phi,
+                                     dtype)["store"])
                 n_checks += 1
+            kmat_case(rk, gen, dev, 500, 500, 1, phi, dtype, square=True)
+            # blocks of a larger matrix: a 16-byte row stride and base
+            # (TMA), an odd stride, an 8-byte offset, and rows 2,002 floats
+            # apart, alternately 16- and 8-byte aligned (direct)
+            for ld, off in ((2052, 0), (2003, 0), (2052, 2), (2002, 0)):
+                stores.add(kmat_view_case(rk, gen, dev, phi, dtype, ld, off))
+                n_checks += 2
             # d = 1..4 templated and 5, 20 the runtime loop; each of these
             # splits the support (1 x 100,000 in 265 splits), the RbfInterp
             # shape below does not
@@ -341,9 +496,12 @@ def phase_kernels(rk, dev, seed):
                                (130, 700, 5, 2)):
                 matvec_case(rk, gen, dev, m, n, d, c, phi, dtype)
                 n_checks += 1
+    check(stores == {"tma", "direct"},
+          f"the kernel matrix's odd shapes took only {stores}")
     print(f"    odd shapes: {n_checks} cases, all 4 phi, f32 and f64 "
-          f"(kernel matrix rtol {KMAT_RTOL}, matvec rtol {MATVEC_RTOL} of "
-          "sum |phi c|)", flush=True)
+          f"(kernel matrix rtol {KMAT_RTOL}, both store paths, reruns "
+          f"bit-identical, exact phi(0) diagonals, guard cells untouched; "
+          f"matvec rtol {MATVEC_RTOL} of sum |phi c|)", flush=True)
     # the main path's shapes: PodI (d = 1) and RbfInterp (d = 3), f32
     n_snap, _, n_modes, n_pq = SIZES["podi"]
     n_sup, n_q, n_check = SIZES["rbf"]
@@ -356,38 +514,87 @@ def phase_kernels(rk, dev, seed):
               f"{', then the sum of splits' if plan.splits > 1 else ''}",
               flush=True)
     n_as, k_as = SIZES["active_ss"][:2]
+    # (kernel, label, main path, run): the kernel matrix's main-path shapes
+    # are x against itself, called as its callers call it: the two fits
+    # into the top-left block of their saddle matrix (poly degree 1 adds
+    # d + 1 rows and columns; rows padded to 128 bytes), the kNN through
+    # the public wrapper. The f64 shape and the kNN's shape before the
+    # active_ss cut are measured beside them
     shapes = [
-        ("pairwise_kernel_matrix", f"PodI fit K {n_snap}x{n_snap} d=1",
+        ("pairwise_kernel_matrix", f"PodI fit K {n_snap}x{n_snap} d=1", True,
          lambda: kmat_case(rk, gen, dev, n_snap, n_snap, 1, "linear",
-                           torch.float32, eps=1.0, timed=True)),
+                           torch.float32, eps=1.0, timed=True, square=True,
+                           pad=2)),
         ("pairwise_kernel_matrix", f"RbfInterp fit K {n_sup}x{n_sup} d=3",
+         True,
          lambda: kmat_case(rk, gen, dev, n_sup, n_sup, 3, "linear",
-                           torch.float32, eps=1.0, timed=True)),
+                           torch.float32, eps=1.0, timed=True, square=True,
+                           pad=4)),
         ("pairwise_kernel_matrix",
-         f"active_ss kNN tile {n_as}x{n_as} d={k_as}",
+         f"active_ss kNN tile {n_as}x{n_as} d={k_as}", True,
          lambda: kmat_case(rk, gen, dev, n_as, n_as, k_as, "linear",
+                           torch.float32, eps=1.0, timed=True, square=True)),
+        ("pairwise_kernel_matrix", f"f64 K {n_sup}x{n_sup} d=3", False,
+         lambda: kmat_case(rk, gen, dev, n_sup, n_sup, 3, "linear",
+                           torch.float64, eps=1.0, timed=True, square=True)),
+        ("pairwise_kernel_matrix", "kNN tile before the cut 32768x32768 d=8",
+         False,
+         lambda: kmat_case(rk, gen, dev, 32768, 32768, 8, "linear",
                            torch.float32, eps=1.0, timed=True,
-                           check_rows=2048)),
+                           check_rows=1024, square=True)),
         ("rbf_matvec", f"PodI predict {n_pq} q x {n_snap} s d=1 C={n_modes}",
+         True,
          lambda: matvec_case(rk, gen, dev, n_pq, n_snap, 1, n_modes,
                              "linear", torch.float32, eps=1.0, timed=True,
                              uniform=True)),
         ("rbf_matvec", f"RbfInterp predict {n_q} q x {n_sup} s d=3 C=1",
+         True,
          lambda: matvec_case(rk, gen, dev, n_q, n_sup, 3, 1, "linear",
                              torch.float32, eps=1.0, check_rows=n_check,
                              timed=True, uniform=True)),
     ]
+    results = []
+    for name, label, main, run in shapes:
+        results.append((name, label, main, run()))
+        torch.cuda.empty_cache()
+    # the wrappers' host cost a call, at 64 points (kernels of a few µs)
+    x = torch.rand(64, 1, generator=gen, device=dev)
+    k = torch.empty(64, 64, device=dev)
+    c = torch.rand(64, 1, generator=gen, device=dev)
+    costs = {
+        "pairwise_kernel_matrix": host_us(
+            lambda: rk.pairwise_kernel_matrix(x, x, "linear", 1.0)),
+        "_pairwise_kernel_matrix_into": host_us(
+            lambda: rk._pairwise_kernel_matrix_into(k, x, x, "linear", 1.0)),
+        "rbf_matvec": host_us(lambda: rk.rbf_matvec(x, x, c, "linear", 1.0)),
+    }
+    print("    host time a call at 64 points (best of 3 x 5000 calls): "
+          + ", ".join(f"{n} {us:.2f} us" for n, us in costs.items()),
+          flush=True)
+    # device times last: a torch.profiler run may leave launches slower for
+    # the rest of the process, and the per-call and host times above are
+    # host-bound at the small shapes
+    for _, _, _, res in results:
+        if "profile" in res:
+            res["device_ms"] = res.pop("profile")()
+            res["device_share"] = res["bound_ms"] / res["device_ms"]
+            torch.cuda.empty_cache()
     timings = {"pairwise_kernel_matrix": [], "rbf_matvec": []}
-    for name, label, run in shapes:
-        res = run()
+    for name, label, main, res in results:
+        res["host_us_64"] = costs[name]
         lib = ("none" if res["library_ms"] is None
                else f"{res['library_ms']:.4f} ms")
-        print(f"    {name:24s} {label:44s} kernel {res['ms']:.4f} ms  "
+        kmat = ""
+        if name == "pairwise_kernel_matrix":
+            kmat = (f"  device {res['device_ms']:.4f} ms  store "
+                    f"{res['store']}  share of bound {res['share']:.3f} per "
+                    f"call, {res['device_share']:.3f} device  checked "
+                    f"{res['checked_rows']} rows")
+        print(f"    {name:24s} {label:44s} kernel {res['ms']:.4f} ms{kmat}  "
               f"plain {res['plain_ms']:.4f} ms  library {lib}  bound "
               f"{res['bound_ms']:.4f} ms ({res['bound_by']})  max|err| "
               f"{res['max_abs_err']:.3e}", flush=True)
-        timings[name].append({"shape": label, **res})
-        torch.cuda.empty_cache()
+        timings[name].append({"shape": label, "main_path": main, **res})
     return timings
 
 
@@ -659,13 +866,17 @@ def phase_samplers(port, dev, seed):
     check(0.05 <= acc <= 0.5, f"acceptance {acc:.3f} outside 5-50%")
     check(z_max <= 4.0, f"coordinate means {z_max:.2f} standard errors off")
     out["dirichlet"] = (sec, acc, sum_err, z_max, len(ref))
-    # DEMC: 1,024 seed chains (the device route), then the reference scale
-    for label, (chains, gens) in (("device", SIZES["demc"]),
-                                  ("reference", SIZES["demc_ref"])):
+    # DEMC: 1,024 seed chains and the reference scale on the card, then the
+    # reference scale asked for on the CPU (the C++ host route)
+    for label, (chains, gens), where in DEMC_RUNS:
+        where = dev if where == "cuda" else torch.device(where)
         (smp, ar), sec = wall(lambda: port.cs_mcmc_dirichlet_sample(
             DEMC_BOUNDS, gens, chains, 500, chunk if chains >= 512 else
-            20000, 1.0, np.ones(3), 0.8, 1e-12, seed=seed, device=dev))
+            20000, 1.0, np.ones(3), 0.8, 1e-12, seed=seed, device=where))
         route = "device" if isinstance(smp, torch.Tensor) else "host C++"
+        if where.type == "cuda":
+            check(route == "device" and smp.device == where,
+                  f"DEMC {label}: asked for {where}, ran on the {route} route")
         smp = torch.as_tensor(smp)
         check(smp.shape == (gens * chains, 3), f"DEMC {label} shape")
         sum_err = (smp.sum(1) - 1.0).abs().max().item()
@@ -703,6 +914,55 @@ def detail_active_ss(rk, dev, x, y):
           f"kNN distances vs f64: rel err {d_err:.3e}")
     return {"knn_s": knn_s, "grads_s": grads_s, "tied_rows": tied_rows,
             "dist_rel_err": d_err}
+
+
+def detail_rbf_fit(rk, dev, gen):
+    """RbfInterp's fit at the main path's size, its saddle matrix built two
+    ways: concatenated from K, P, P^T and 0, as before the kernel matrix
+    wrote K in place (K is read and written twice more), and filled in
+    place as ``rbf_fit`` does. The best of 3 CUDA-synchronised walls each,
+    for the assembly alone and for the whole fit (with the LU solve)."""
+    from corrla_rs_tpu_torch.ops import interp
+    from corrla_rs_tpu_torch.ops.stats_corr import build_full_vandermonde
+
+    n = SIZES["rbf"][0]
+    x = torch.rand(n, 3, generator=gen, device=dev)
+    y = rbf_target(x)[:, None]
+
+    def by_cat():
+        k = rk.pairwise_kernel_matrix(x, x, "linear", 1.0)
+        p = build_full_vandermonde(x, 1)
+        q = p.shape[1]
+        return torch.cat([torch.cat([k, p], dim=1),
+                          torch.cat([p.mT, p.new_zeros((q, q))], dim=1)])
+
+    def in_place():
+        p = build_full_vandermonde(x, 1)
+        q = p.shape[1]
+        kp = interp._padded_square(n + q, x.dtype, dev)
+        rk._pairwise_kernel_matrix_into(kp[:n, :n], x, x, "linear", 1.0)
+        kp[:n, n:] = p
+        kp[n:, :n] = p.mT
+        kp[n:, n:] = 0
+        return kp
+
+    def fit_by_cat():
+        kp = by_cat()
+        y_pad = torch.cat([y, y.new_zeros((kp.shape[0] - n, 1))])
+        return torch.linalg.solve(kp, y_pad)
+
+    check(torch.equal(by_cat(), in_place()),
+          "the saddle matrix filled in place differs from the concatenation")
+    out = {}
+    for key, fn in (("asm_cat", by_cat), ("asm", in_place),
+                    ("fit_cat", fit_by_cat),
+                    ("fit", lambda: interp.rbf_fit(x, y, "linear", 1.0, 1)),
+                    ("asm_cat2", by_cat), ("asm2", in_place)):
+        out[key] = min(wall(fn)[1] for _ in range(3))
+    before, after = fit_by_cat(), interp.rbf_fit(x, y, "linear", 1.0, 1)
+    out["fit_rel_diff"] = ((after - before).abs().max()
+                           / before.abs().max()).item()
+    return out
 
 
 def detail_demc(dev, seed):
@@ -753,6 +1013,7 @@ def main(argv=None) -> int:
     rows = ptxas_rows(info.get("log", ""))
     matvec_registers(rows, main_path_plans(
         rk, torch.cuda.get_device_properties(dev).multi_processor_count))
+    kmat_registers(rows)
     report("build", t0, f"{'built' if info.get('built') else 'loaded'} "
            f"{info['path']} nvcc {info.get('seconds', 0.0):.1f} s "
            f"({len(_build._sources())} sources at once); "
@@ -843,12 +1104,11 @@ def main(argv=None) -> int:
     lines = [f"cs_dirichlet_sample {n}x{ndim} chunk {chunk}: {sec:.4f} s, "
              f"acceptance {acc:.4f}, max |sum-1| {sum_err:.1e}, means within "
              f"{z_max:.2f} SE of numpy ({n_ref} rows; tol 4)"]
-    for label, (chains, gens) in (("device", SIZES["demc"]),
-                                  ("reference", SIZES["demc_ref"])):
+    for label, (chains, gens), where in DEMC_RUNS:
         sec, ar, sum_err, route = r[label]
-        lines.append(f"cs_mcmc_dirichlet_sample {chains} chains x {gens}: "
-                     f"route {route}, {sec:.4f} s, acceptance {ar:.4f} (0.3-"
-                     f"0.7), max |sum-1| {sum_err:.1e}")
+        lines.append(f"cs_mcmc_dirichlet_sample {chains} chains x {gens} on "
+                     f"{where}: route {route}, {sec:.4f} s, acceptance "
+                     f"{ar:.4f} (0.3-0.7), max |sum-1| {sum_err:.1e}")
     report("samplers", t0, "; ".join(lines))
 
     second = {"pairwise_kernel_matrix": rk.pairwise_kernel_matrix.launches,
@@ -860,23 +1120,34 @@ def main(argv=None) -> int:
 
     # timing details and the kNN against its plain version (not counted)
     t0 = time.perf_counter()
+    fit_r = detail_rbf_fit(rk, dev, gen)
+    torch.cuda.empty_cache()
     knn_r = detail_active_ss(rk, dev, ass["x"], ass["y"])
     torch.cuda.empty_cache()
     gen_ms = detail_demc(dev, args.seed + 3)
-    report("details", t0, f"active_ss kNN {knn_r['knn_s']:.4f} s, grads step "
+    report("details", t0, f"RbfInterp fit at {SIZES['rbf'][0]} points: "
+           f"saddle matrix concatenated (before) {fit_r['fit_cat']:.4f} s, "
+           f"filled in place (after) {fit_r['fit']:.4f} s; assembly alone "
+           f"{fit_r['asm_cat'] * 1e3:.3f} / {fit_r['asm_cat2'] * 1e3:.3f} ms "
+           f"against {fit_r['asm'] * 1e3:.3f} / {fit_r['asm2'] * 1e3:.3f} ms "
+           "(the same matrix, bit for bit; coefficients differ by "
+           f"{fit_r['fit_rel_diff']:.1e} of their largest); "
+           f"active_ss kNN {knn_r['knn_s']:.4f} s, grads step "
            f"{knn_r['grads_s']:.4f} s; kNN vs plain f64 on "
            f"{SIZES['active_ss'][4]} queries: {knn_r['tied_rows']} rows "
            f"differ only at near-ties (gap < {KNN_TIE_RTOL} rel), distance "
            f"rel err {knn_r['dist_rel_err']:.3e}; DEMC generation at "
            f"{SIZES['demc'][0]} chains {gen_ms:.4f} ms")
 
-    # a kernel's numbers are those of its largest timed shape (by bound);
-    # "shapes" holds every timed shape, "launches" both paths' counts
+    # a kernel's numbers are those of its largest main-path shape (by
+    # bound); "shapes" holds every timed shape, "launches" both paths'
+    # counts
     paths = {"rsvd/rpca/PodI/RbfInterp": first,
              "dmdc/active_ss/samplers": second}
     table = {"kernels": []}
     for name in ("pairwise_kernel_matrix", "rbf_matvec"):
-        top = max(timings[name], key=lambda row: row["bound_ms"])
+        top = max((row for row in timings[name] if row["main_path"]),
+                  key=lambda row: row["bound_ms"])
         table["kernels"].append({
             "name": name, "route": "cuda", "source": SOURCE[name],
             "replaces": REPLACES[name],

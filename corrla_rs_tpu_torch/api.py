@@ -20,8 +20,9 @@ from corrla_rs_tpu_torch.utils.prng import split_seed
 __all__ = ["rsvd", "rpca", "active_ss", "cs_dirichlet_sample",
            "cs_mcmc_dirichlet_sample", "SAMPLER_CHAINS"]
 
-# below this many seed chains, cs_mcmc_dirichlet_sample with an int seed
-# runs the C++ host pipeline (the JAX package's utils.smallpath constant)
+# below this many seed chains, cs_mcmc_dirichlet_sample with an int seed and
+# the CPU as its device runs the C++ host pipeline (the JAX package's
+# utils.smallpath constant)
 SAMPLER_CHAINS = 512
 
 
@@ -97,10 +98,12 @@ def cs_mcmc_dirichlet_sample(bounds, n_samples: int, n_seed_samples: int,
     DEMC -> (interleaved samples, acceptance ratio). One chain per seed, so
     n_seed_samples >= 3.
 
-    With an int ``seed`` and fewer than ``SAMPLER_CHAINS`` seed chains, the
-    compiled C++ host pipeline of ``native.py`` runs when it is available,
-    as in the JAX package, and the samples come back as a numpy array; else
-    the samplers run on ``device`` and the samples are a tensor there. Same
+    The samplers run on ``device`` (default
+    ``utils.device.default_device()``) and the samples are a tensor there.
+    When that device is the CPU, an int ``seed`` and fewer than
+    ``SAMPLER_CHAINS`` seed chains take the compiled C++ host pipeline of
+    ``native.py`` instead, when it is available, as the JAX package does for
+    small populations, and the samples come back as a numpy array. Same
     statistical contract; the two routes draw differently.
     """
     from corrla_rs_tpu_torch import native
@@ -113,7 +116,8 @@ def cs_mcmc_dirichlet_sample(bounds, n_samples: int, n_seed_samples: int,
     )
 
     bounds = np.asarray(bounds, dtype=np.float64)
-    if (isinstance(seed, (int, np.integer))
+    dev = torch.device(device) if device is not None else default_device()
+    if (dev.type == "cpu" and isinstance(seed, (int, np.integer))
             and int(n_seed_samples) < SAMPLER_CHAINS
             and native.available()):
         seeds = native.cs_dirichlet_rejection_host(
@@ -127,7 +131,6 @@ def cs_mcmc_dirichlet_sample(bounds, n_samples: int, n_seed_samples: int,
             seed=int(seed) * 2 + 2,
         )
 
-    dev = torch.device(device) if device is not None else default_device()
     k_seed, k_mcmc = split_seed(seed, 2, dev)
     seeds = constr_dirichlet_sample(
         bounds, n_seed_samples, max_zshots, chunk_size, c_scale, alphas,

@@ -32,9 +32,13 @@ _NVCC_FLAGS = (*_ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
 
 _P, _I64, _F64 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_double
 _SIGNATURES = {
-    # xa, xb, out, na, nb, d, phi, eps, stream
-    "corrla_kernel_matrix_f32": (_P, _P, _P, _I64, _I64, _I64, _I64, _F64, _P),
-    "corrla_kernel_matrix_f64": (_P, _P, _P, _I64, _I64, _I64, _I64, _F64, _P),
+    # xa, xb, out, na, nb, d, ldo, phi, eps, stream
+    "corrla_kernel_matrix_f32": (_P, _P, _P, _I64, _I64, _I64, _I64, _I64,
+                                 _F64, _P),
+    "corrla_kernel_matrix_f64": (_P, _P, _P, _I64, _I64, _I64, _I64, _I64,
+                                 _F64, _P),
+    # out, na, nb, ldo, itemsize -> 1 if the kernel matrix stores by TMA
+    "corrla_kernel_matrix_tma": (_P, _I64, _I64, _I64, _I64),
     # q, x, c, out, scratch, m, n, d, ncols, phi, eps, cols, splits,
     # split_len, stream
     "corrla_rbf_matvec_f32": (_P, _P, _P, _P, _P, _I64, _I64, _I64, _I64,

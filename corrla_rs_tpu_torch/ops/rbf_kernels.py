@@ -7,10 +7,15 @@ built on first use by ``ops._build``.
 
 - ``pairwise_kernel_matrix(xa, xb, kernel, eps)`` replaces
   ``pallas_kernels.pairwise_kernel_matrix`` (``pallas_call`` at :100):
-  K_ij = phi(||xa_i - xb_j||) as an (n_a, n_b) matrix. On the H100 it is
-  bound by the store bandwidth of the n_a * n_b output (d is tiny). The
-  kernel writes each 64 x 64 output tile once, with coalesced stores along
-  n_b, from row tiles staged in shared memory.
+  K_ij = phi(||xa_i - xb_j||) as an (n_a, n_b) matrix;
+  ``_pairwise_kernel_matrix_into(out, xa, xb, kernel, eps)`` writes it into
+  a 2-D view whose rows lie ``out.stride(0) >= n_b`` apart (``rbf_fit``
+  fills K's block of the saddle matrix with it). On the H100 it is bound by
+  the store bandwidth of the n_a * n_b output (d is tiny). Persistent CTAs
+  walk 64-row output tiles with the coordinates in registers, and store
+  each tile by TMA from shared memory where the output's base and row
+  stride are 16-byte aligned, else straight from registers with streaming
+  stores (the kernel picks the path; ``_kmat_store_path`` reports it).
 - ``rbf_matvec(x_query, x_support, coeffs, kernel, eps)`` replaces
   ``pallas_kernels.rbf_matvec_streaming`` (``pallas_call`` at :154):
   y_i = sum_j phi(||q_i - x_j||) c_j without forming the (M, N) matrix. On
@@ -178,7 +183,7 @@ def _phi_code(kernel: str) -> int:
 def _check_operands(name: str, **tensors: torch.Tensor) -> torch.Tensor:
     """Same device and dtype (f32/f64), 2-D and contiguous; returns the
     first operand."""
-    first = next(iter(tensors.values()))
+    first = dtype = device = None
     for arg, t in tensors.items():
         if not isinstance(t, torch.Tensor):
             raise TypeError(f"{name}: {arg} must be a tensor")
@@ -186,27 +191,29 @@ def _check_operands(name: str, **tensors: torch.Tensor) -> torch.Tensor:
             raise ValueError(f"{name}: {arg} must be 2-D, got {tuple(t.shape)}")
         if t.shape[1] == 0:
             raise ValueError(f"{name}: {arg} has no columns")
-        if t.dtype not in (torch.float32, torch.float64):
+        if t.dtype is not torch.float32 and t.dtype is not torch.float64:
             raise TypeError(f"{name}: {arg} must be float32 or float64")
-        if t.dtype != first.dtype or t.device != first.device:
+        if first is None:
+            first, dtype, device = t, t.dtype, t.device
+        elif t.dtype is not dtype or t.device != device:
             raise ValueError(
                 f"{name}: operands differ in dtype or device "
-                f"({arg}: {t.dtype} on {t.device}, expected {first.dtype} "
-                f"on {first.device})"
+                f"({arg}: {t.dtype} on {t.device}, expected {dtype} "
+                f"on {device})"
             )
         if not t.is_contiguous():
             raise ValueError(f"{name}: {arg} must be contiguous")
-    if first.device.type not in ("cpu", "cuda"):
-        raise ValueError(f"{name}: unsupported device {first.device}")
+    if device.type not in ("cpu", "cuda"):
+        raise ValueError(f"{name}: unsupported device {device}")
     return first
 
 
 def _raise_on_error(lib, name: str, rc: int) -> None:
-    """Raise on a refused launch. The C side refuses sizes its grid or
-    shared memory cannot take (e.g. n_b > 4,194,240 for the kernel matrix,
-    or, for the matvec, more than 1,310,700 columns in f32 and 1,048,560 in
-    f64, or a feature dim above about 80 in f32 and 40 in f64, where its
-    queries no longer fit in shared memory) as invalid value."""
+    """Raise on a refused launch. The C side refuses what its grid or shared
+    memory cannot take as invalid value: for the matvec more than 1,310,700
+    columns in f32 and 1,048,560 in f64, or a feature dim above about 80 in
+    f32 and 40 in f64, where its queries no longer fit in shared memory; for
+    the kernel matrix a row stride below n_b or an unknown phi."""
     if rc != 0:
         raise RuntimeError(f"{name}: CUDA kernel launch failed: "
                            f"{lib.corrla_error_string(rc).decode()} ({rc})")
@@ -214,6 +221,63 @@ def _raise_on_error(lib, name: str, rc: int) -> None:
 
 def _suffix(dtype: torch.dtype) -> str:
     return "f32" if dtype == torch.float32 else "f64"
+
+
+# C entry points by (name, dtype), resolved on first use
+_ENTRIES: dict = {}
+
+
+def _entry(name: str, dtype: torch.dtype):
+    """The C entry point ``corrla_<name>_<f32|f64>``, resolved once."""
+    fn = _ENTRIES.get((name, dtype))
+    if fn is None:
+        fn = _ENTRIES[(name, dtype)] = getattr(
+            load_library(), f"corrla_{name}_{_suffix(dtype)}")
+    return fn
+
+
+def _launch(device: torch.device, fn, *args) -> int:
+    """``fn(*args, stream)`` on the current stream of ``device``, under
+    ``torch.cuda.device`` only when that is not the current device."""
+    index = device.index
+    if index == torch.cuda.current_device():
+        return fn(*args, torch._C._cuda_getCurrentRawStream(index))
+    with torch.cuda.device(index):
+        return fn(*args, torch._C._cuda_getCurrentRawStream(index))
+
+
+def _kmat_store_path(out: torch.Tensor) -> str:
+    """``"tma"`` or ``"direct"``: how the kernel matrix stores into ``out``,
+    a CUDA (n_a, n_b) view as ``_pairwise_kernel_matrix_into`` takes it. The
+    kernel chooses by the output's address and row stride; this asks it."""
+    tma = load_library().corrla_kernel_matrix_tma(
+        out.data_ptr(), out.shape[0], out.shape[1], out.stride(0),
+        out.element_size())
+    return "tma" if tma else "direct"
+
+
+def _kernel_matrix_operands(name: str, xa: torch.Tensor,
+                            xb: torch.Tensor, kernel: str):
+    """Checks shared by the kernel matrix's two entry points; returns
+    (phi code, n_a, n_b, d)."""
+    _check_operands(name, xa=xa, xb=xb)
+    phi = _phi_code(kernel)
+    (n_a, d), n_b = xa.shape, xb.shape[0]
+    if xb.shape[1] != d:
+        raise ValueError(f"{name}: feature dims {d} and {xb.shape[1]} differ")
+    return phi, n_a, n_b, d
+
+
+def _launch_kernel_matrix(out: torch.Tensor, xa: torch.Tensor,
+                          xb: torch.Tensor, phi: int, eps: float) -> None:
+    """One launch of the kernel into ``out`` (checked by the caller)."""
+    (n_a, d), n_b = xa.shape, xb.shape[0]
+    fn = _entry("kernel_matrix", out.dtype)
+    rc = _launch(out.device, fn, xa.data_ptr(), xb.data_ptr(), out.data_ptr(),
+                 n_a, n_b, d, out.stride(0), phi, float(eps))
+    if rc:
+        _raise_on_error(load_library(), "pairwise_kernel_matrix", rc)
+    pairwise_kernel_matrix.launches += 1
 
 
 def pairwise_kernel_matrix(xa: torch.Tensor, xb: torch.Tensor,
@@ -224,29 +288,50 @@ def pairwise_kernel_matrix(xa: torch.Tensor, xb: torch.Tensor,
     xa (n_a, d), xb (n_b, d). CUDA tensors launch the kernel; CPU tensors
     run ``pairwise_kernel_matrix_ref``.
     """
-    first = _check_operands("pairwise_kernel_matrix", xa=xa, xb=xb)
-    phi = _phi_code(kernel)
-    (n_a, d), n_b = xa.shape, xb.shape[0]
-    if xb.shape[1] != d:
-        raise ValueError(f"pairwise_kernel_matrix: feature dims {d} and "
-                         f"{xb.shape[1]} differ")
-    if first.device.type == "cpu":
+    phi, n_a, n_b, _ = _kernel_matrix_operands("pairwise_kernel_matrix", xa,
+                                               xb, kernel)
+    if xa.device.type == "cpu":
         return pairwise_kernel_matrix_ref(xa, xb, kernel, eps)
     out = torch.empty((n_a, n_b), dtype=xa.dtype, device=xa.device)
-    if out.numel() == 0:
-        return out
-    lib = load_library()
-    fn = getattr(lib, f"corrla_kernel_matrix_{_suffix(xa.dtype)}")
-    with torch.cuda.device(xa.device):
-        stream = torch.cuda.current_stream(xa.device).cuda_stream
-        rc = fn(xa.data_ptr(), xb.data_ptr(), out.data_ptr(), n_a, n_b, d,
-                phi, float(eps), stream)
-    _raise_on_error(lib, "pairwise_kernel_matrix", rc)
-    pairwise_kernel_matrix.launches += 1
+    if out.numel():
+        _launch_kernel_matrix(out, xa, xb, phi, eps)
     return out
 
 
 pairwise_kernel_matrix.launches = 0
+
+
+def _pairwise_kernel_matrix_into(out: torch.Tensor, xa: torch.Tensor,
+                                 xb: torch.Tensor, kernel: str = "linear",
+                                 eps: float = 1.0) -> torch.Tensor:
+    """``pairwise_kernel_matrix`` written into ``out``, an (n_a, n_b) view
+    of xa's dtype and device with unit column stride and row stride
+    ``>= n_b``, such as a block of a larger matrix; nothing outside the view
+    is written, and ``out`` must not overlap xa or xb. Returns ``out``.
+
+    CUDA tensors launch the kernel (one launch, counted in
+    ``pairwise_kernel_matrix.launches``), which picks its store path from
+    ``out``'s address and row stride (``_kmat_store_path``). CPU tensors
+    copy ``pairwise_kernel_matrix_ref`` into the view.
+    """
+    name = "_pairwise_kernel_matrix_into"
+    phi, n_a, n_b, _ = _kernel_matrix_operands(name, xa, xb, kernel)
+    if not isinstance(out, torch.Tensor):
+        raise TypeError(f"{name}: out must be a tensor")
+    if out.dtype != xa.dtype or out.device != xa.device:
+        raise ValueError(f"{name}: out is {out.dtype} on {out.device}, "
+                         f"expected {xa.dtype} on {xa.device}")
+    if tuple(out.shape) != (n_a, n_b):
+        raise ValueError(f"{name}: out has shape {tuple(out.shape)}, "
+                         f"expected {(n_a, n_b)}")
+    if out.numel() and (out.stride(1) != 1 or out.stride(0) < n_b):
+        raise ValueError(f"{name}: out needs unit column stride and row "
+                         f"stride >= {n_b}, got strides {out.stride()}")
+    if xa.device.type == "cpu":
+        return out.copy_(pairwise_kernel_matrix_ref(xa, xb, kernel, eps))
+    if out.numel():
+        _launch_kernel_matrix(out, xa, xb, phi, eps)
+    return out
 
 
 def rbf_matvec(x_query: torch.Tensor, x_support: torch.Tensor,
@@ -280,15 +365,13 @@ def rbf_matvec(x_query: torch.Tensor, x_support: torch.Tensor,
     # allocator orders after the kernels on this stream
     scratch = (torch.empty((plan.splits, n_c, n_q), dtype=coeffs.dtype,
                            device=coeffs.device) if plan.splits > 1 else None)
-    lib = load_library()
-    fn = getattr(lib, f"corrla_rbf_matvec_{_suffix(coeffs.dtype)}")
-    with torch.cuda.device(coeffs.device):
-        stream = torch.cuda.current_stream(coeffs.device).cuda_stream
-        rc = fn(x_query.data_ptr(), x_support.data_ptr(), coeffs.data_ptr(),
-                out.data_ptr(), None if scratch is None else scratch.data_ptr(),
-                n_q, n_s, d, n_c, phi, float(eps), plan.cols, plan.splits,
-                plan.split_len, stream)
-    _raise_on_error(lib, "rbf_matvec", rc)
+    fn = _entry("rbf_matvec", coeffs.dtype)
+    rc = _launch(coeffs.device, fn, x_query.data_ptr(), x_support.data_ptr(),
+                 coeffs.data_ptr(), out.data_ptr(),
+                 None if scratch is None else scratch.data_ptr(), n_q, n_s, d,
+                 n_c, phi, float(eps), plan.cols, plan.splits, plan.split_len)
+    if rc:
+        _raise_on_error(load_library(), "rbf_matvec", rc)
     rbf_matvec.launches += 1
     return out
 

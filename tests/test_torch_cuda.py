@@ -149,16 +149,19 @@ def test_kernel_matrix_diagonal_is_exact_zero(dev):
 
 
 def test_refused_launch_raises(dev):
-    # sizes the kernels cannot take are refused by the C side, and the
-    # wrapper raises with CUDA's message; nothing is counted
+    # what the kernels cannot take is refused by the C side, and the wrapper
+    # raises with CUDA's message; nothing is counted
     before = (rk.pairwise_kernel_matrix.launches, rk.rbf_matvec.launches)
     wide = torch.rand(100, 200, device=dev, dtype=torch.float64)   # d=200
     with pytest.raises(RuntimeError, match="invalid argument"):
         rk.rbf_matvec(wide, wide, torch.ones(100, 1, device=dev,
                                              dtype=torch.float64))
-    xb = torch.rand(64 * 65535 + 1, 1, device=dev)   # one column tile too many
+    # the kernel matrix's persistent grid takes any shape; a phi code the
+    # kernel does not know is refused
+    x = torch.rand(10, 3, device=dev)
     with pytest.raises(RuntimeError, match="invalid argument"):
-        rk.pairwise_kernel_matrix(torch.rand(1, 1, device=dev), xb)
+        rk._launch_kernel_matrix(torch.empty(10, 10, device=dev), x, x, 9,
+                                 1.0)
     assert (rk.pairwise_kernel_matrix.launches,
             rk.rbf_matvec.launches) == before
 
@@ -169,6 +172,235 @@ def test_wrappers_raise_instead_of_falling_back(dev):
         rk.rbf_matvec(x, x.cpu(), torch.ones(10, 1))
     with pytest.raises(ValueError, match="contiguous"):
         rk.pairwise_kernel_matrix(x, torch.rand(2, 10, device=dev).mT)
+
+
+# ---------------------------------------------------------------------------
+# the kernel matrix: every d instance, both store paths, views of a larger
+# matrix, and its bits
+
+
+def _kmat_inputs(dev, dtype, na, nb, d, seed=0):
+    gen = torch.Generator(device=dev).manual_seed(seed + na + nb + d)
+    return (torch.randn(na, d, generator=gen, device=dev, dtype=dtype),
+            torch.randn(nb, d, generator=gen, device=dev, dtype=dtype))
+
+
+def _assert_matches_plain(got, xa, xb, phi, eps=0.7):
+    want = rk.pairwise_kernel_matrix_ref(xa.double(), xb.double(), phi, eps)
+    err = (got.double() - want).abs()
+    assert bool((err <= KMAT_RTOL[got.dtype]
+                 * (want.abs() + want.abs().max())).all()), err.max().item()
+
+
+def _takes_tma(out):
+    return rk._kmat_store_path(out) == "tma"
+
+
+def _unaligned_like(na, nb, dtype, dev):
+    """An (na, nb) view one element into a wider matrix: its base is not
+    16-byte aligned, so the kernel stores directly."""
+    out = torch.empty(na, nb + 1, dtype=dtype, device=dev)[:, 1:]
+    assert not _takes_tma(out)
+    return out
+
+
+# d = 1..8 templated, 9 and 20 the runtime loop over feature slabs; 256
+# columns take the TMA store, 1537 the direct stores
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("phi", PHIS)
+@pytest.mark.parametrize("d", [1, 2, 3, 4, 5, 6, 7, 8, 9, 20])
+@pytest.mark.parametrize("na,nb,tma", [(300, 256, True), (1000, 1537, False)],
+                         ids=["tma", "direct"])
+def test_kernel_matrix_every_d_matches_plain(dev, phi, dtype, d, na, nb,
+                                             tma):
+    xa, xb = _kmat_inputs(dev, dtype, na, nb, d)
+    before = rk.pairwise_kernel_matrix.launches
+    got = rk.pairwise_kernel_matrix(xa, xb, phi, 0.7)
+    torch.cuda.synchronize()
+    assert rk.pairwise_kernel_matrix.launches == before + 1
+    assert _takes_tma(got) == tma
+    _assert_matches_plain(got, xa, xb, phi)
+
+
+# ragged shapes whose rows are not 16-byte multiples take the direct
+# stores; aligned ones, down to fewer rows and columns than a tile, TMA.
+# The direct stores into an unaligned view give the same bits.
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("na,nb,d", [(7, 13, 2), (1000, 1537, 3),
+                                     (2001, 2003, 8), (3, 4, 1),
+                                     (65, 132, 3), (2000, 2000, 1),
+                                     (130, 256, 8), (64, 2, 5)])
+def test_kernel_matrix_shapes_take_their_store_path(dev, dtype, na, nb, d):
+    xa, xb = _kmat_inputs(dev, dtype, na, nb, d, seed=1)
+    got = rk.pairwise_kernel_matrix(xa, xb, "cubic", 0.7)
+    assert _takes_tma(got) == (nb * got.element_size() % 16 == 0)
+    _assert_matches_plain(got, xa, xb, "cubic")
+    direct = rk._pairwise_kernel_matrix_into(
+        _unaligned_like(na, nb, dtype, dev), xa, xb, "cubic", 0.7)
+    assert torch.equal(direct, got)
+
+
+# f32 at 2,048 tiles: each CTA of the persistent grid walks at least four,
+# so both output buffers are reused (TMA) and the coordinate stages turn
+# over; compared in full on both store paths
+@pytest.mark.parametrize("path", ["tma", "direct"])
+def test_kernel_matrix_many_tiles_a_cta_matches_plain(dev, path):
+    n = 4096
+    xa, xb = _kmat_inputs(dev, torch.float32, n, n, 3, seed=6)
+    out = (torch.empty(n, n, device=dev) if path == "tma"
+           else _unaligned_like(n, n, torch.float32, dev))
+    assert rk._kmat_store_path(out) == path
+    rk._pairwise_kernel_matrix_into(out, xa, xb, "gaussian", 0.7)
+    _assert_matches_plain(out, xa, xb, "gaussian")
+
+
+# a block of a larger matrix: row strides and offsets that keep the TMA
+# store (16-byte rows and base) and that do not; the guard cells around
+# the block stay as they were
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("ld,off", [(2052, 0), (2064, 4), (2003, 0),
+                                    (2052, 1), (2002, 2)])
+def test_kernel_matrix_into_a_view(dev, dtype, ld, off):
+    na, nb = 1000, 2000
+    xa, xb = _kmat_inputs(dev, dtype, na, nb, 3, seed=2)
+    big = torch.full((na + 2, ld), -7.5, dtype=dtype, device=dev)
+    view = big[1:na + 1, off:off + nb]
+    before = rk.pairwise_kernel_matrix.launches
+    assert rk._pairwise_kernel_matrix_into(view, xa, xb, "multiquadric",
+                                           0.7) is view
+    torch.cuda.synchronize()
+    assert rk.pairwise_kernel_matrix.launches == before + 1
+    itemsize = big.element_size()
+    assert _takes_tma(view) == ((ld + off) * itemsize % 16 == 0
+                                and ld * itemsize % 16 == 0)
+    _assert_matches_plain(view, xa, xb, "multiquadric")
+    guard = torch.ones_like(big, dtype=torch.bool)
+    guard[1:na + 1, off:off + nb] = False
+    assert bool((big[guard] == -7.5).all())
+
+
+def _output_on(path, na, nb, dtype, dev):
+    """An (na, nb) output the kernel stores into by ``path``: a contiguous
+    matrix with 16-byte rows, or an unaligned view."""
+    if path == "direct":
+        return _unaligned_like(na, nb, dtype, dev)
+    out = torch.empty(na, nb, dtype=dtype, device=dev)
+    assert _takes_tma(out)
+    return out
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("tma", [True, False], ids=["tma", "direct"])
+def test_kernel_matrix_diagonal_exact_on_both_paths(dev, dtype, tma):
+    path = "tma" if tma else "direct"
+    x = torch.rand(1000, 3, device=dev, dtype=dtype)
+    k = _output_on(path, 1000, 1000, dtype, dev)
+    rk._pairwise_kernel_matrix_into(k, x, x, "linear", 1.0)
+    assert bool((torch.diagonal(k) == 0).all())
+    assert torch.equal(k, k.mT)
+    g = rk._pairwise_kernel_matrix_into(_output_on(path, 1000, 1000, dtype,
+                                                   dev), x, x, "gaussian",
+                                        1.0)
+    assert bool((torch.diagonal(g) == 1).all())
+
+
+@pytest.mark.parametrize("na,nb,d", [(2000, 2000, 1), (1000, 1537, 3),
+                                     (700, 900, 20)])
+def test_kernel_matrix_rerun_is_bit_identical(dev, na, nb, d):
+    xa, xb = _kmat_inputs(dev, torch.float32, na, nb, d, seed=3)
+    first = rk.pairwise_kernel_matrix(xa, xb, "multiquadric", 0.3)
+    for _ in range(3):
+        assert torch.equal(first, rk.pairwise_kernel_matrix(
+            xa, xb, "multiquadric", 0.3))
+
+
+@pytest.mark.parametrize("tma", [True, False], ids=["tma", "direct"])
+def test_kernel_matrix_f32_bits_as_recorded(dev, tma):
+    # the kernel before its redesign, recorded by tests/kmat_golden.py: the
+    # same FMA chain in feature order and sqrtf's bits
+    import os
+
+    import numpy as np
+
+    import kmat_golden
+
+    rec = np.load(os.path.join(os.path.dirname(__file__), "data",
+                               "kmat_f32_bits.npz"))
+    for key, phi, d in kmat_golden.cases():
+        xa = torch.from_numpy(rec[f"xa{d}"]).to(dev)
+        xb = torch.from_numpy(rec[f"xb{d}"]).to(dev)
+        got = _output_on("tma" if tma else "direct", xa.shape[0],
+                         xb.shape[0], torch.float32, dev)
+        rk._pairwise_kernel_matrix_into(got, xa, xb, phi, kmat_golden.EPS)
+        assert torch.equal(got.cpu(), torch.from_numpy(rec[key])), key
+
+
+def test_kernel_matrix_refuses_what_it_cannot_take(dev):
+    lib = load_library()
+    xa = torch.rand(10, 3, device=dev)
+    out = torch.zeros(10, 20, device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    invalid = 1   # cudaErrorInvalidValue
+    p = xa.data_ptr()
+    for d, ld, phi in [
+            (3, 9, 1),      # row stride below n_b
+            (0, 20, 1),     # no features
+            (3, 20, 9),     # no such phi
+    ]:
+        rc = lib.corrla_kernel_matrix_f32(p, p, out.data_ptr(), 10, 10, d,
+                                          ld, phi, 1.0, stream)
+        assert rc == invalid
+    assert bool((out == 0).all())
+    # 52-byte rows: the direct stores
+    assert lib.corrla_kernel_matrix_tma(out.data_ptr(), 10, 10, 13, 4) == 0
+    rc = lib.corrla_kernel_matrix_f32(p, p, out.data_ptr(), 10, 10, 3, 13, 1,
+                                      1.0, stream)
+    assert rc == 0
+    _assert_matches_plain(out.view(-1)[:130].view(10, 13)[:, :10], xa, xa,
+                          "linear", 1.0)
+
+
+@pytest.mark.parametrize("n", [300, 301])
+def test_rbf_fit_on_cuda_matches_cpu_f64(dev, n):
+    # K goes straight into the (n + 4)^2 saddle matrix, whose rows are
+    # padded to 128 bytes (304 doubles stay 304, 305 become 320), so K's
+    # block takes the TMA store
+    from corrla_rs_tpu_torch.ops import interp
+
+    saddle = interp._padded_square(n + 4, torch.float64, dev)
+    assert saddle.stride(0) * 8 % 128 == 0
+    assert rk._kmat_store_path(saddle[:n, :n]) == "tma"
+    gen = torch.Generator().manual_seed(n)
+    x = torch.rand(n, 3, generator=gen, dtype=torch.float64)
+    y = torch.sin(3 * x[:, :1]) + x[:, 1:2] * x[:, 2:]
+    before = rk.pairwise_kernel_matrix.launches
+    cg = interp.rbf_fit(x.to(dev), y.to(dev), "linear", 1.0, 1)
+    torch.cuda.synchronize()
+    assert rk.pairwise_kernel_matrix.launches == before + 1
+    cc = interp.rbf_fit(x, y, "linear", 1.0, 1)
+    # two LU solves of one saddle system agree to eps * its condition number
+    kp = torch.zeros(n + 4, n + 4, dtype=torch.float64)
+    kp[:n, :n] = rk.pairwise_kernel_matrix_ref(x, x)
+    kp[:n, n:] = torch.cat([x, torch.ones(n, 1, dtype=x.dtype)], 1)
+    kp[n:, :n] = kp[:n, n:].mT
+    tol = torch.finfo(torch.float64).eps * torch.linalg.cond(kp).item()
+    assert tol < 1e-8
+    assert ((cg.cpu() - cc).abs().max() / cc.abs().max()).item() <= tol
+
+
+def test_small_dirichlet_mcmc_runs_on_the_card(dev):
+    import numpy as np
+
+    import corrla_rs_tpu_torch as port
+
+    bounds = np.array([[0.0, 0.0026], [0.1955, 0.1995], [0.80, 0.825]])
+    samples, ar = port.cs_mcmc_dirichlet_sample(
+        bounds, 300, 8, 500, 20000, 1.0, np.ones(3), 0.8, 1e-12, seed=4,
+        device=dev)
+    assert isinstance(samples, torch.Tensor) and samples.device.type == "cuda"
+    assert samples.shape == (2400, 3)
+    assert float((samples.sum(1) - 1).abs().max()) <= 1e-6
+    assert 0.0 < ar <= 1.0
 
 
 # ---------------------------------------------------------------------------

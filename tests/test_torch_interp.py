@@ -16,6 +16,7 @@ from _torch_parity import EPS, cpu_device  # noqa: F401 (fixture)
 from corrla_rs_tpu.ops import interp as jax_interp
 from corrla_rs_tpu.ops.stats_corr import build_full_vandermonde as jax_vand
 from corrla_rs_tpu_torch.ops import interp as port_interp
+from corrla_rs_tpu_torch.ops.rbf_kernels import pairwise_kernel_matrix_ref
 from corrla_rs_tpu_torch.ops.stats_corr import build_full_vandermonde
 
 torch.set_num_threads(1)
@@ -98,6 +99,48 @@ def test_rbf_interp_class_matches_jax(cpu_device, rng, code, name):
     # interpolation is exact at the support points (to the solve's accuracy)
     np.testing.assert_allclose(mt.predict(x).numpy()[:, 0], y,
                                atol=tol * np.abs(y).max())
+
+
+@pytest.mark.parametrize("method", ["solve", "pinv"])
+@pytest.mark.parametrize("degree", [1, 2])
+def test_rbf_fit_fills_the_saddle_matrix_in_place(monkeypatch, rng, method,
+                                                  degree):
+    # K is written straight into the top-left block of the (n + p)^2 saddle
+    # matrix, a view whose rows lie n + p rounded up to 128 bytes apart; the
+    # matrix solved is the one the blocks' concatenation gives, bit for bit
+    x = torch.from_numpy(4.0 * rng.random((40, 2)))
+    y = torch.from_numpy(rng.standard_normal((40, 2)))
+    seen = {}
+    into = port_interp._pairwise_kernel_matrix_into
+
+    def spy_into(out, *args, **kwargs):
+        seen["k_stride"] = out.stride()
+        return into(out, *args, **kwargs)
+
+    solver = "pinv" if method == "pinv" else "solve"
+    real = getattr(port_interp, "pinv") if method == "pinv" else \
+        torch.linalg.solve
+
+    def spy_solver(a, *args):
+        seen["kp"] = a.clone()
+        return real(a, *args)
+
+    monkeypatch.setattr(port_interp, "_pairwise_kernel_matrix_into", spy_into)
+    if solver == "pinv":
+        monkeypatch.setattr(port_interp, "pinv", spy_solver)
+    else:
+        monkeypatch.setattr(torch.linalg, "solve", spy_solver)
+    coeffs = port_interp.rbf_fit(x, y, "cubic", 1.0, degree, method)
+    p_mat = build_full_vandermonde(x, degree)
+    n, p = p_mat.shape
+    ld = seen["k_stride"][0]
+    assert seen["k_stride"][1] == 1 and ld * 8 % 128 == 0
+    assert n + p <= ld < n + p + 16
+    k_mat = pairwise_kernel_matrix_ref(x, x, "cubic", 1.0)
+    want = torch.cat([torch.cat([k_mat, p_mat], dim=1),
+                      torch.cat([p_mat.mT, p_mat.new_zeros((p, p))], dim=1)])
+    assert torch.equal(seen["kp"], want)
+    assert coeffs.shape == (n + p, 2)
 
 
 def test_rbf_interp_checks_dim(cpu_device, rng):

@@ -144,6 +144,57 @@ def test_wrappers_reject_bad_operands(rng):
     assert empty.shape == (0, 1)
 
 
+@pytest.mark.parametrize("kernel", KERNELS)
+# a wider matrix, an odd stride at an offset, a padded one; the saddle
+# matrices of a 1-D fit (n + 2 wide) and of a 3-D fit (n + 4), and a view
+# one column in
+@pytest.mark.parametrize("ld,off", [(50, 0), (53, 3), (64, 14), (52, 0),
+                                    (54, 0), (52, 1)])
+def test_kernel_matrix_into_fills_only_its_view(rng, kernel, ld, off):
+    # the strided entry point writes K into a block of a larger matrix and
+    # nothing around it; K against the Pallas kernel in interpret mode (f32)
+    # and the XLA path in f64
+    xa = rng.standard_normal((30, 3)).astype(np.float32)
+    xb = rng.standard_normal((50, 3)).astype(np.float32)
+    for dtype, want, tol in [
+        (torch.float32, pallas_kernel_matrix(
+            jnp.asarray(xa), jnp.asarray(xb), kernel=kernel, eps=0.7,
+            tile_m=16, tile_n=32, interpret=True), (2e-3, 2e-4)),
+        (torch.float64, jax_interp.rbf_kernel_eval(jax_interp.pairwise_dists(
+            jnp.asarray(xa, jnp.float64), jnp.asarray(xb, jnp.float64)),
+            kernel, 0.7), (1e-12, 1e-12)),
+    ]:
+        big = torch.full((32, ld), -7.5, dtype=dtype)
+        view = big[1:31, off:off + 50]
+        got = rbf_kernels._pairwise_kernel_matrix_into(
+            view, _t(xa).to(dtype), _t(xb).to(dtype), kernel, 0.7)
+        assert got is view
+        np.testing.assert_allclose(view.numpy(), np.asarray(want),
+                                   rtol=tol[0], atol=tol[1])
+        guard = torch.ones_like(big, dtype=torch.bool)
+        guard[1:31, off:off + 50] = False
+        assert bool((big[guard] == -7.5).all())
+
+
+def test_kernel_matrix_into_rejects_bad_outputs(rng):
+    x = _t(rng.standard_normal((6, 3)))
+    into = rbf_kernels._pairwise_kernel_matrix_into
+    before = pairwise_kernel_matrix.launches
+    with pytest.raises(TypeError, match="out must be a tensor"):
+        into(np.zeros((6, 6)), x, x)
+    with pytest.raises(ValueError, match="expected torch.float64"):
+        into(torch.zeros((6, 6), dtype=torch.float32), x, x)
+    with pytest.raises(ValueError, match="expected \\(6, 6\\)"):
+        into(torch.zeros((6, 7), dtype=x.dtype), x, x)
+    with pytest.raises(ValueError, match="unit column stride"):
+        into(torch.zeros((6, 6), dtype=x.dtype).mT, x, x)
+    with pytest.raises(ValueError, match="unit column stride"):
+        into(torch.zeros((6, 12), dtype=x.dtype)[:, ::2], x, x)
+    with pytest.raises(ValueError, match="feature dims"):
+        into(torch.zeros((6, 6), dtype=x.dtype), x, x[:, :2].contiguous())
+    assert pairwise_kernel_matrix.launches == before
+
+
 # the launch plan of the CUDA matvec: a pure function of the shape and the
 # SM count, checked here because the kernel itself runs only on the card
 H100_SMS = 132

@@ -297,6 +297,33 @@ def test_cs_mcmc_dirichlet_sample_host_route(cpu_device):
     assert 0.3 < ar < 0.7
 
 
+def test_cs_mcmc_dirichlet_sample_host_route_only_on_the_cpu(monkeypatch):
+    # a caller who asks for the card gets the device route even with an int
+    # seed and few chains: the C++ host pipeline is never entered
+    from corrla_rs_tpu_torch.ops import samplers
+
+    class DeviceRoute(Exception):
+        pass
+
+    def host(*args, **kwargs):
+        raise AssertionError("the host route ran for a CUDA device")
+
+    def device_route(*args, device=None, **kwargs):
+        raise DeviceRoute(device)
+
+    monkeypatch.setattr(native, "available", lambda: True)
+    monkeypatch.setattr(native, "cs_dirichlet_rejection_host", host)
+    monkeypatch.setattr(native, "demc_dirichlet_host", host)
+    monkeypatch.setattr(samplers, "constr_dirichlet_sample", device_route)
+    monkeypatch.setattr(port.api, "split_seed", lambda seed, n, dev: [0, 1])
+    with pytest.raises(DeviceRoute) as route:
+        port.cs_mcmc_dirichlet_sample(
+            BOUNDS, n_samples=300, n_seed_samples=8, max_zshots=500,
+            chunk_size=20000, c_scale=1.0, alphas=np.ones(3), gamma=0.8,
+            var_epsilon=1e-12, seed=4, device="cuda")
+    assert route.value.args[0] == torch.device("cuda")
+
+
 def test_cs_dirichlet_sample_surface(cpu_device):
     samples = port.cs_dirichlet_sample(BOUNDS, 6, 500, 20000, 1.0, np.ones(3))
     assert samples.shape == (6, 3)
