@@ -22,6 +22,9 @@ time, and any failure raises (exit code != 0):
    path it took; the wrappers' host time a call; the matvec's launch plans;
 4. rsvd: A = U diag(s) V^T, 100,000 x 10,000 f32 with 200 known geometric
    sigma, rank 100, 8 iterations, 10 oversamples;
+   then, on the same matrix, single_pass_svd (rank 100, with 10 and with
+   50 oversamples) and block_krylov_svd (2 iterations) against the same
+   sigma;
 5. rpca: 200,000 x 512 f32 with a known centered spectrum, rank 20;
 6. PodI: 2,000 snapshots x 200,000 points f32 of a smooth one-parameter
    family, 20 modes, predicted at 512 held-out t against the family;
@@ -39,17 +42,32 @@ time, and any failure raises (exit code != 0):
 10. samplers: cs_dirichlet_sample, 1,000,000 samples in 8-D against a numpy
     rejection reference; cs_mcmc_dirichlet_sample with 1,024 seed chains x
     2,000 generations and at the reference's 12 x 3,000, both on the
-    device, and 12 x 3,000 asked for on the CPU (the C++ host route).
+    device, and 12 x 3,000 asked for on the CPU (the C++ host route);
+11. dream: dream_run with 8,192 chains x 3 dims x 500 generations, 100 of
+    them adapting, on a correlated Gaussian, against its mean and
+    covariance, with the acceptance and the rank-normalized R-hat;
+12. factorize: nystrom_eigh of a 20,000^2 PSD matrix; column_id and cur of
+    50,000 x 4,000 of rank 50; hosvd of 256^3 at ranks (20, 20, 20);
+    hutchpp_trace and slq_logdet of an 8,192^2 SPD matrix; sketched_lstsq of
+    200,000 x 500; cg_solve with and without nystrom_preconditioner on an
+    8,192^2 system; robust_pca of 2,000 x 2,000; IncrementalSvd fed
+    50,000 x 2,000 in 10 blocks. Each against the exact answer or the
+    matrix it was built from, at the tolerance of the JAX package's own
+    test of that module (named in FACTORIZE_TOL);
+13. mle: NormalRv, BetaRv and ExponentialRv fitted to 100,000 draws each
+    (within 3 standard errors of the truth), build_kde on 10,000 points
+    (its cdf against the empirical one, its pdf's integral).
 
-After phase 10 come the timing details of phases 7 and 9-10 (RbfInterp's
+After phase 13 come the timing details of phases 7 and 9-10 (RbfInterp's
 fit with its saddle matrix built by concatenation, as before the kernel
 matrix wrote K in place, and built in place; the kNN and grads steps of
 active_ss; a DEMC generation) and the kNN against its plain version. The
 build phase prints ptxas's registers and spills for both kernels'
 instances and fails if any spills. The kernels' launch counts
-are set to 0 before phase 4 and read after phase 7, and again before phase
-8 and after phase 10; every kernel of a path must have launched on it. The
-last lines are the kernel table as JSON (every timed shape of each kernel,
+are set to 0 before phase 4 and read after phase 7, again before phase 8
+and after phase 10, and again before phase 11 and after phase 13; every
+kernel of a path must have launched on it (phases 11-13 reach no kernel,
+and the run fails if their counts say otherwise). The last lines are the kernel table as JSON (every timed shape of each kernel,
 with its bound and, where one exists, a one-call PyTorch equivalent's
 time), the nvidia-smi line, and the result JSON. Nothing of JAX is
 imported. Without a CUDA device it exits with code 2 and prints no result.
@@ -89,6 +107,37 @@ SIZES = {
     "dirichlet": (1_000_000, 8, 1 << 20),         # samples, ndim, chunk
     "demc": (1024, 2000),                         # seed chains, generations
     "demc_ref": (12, 3000),                       # the reference's scale
+    "krylov_iters": 2,                            # block_krylov_svd on rsvd's matrix
+    "single_pass_os": 50,                         # oversamples that hold all 100 sigma
+    "dream": (8192, 3, 500, 100),                 # chains, dims, generations, adapting
+    "nystrom": (20_000, 100, 8),                  # n, rank, oversamples
+    "cur": (50_000, 4000, 50),                    # rows, columns, rank
+    "hosvd": (256, 20),                           # side of the cube, rank a mode
+    "spd": (8192, 300, 200),                      # n, decaying eigenvalues, Nystrom rank
+    "lstsq": (200_000, 500),                      # rows, columns
+    "robust_pca": (2000, 10, 0.05),               # side, rank, corrupted share
+    "incremental": (50_000, 2000, 10, 40, 10),    # rows, columns, blocks, rank, checked
+    "mle": (100_000, 10_000),                     # draws a fit, KDE points
+}
+# tolerance of each factorize check, and the JAX package's test it is from
+FACTORIZE_TOL = {
+    "nystrom": (1e-3, "test_nystrom.py::test_f32_stability_tiny_spectrum "
+                      "(eigenvalues, rtol; here all 100 of them, in f64)"),
+    "id_cur": (1e-4, "test_id_cur.py::test_wide_and_tall_and_f32 (relative "
+                     "Frobenius error)"),
+    "hosvd": (1e-4, "test_hosvd.py::test_exact_recovery_low_multilinear_rank "
+                    "(1e-9 in f64; here f32, at test_id_cur's f32 1e-4)"),
+    "hutchpp": (1e-2, "test_trace_est.py::"
+                      "test_hutchpp_accuracy_and_variance_advantage"),
+    "slq": (2e-2, "test_slq.py::test_logdet_well_conditioned"),
+    "lstsq": (1e-9, "test_sketch_solve.py::"
+                    "test_matches_numpy_lstsq_well_conditioned (atol, f64)"),
+    "pcg": (1e-8, "test_slq.py::test_nystrom_pcg_accelerates (relative "
+                  "residual; iterations under a tenth of plain CG's)"),
+    "robust_pca": (1e-5, "test_robust_pca.py::test_exact_recovery (L "
+                         "relative error; rank; residual < 1e-7)"),
+    "incremental": (1e-3, "test_incremental.py::"
+                          "test_incremental_svd_truncating_tracks_dominant"),
 }
 # H100 SXM peaks (NVIDIA data sheet, at 700 W): HBM bytes/s, f32 and f64
 # FLOP/s outside the tensor cores
@@ -608,13 +657,17 @@ def orthonormal(n, k, gen, dev, center=False):
     return torch.linalg.qr(g).Q
 
 
-def phase_rsvd(port, dev, gen):
-    n, m, rank, n_iter, n_os, n_sig = SIZES["rsvd"]
+def rsvd_matrix(dev, gen):
+    """A = U diag(s) V^T of the rsvd and single_pass phases, and s."""
+    n, m, _, _, _, n_sig = SIZES["rsvd"]
     s_true = torch.logspace(0, -3, n_sig, dtype=torch.float64, device=dev)
     u0 = orthonormal(n, n_sig, gen, dev)
     v0 = orthonormal(m, n_sig, gen, dev)
-    a = (u0 * s_true.float()) @ v0.mT
-    del u0, v0
+    return (u0 * s_true.float()) @ v0.mT, s_true
+
+
+def phase_rsvd(port, a, s_true):
+    n, m, rank, n_iter, n_os, _ = SIZES["rsvd"]
     (_, s_cold, _), cold = wall(lambda: port.rsvd(a, rank, n_iter, n_os,
                                                   seed=1))
     warm_s = []
@@ -629,9 +682,62 @@ def phase_rsvd(port, dev, gen):
     rel = ((s[:, 0].double() - s_true[:rank]).abs() / s_true[:rank]).max()
     tol = 1e-3
     check(rel.item() <= tol, f"rsvd sigma rel err {rel.item():.3e} > {tol}")
-    del a, u, s, vt
     return {"sigma_rel_err": rel.item(), "cold_s": cold,
             "warm_s": sorted(warm_s)}
+
+
+def phase_single_pass(port, a, s_true):
+    """single_pass_svd and block_krylov_svd on the rsvd phase's matrix.
+
+    The matrix's sigma fall by 3.4% an index, so the tail beyond the 110
+    sketch columns holds 2.6 times sigma_100: without a power iteration the
+    last sigma of a single pass at 10 oversamples are off by 10-15%. At
+    that setting the leading half is held to 5e-2 and all of them to 0.25;
+    a second call with SIZES["single_pass_os"] oversamples holds all of
+    them to 5e-2."""
+    n, m, rank, _, n_os, _ = SIZES["rsvd"]
+    more_os = SIZES["single_pass_os"]
+    eye = torch.eye(rank, device=a.device)
+    out = {}
+    # name, call, tolerance on the leading n_held sigma, n_held, tolerance
+    # on all of them
+    runs = ((f"single_pass ({n_os} oversamples)",
+             lambda: port.single_pass_svd(a, rank, n_os, key=1),
+             5e-2, rank // 2, 0.25),
+            (f"single_pass ({more_os} oversamples)",
+             lambda: port.single_pass_svd(a, rank, more_os, key=1),
+             5e-2, rank, 5e-2),
+            (f"block_krylov ({n_os} oversamples)",
+             lambda: port.block_krylov_svd(
+                 a, rank, SIZES["krylov_iters"], n_os, key=1),
+             1e-3, rank, 1e-3))
+    for name, fn, tol, n_held, tol_all in runs:
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        _, cold = wall(fn)
+        warm = []
+        for _ in range(3):
+            (u, s, vt), sec = wall(fn)
+            warm.append(sec)
+        peak = torch.cuda.max_memory_allocated() - base
+        check(u.shape == (n, rank) and s.shape == (rank,)
+              and vt.shape == (rank, m), f"{name} shapes")
+        check(all(bool(torch.isfinite(t).all()) for t in (u, s, vt)),
+              f"{name} non-finite output")
+        rel = (s.double() - s_true[:rank]).abs() / s_true[:rank]
+        held, worst = rel[:n_held].max().item(), rel.max().item()
+        orth = (u.mT @ u - eye).abs().max().item()
+        check(held <= tol, f"{name}: leading {n_held} sigma rel err "
+              f"{held:.3e} > {tol}")
+        check(worst <= tol_all,
+              f"{name}: sigma rel err {worst:.3e} > {tol_all}")
+        check(orth <= 1e-4, f"{name}: |U^T U - I| {orth:.3e} > 1e-4")
+        out[name] = {"held": held, "n_held": n_held, "tol": tol,
+                     "worst": worst, "tol_all": tol_all, "orth": orth,
+                     "cold_s": cold, "warm_s": sorted(warm),
+                     "peak_mb": peak / 2 ** 20}
+        del u, s, vt
+    return out
 
 
 def phase_rpca(port, dev, gen):
@@ -979,6 +1085,287 @@ def detail_demc(dev, seed):
         lambda v: v / torch.sum(v)))
     return sec / gens * 1e3
 
+# ---------------------------------------------------------------------------
+# phases 11-13: DREAM, the factorizations on the RSVD core, the MLE layer
+
+def phase_dream(port, dev, seed):
+    from corrla_rs_tpu_torch.ops.dream import dream_run
+
+    chains, d, gens, n_adapt = SIZES["dream"]
+    cov = torch.tensor([[1.0, 0.6, 0.3], [0.6, 1.0, 0.5], [0.3, 0.5, 1.0]],
+                       dtype=torch.float64, device=dev)
+    prec = torch.linalg.inv(cov).float()
+
+    def ln_prob(x):
+        return -0.5 * (x @ prec @ x)
+
+    heads = np.random.default_rng(seed).standard_normal(
+        (chains, d)).astype(np.float32) * 3.0
+    # the first call warms the allocator and the vmap machinery up
+    wall(lambda: dream_run(heads, ln_prob, 20, key=seed, n_adapt=n_adapt))
+    (hist, state), sec = wall(lambda: dream_run(heads, ln_prob, gens,
+                                                key=seed, n_adapt=n_adapt))
+    check(hist.device == dev and hist.shape == (gens, chains, d)
+          and bool(torch.isfinite(hist).all()),
+          "dream history device / shape / finite")
+    accept = int(state.n_accept) / (gens * chains)
+    check(0.15 <= accept <= 0.6, f"dream acceptance {accept:.3f} outside "
+          "0.15-0.6")
+    tail = hist[n_adapt:].double()
+    pooled = tail.reshape(-1, d)
+    sd = torch.sqrt(torch.diagonal(cov))
+    mean_err = (pooled.mean(0).abs() / sd).max().item()
+    cov_err = ((torch.cov(pooled.T) - cov).abs().max() / cov.abs().max()).item()
+    check(mean_err <= 0.05, f"dream pooled mean {mean_err:.3e} sigma off")
+    check(cov_err <= 0.10, f"dream covariance {cov_err:.3e} off (tol 0.10)")
+    rhat, rhat_s = wall(lambda: port.rank_normalized_rhat(tail))
+    check(rhat.device == dev and rhat.max().item() < 1.05,
+          f"dream rank-normalized R-hat {rhat.tolist()} >= 1.05")
+    return {"wall_s": sec, "ms_gen": sec / gens * 1e3,
+            "samples_s": gens * chains / sec, "accept": accept,
+            "mean_err": mean_err, "cov_err": cov_err,
+            "rhat": rhat.max().item(), "rhat_s": rhat_s,
+            "p_cr": [round(v, 4) for v in state.p_cr.tolist()]}
+
+
+def low_rank(n, m, s, gen, dev, dtype=torch.float32):
+    """U diag(s) V^T with orthonormal U (n, k), V (m, k)."""
+    u = torch.linalg.qr(torch.randn(n, len(s), generator=gen, device=dev,
+                                    dtype=dtype)).Q
+    v = torch.linalg.qr(torch.randn(m, len(s), generator=gen, device=dev,
+                                    dtype=dtype)).Q
+    return (u * s.to(device=dev, dtype=dtype)) @ v.mT
+
+
+def rel_fro(got, want):
+    return (torch.linalg.matrix_norm(got - want)
+            / torch.linalg.matrix_norm(want)).item()
+
+
+def phase_factorize(port, dev, gen, seed):
+    out = {}
+    tol = {k: v[0] for k, v in FACTORIZE_TOL.items()}
+
+    def done(name, sec, err, extra=""):
+        check(err <= tol[name], f"{name}: {err:.3e} > {tol[name]} {extra}")
+        out.setdefault(name, []).append((sec, err, extra))
+        torch.cuda.empty_cache()
+
+    # Nystrom, in f64: rank 100 with a tail ten thousand times below the
+    # last kept. (In f32 the core Cholesky meets cond ~ lambda_1 / (eps
+    # ||Y||) ~ 1/eps on such a spectrum and the small pairs are lost, in
+    # the JAX package too; its f32 test holds three leading values.)
+    n, rank, n_os = SIZES["nystrom"]
+    ev = torch.cat([torch.logspace(2, 0, rank, dtype=torch.float64),
+                    1e-4 * 0.9 ** torch.arange(100, dtype=torch.float64)]
+                   ).to(dev)
+    q = torch.linalg.qr(torch.randn(n, len(ev), generator=gen, device=dev,
+                                    dtype=torch.float64)).Q
+    a = (q * ev) @ q.mT
+    (lam, vec), sec = wall(lambda: port.nystrom_eigh(a, rank, n_os, key=seed))
+    err = ((lam - ev[:rank]).abs() / ev[:rank]).max().item()
+    align = (vec * q[:, :rank]).sum(0).abs().min().item()
+    check(align >= 1 - 1e-3, f"nystrom eigenvectors: min |cos| {align:.6f}")
+    done("nystrom", sec, err, f"eigenvalues of {n}^2 f64, min |cos| of the "
+         f"eigenvectors {align:.6f}")
+    del a, q, vec
+
+    # column ID and CUR of an exactly rank-50 matrix
+    n, m, rank = SIZES["cur"]
+    a = torch.randn(n, rank, generator=gen, device=dev) @ torch.randn(
+        rank, m, generator=gen, device=dev) / rank ** 0.5
+    (cols, x), sec = wall(lambda: port.column_id(a, rank, key=seed))
+    pinned = bool((x[:, cols] == torch.eye(rank, device=dev)).all())
+    check(pinned and len(set(cols.tolist())) == rank,
+          "column_id: x[:, cols] is not I, or a column repeats")
+    done("id_cur", sec, rel_fro(a[:, cols] @ x, a), f"column_id {n}x{m}")
+    (rows, cols, u), sec = wall(lambda: port.cur(a, rank, key=seed))
+    done("id_cur", sec, rel_fro(a[:, cols] @ u @ a[rows], a), f"cur {n}x{m}")
+    del a, x, u
+
+    # HOSVD of a cube of exact multilinear rank
+    side, rank = SIZES["hosvd"]
+    core0 = torch.randn(rank, rank, rank, generator=gen, device=dev)
+    t = core0
+    for mode in range(3):
+        f0 = torch.linalg.qr(torch.randn(side, rank, generator=gen,
+                                         device=dev)).Q
+        t = port.mode_multiply(t, f0, mode)
+    (core, factors), sec = wall(lambda: port.hosvd(t, (rank,) * 3, key=seed))
+    check(core.shape == (rank,) * 3, "hosvd core shape")
+    orth = max((f.mT @ f - torch.eye(rank, device=dev)).abs().max().item()
+               for f in factors)
+    check(orth <= tol["hosvd"], f"hosvd factors: |U^T U - I| {orth:.3e}")
+    rec = port.tucker_reconstruct(core, factors)
+    done("hosvd", sec, (torch.linalg.vector_norm(rec - t)
+                        / torch.linalg.vector_norm(t)).item(),
+         f"{side}^3 at ranks {(rank,) * 3}")
+    del t, rec, core, factors
+
+    # trace and log-determinant of a well-conditioned SPD matrix
+    n, n_decay, ny_rank = SIZES["spd"]
+    g = torch.randn(n, n, generator=gen, device=dev)
+    w = g @ g.mT / n + torch.eye(n, device=dev)
+    del g
+    tr_true = torch.trace(w.double()).item()
+    ld_true = torch.linalg.slogdet(w.double()).logabsdet.item()
+    est, sec = wall(lambda: port.hutchpp_trace(w, 96, key=seed))
+    done("hutchpp", sec, abs(est - tr_true) / abs(tr_true), f"{n}^2")
+    est, sec = wall(lambda: port.slq_logdet(w, 24, 40, key=seed))
+    done("slq", sec, abs(est - ld_true) / abs(ld_true), f"{n}^2")
+    del w
+
+    # sketched least squares against the dense solver, in f64
+    n, m = SIZES["lstsq"]
+    a = low_rank(n, m, torch.logspace(0, -1, m, dtype=torch.float64), gen,
+                 dev, torch.float64)
+    b = a @ torch.randn(m, generator=gen, device=dev, dtype=torch.float64) \
+        + 0.01 * torch.randn(n, generator=gen, device=dev,
+                             dtype=torch.float64)
+    # CGLS gains a factor of about 2 an iteration at 4 sketch rows a column
+    # (measured on the card at this shape: 6.6e-9 of the first residual
+    # after the default 30), so 50 iterations for an answer to 1e-9
+    (x, hist), sec = wall(lambda: port.sketched_lstsq(a, b, n_iters=50,
+                                                      key=seed))
+    x_ref, ref_s = wall(lambda: torch.linalg.lstsq(a, b[:, None]).solution)
+    check(hist[-1].item() < 1e-10 * hist[0].item(), "sketched_lstsq did not "
+          "converge")
+    done("lstsq", sec, (x - x_ref[:, 0]).abs().max().item(),
+         f"{n}x{m} f64, torch.linalg.lstsq {ref_s:.4f} s")
+    del a, b
+
+    # CG on a regularised fast-decay system, plain and Nystrom-preconditioned
+    mu = 1e-3
+    lam = 100.0 * 0.9 ** torch.arange(n_decay, dtype=torch.float64)
+    n = SIZES["spd"][0]
+    q = torch.linalg.qr(torch.randn(n, n_decay, generator=gen, device=dev,
+                                    dtype=torch.float64)).Q
+    k = (q * lam.to(dev)) @ q.mT
+    sys_mat = k + mu * torch.eye(n, device=dev, dtype=torch.float64)
+    b = torch.randn(n, generator=gen, device=dev, dtype=torch.float64)
+
+    def iters_to_tol(res, rel_tol=1e-8):
+        rel = res.residual_norms[:, 0] / torch.linalg.vector_norm(b)
+        hit = torch.nonzero(rel <= rel_tol)
+        return int(hit[0]) if len(hit) else 10 ** 9
+
+    plain, plain_s = wall(lambda: port.cg_solve(sys_mat, b, n_iters=2000,
+                                                tol=1e-10))
+    pre, pre_s = wall(lambda: port.nystrom_preconditioner(k, ny_rank, mu,
+                                                          key=seed))
+    fast, sec = wall(lambda: port.cg_solve(sys_mat, b, n_iters=2000,
+                                           tol=1e-10, preconditioner=pre))
+    it_plain, it_fast = iters_to_tol(plain), iters_to_tol(fast)
+    check(it_fast < 0.1 * it_plain, f"Nystrom PCG took {it_fast} iterations "
+          f"against plain CG's {it_plain}")
+    done("pcg", sec, (torch.linalg.vector_norm(sys_mat @ fast.x - b)
+                      / torch.linalg.vector_norm(b)).item(),
+         f"{n}^2 f64: {it_fast} iterations against {it_plain} plain "
+         f"({plain_s:.4f} s), preconditioner built in {pre_s:.4f} s")
+    del k, sys_mat, q
+
+    # robust PCA: low rank plus sparse, in f64
+    n, rank, frac = SIZES["robust_pca"]
+    l_true = (torch.randn(n, rank, generator=gen, device=dev,
+                          dtype=torch.float64)
+              @ torch.randn(rank, n, generator=gen, device=dev,
+                            dtype=torch.float64)) / rank ** 0.5
+    mask = torch.rand(n, n, generator=gen, device=dev) < frac
+    sign = torch.randint(0, 2, (n, n), generator=gen, device=dev) * 2.0 - 1.0
+    s_true = torch.where(mask, 10.0 * sign, torch.zeros_like(sign)).double()
+    (l_hat, s_hat, info), sec = wall(lambda: port.robust_pca(l_true + s_true))
+    support = ((s_hat.abs() > 1e-3) == mask).double().mean().item()
+    check(info["rank"] == rank and info["rel_residual"] < 1e-7
+          and support > 0.999, f"robust_pca: {info}, support {support:.5f}")
+    done("robust_pca", sec, rel_fro(l_hat, l_true),
+         f"{n}x{n} f64 rank {rank} + {frac:.0%} sparse: "
+         f"{info['iterations']} sweeps, support matched {support:.5f}")
+    del l_true, s_true, l_hat, s_hat
+
+    # incremental SVD in blocks against the randomized SVD of the whole
+    n, m, blocks, rank, n_chk = SIZES["incremental"]
+    # sigma fall by 10% an index: in f32 a Brand update keeps U orthonormal
+    # only while the tracked sigma stay well above eps * sigma_1 (at 20% an
+    # index and rank 40, U^T U is off by 0.8 in both packages)
+    a = low_rank(n, m, 0.9 ** torch.arange(2 * rank, dtype=torch.float64),
+                 gen, dev)
+
+    def feed():
+        inc = port.IncrementalSvd(rank)
+        for blk in torch.chunk(a, blocks, dim=1):
+            inc.update(blk)
+        return inc
+
+    inc, sec = wall(feed)
+    (_, s_ref, _), ref_s = wall(lambda: port.random_svd(a, rank, 8, 10,
+                                                        key=seed))
+    check(inc.n_cols == m and inc.v.shape == (m, rank),
+          "IncrementalSvd state shapes")
+    done("incremental", sec,
+         ((inc.s[:n_chk] - s_ref[:n_chk]).abs() / s_ref[:n_chk]).max().item(),
+         f"{n}x{m} in {blocks} blocks, rank {rank}, leading {n_chk} sigma "
+         f"against random_svd ({ref_s:.4f} s)")
+    return out
+
+
+def phase_mle(port, dev, seed):
+    from corrla_rs_tpu_torch.ops import univariate_rv as rv
+
+    n, n_kde = SIZES["mle"]
+    root_n = n ** 0.5
+    out = []
+
+    def fitted(make):
+        """(fit, first wall, second wall): the first fit of a process also
+        pays torch's run-time compilation of special-function kernels."""
+        _, cold = wall(make)
+        fit, warm = wall(make)
+        return fit, cold, warm
+
+    def held(name, got, want, se, cold, warm):
+        z = max(abs(g - w) / e for g, w, e in zip(got, want, se))
+        check(z <= 3.0, f"{name}: fitted {got} against {want}, {z:.2f} "
+              "standard errors off")
+        out.append(f"{name} {tuple(round(g, 4) for g in got)} for {want}, "
+                   f"{z:.2f} SE, first fit {cold:.4f} s, again {warm:.4f} s")
+
+    x = rv.NormalRv(2.0, 3.0).sample(n, key=seed)
+    check(x.device == dev, "NormalRv.sample is not on the card")
+    fit, cold, warm = fitted(lambda: rv.NormalRv(0.0, 1.0).mlfit(x))
+    held("NormalRv", (fit.mu, fit.std), (2.0, 3.0),
+         (3.0 / root_n, 3.0 / (2 * n) ** 0.5), cold, warm)
+    x = rv.BetaRv(2.0, 5.0).sample(n, key=seed + 1)
+    fit, cold, warm = fitted(lambda: rv.BetaRv(1.0, 1.0).mlfit(x, method=2))
+    tri = lambda v: float(torch.special.polygamma(1, torch.tensor(
+        v, dtype=torch.float64)))
+    fisher = n * torch.tensor([[tri(2.0) - tri(7.0), -tri(7.0)],
+                               [-tri(7.0), tri(5.0) - tri(7.0)]],
+                              dtype=torch.float64)
+    se = torch.sqrt(torch.diagonal(torch.linalg.inv(fisher))).tolist()
+    held("BetaRv", (fit.alpha, fit.beta), (2.0, 5.0), se, cold, warm)
+    x = rv.ExponentialRv(2.5).sample(n, key=seed + 2)
+    fit, cold, warm = fitted(lambda: rv.ExponentialRv(1.0).mlfit(x))
+    held("ExponentialRv", (fit.lam,), (2.5,), (2.5 / root_n,), cold, warm)
+    # the KDE of a two-component mixture: its cdf against the empirical one
+    # at the deciles, and its pdf's integral
+    gen = torch.Generator(device=dev).manual_seed(seed + 3)
+    pts = torch.randn(n_kde, generator=gen, device=dev, dtype=torch.float64)
+    pts = torch.where(torch.rand(n_kde, generator=gen, device=dev) < 0.3,
+                      pts * 0.5 + 4.0, pts)
+    kde, sec = wall(lambda: port.build_kde(0.5, pts, key=seed))
+    check(kde.supports.device == dev, "build_kde is not on the card")
+    probs = torch.linspace(0.1, 0.9, 9, dtype=torch.float64, device=dev)
+    cdf_err = (kde.cdf(torch.quantile(pts, probs)) - probs).abs().max().item()
+    grid = torch.linspace(-8.0, 12.0, 4001, dtype=torch.float64, device=dev)
+    mass = torch.trapezoid(kde.pdf(grid), grid).item()
+    check(cdf_err <= 0.02 and abs(mass - 1.0) <= 1e-3,
+          f"build_kde: cdf off by {cdf_err:.3e} at the deciles, pdf "
+          f"integrates to {mass:.5f}")
+    out.append(f"build_kde on {n_kde} points: bandwidth {kde.bandwidth:.4f}, "
+               f"cdf within {cdf_err:.3e} of the empirical deciles (tol "
+               f"0.02), pdf integral {mass:.5f} (tol 1e-3), {sec:.4f} s")
+    return out
+
 
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
@@ -1024,16 +1411,32 @@ def main(argv=None) -> int:
     timings = phase_kernels(rk, dev, args.seed)
     report("kernels", t0, "both kernels agree with their plain versions")
 
-    # 4-7. the main path, with the launch counts from 0
+    # 4-7. the main path (single_pass rides on rsvd's matrix), with the
+    # launch counts from 0
     gen = torch.Generator(device=dev).manual_seed(args.seed + 1)
     rk.pairwise_kernel_matrix.launches = 0
     rk.rbf_matvec.launches = 0
 
     t0 = time.perf_counter()
-    r = phase_rsvd(port, dev, gen)
+    a, s_true = rsvd_matrix(dev, gen)
+    r = phase_rsvd(port, a, s_true)
     report("rsvd", t0, f"100000x10000 f32 rank 100: max sigma rel err "
            f"{r['sigma_rel_err']:.3e} (tol 1e-3); cold {r['cold_s']:.4f} s, "
            f"warm {', '.join(f'{v:.4f}' for v in r['warm_s'])} s")
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    r = phase_single_pass(port, a, s_true)
+    report("single_pass", t0, "the same matrix, rank 100: "
+           + "; ".join(
+               f"{name} leading {v['n_held']} sigma rel err {v['held']:.3e} "
+               f"(tol {v['tol']}), all 100 {v['worst']:.3e} (tol {v['tol_all']}), "
+               f"|U^T U - I| {v['orth']:.1e} (tol 1e-4), cold "
+               f"{v['cold_s']:.4f} s, warm "
+               f"{', '.join(f'{w:.4f}' for w in v['warm_s'])} s, peak "
+               f"{v['peak_mb']:.0f} MiB beside the matrix"
+               for name, v in r.items()))
+    del a, s_true
     torch.cuda.empty_cache()
 
     t0 = time.perf_counter()
@@ -1118,6 +1521,42 @@ def main(argv=None) -> int:
     print(f"[launches] ok  dmdc/active_ss/samplers: {second}", flush=True)
     torch.cuda.empty_cache()
 
+    # 11-13. this slice's path; it reaches no kernel, and the counts show it
+    rk.pairwise_kernel_matrix.launches = 0
+    rk.rbf_matvec.launches = 0
+
+    t0 = time.perf_counter()
+    r = phase_dream(port, dev, args.seed + 4)
+    chains, d, gens, n_adapt = SIZES["dream"]
+    report("dream", t0, f"{chains} chains x {d} dims x {gens} generations "
+           f"({n_adapt} adapting) f32: {r['wall_s']:.4f} s, "
+           f"{r['ms_gen']:.4f} ms a generation, {r['samples_s']:.4e} "
+           f"samples/s; acceptance {r['accept']:.4f} (0.15-0.6), pooled mean "
+           f"{r['mean_err']:.3e} sigma off (tol 0.05), covariance "
+           f"{r['cov_err']:.3e} off (tol 0.10), rank-normalized R-hat "
+           f"{r['rhat']:.4f} (< 1.05, {r['rhat_s']:.4f} s), p_cr {r['p_cr']}")
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    r = phase_factorize(port, dev, gen, args.seed + 5)
+    report("factorize", t0, "; ".join(
+        f"{name} {extra}: {err:.3e} (tol {FACTORIZE_TOL[name][0]}, "
+        f"{FACTORIZE_TOL[name][1]}) in {sec:.4f} s"
+        for name, rows in r.items() for sec, err, extra in rows))
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    r = phase_mle(port, dev, args.seed + 6)
+    report("mle", t0, "; ".join(r))
+
+    third = {"pairwise_kernel_matrix": rk.pairwise_kernel_matrix.launches,
+             "rbf_matvec": rk.rbf_matvec.launches}
+    check(not any(third.values()),
+          f"dream/factorize/mle launched a kernel: {third}")
+    print(f"[launches] ok  dream/factorize/mle (no kernel on this path): "
+          f"{third}", flush=True)
+    torch.cuda.empty_cache()
+
     # timing details and the kNN against its plain version (not counted)
     t0 = time.perf_counter()
     fit_r = detail_rbf_fit(rk, dev, gen)
@@ -1143,7 +1582,8 @@ def main(argv=None) -> int:
     # bound); "shapes" holds every timed shape, "launches" both paths'
     # counts
     paths = {"rsvd/rpca/PodI/RbfInterp": first,
-             "dmdc/active_ss/samplers": second}
+             "dmdc/active_ss/samplers": second,
+             "dream/factorize/mle": third}
     table = {"kernels": []}
     for name in ("pairwise_kernel_matrix", "rbf_matvec"):
         top = max((row for row in timings[name] if row["main_path"]),

@@ -1,8 +1,13 @@
-"""corrla_rs_tpu_torch: the PyTorch/CUDA port of corrla_rs_tpu for NVIDIA Hopper.
+"""corrla_rs_tpu_torch: the PyTorch/CUDA port of ``corrla_rs_tpu`` for NVIDIA Hopper.
 
 A second package beside the JAX one, with the same module layout, public
 names, signatures and return shapes. It imports ``torch`` and never ``jax``.
-It covers the reference's whole pyo3 surface:
+It covers the reference's whole pyo3 surface, and of what the JAX package
+adds to it the rest of the randomized SVD core (``block_krylov_svd``,
+``single_pass_svd``), the DREAM sampler with the MCMC diagnostics, the
+MLE / univariate-RV layer and the first factorizations on the RSVD core
+(Nystrom, rank selection, trace and log-det estimators, sketched least
+squares, CG, ID/CUR, HOSVD, incremental SVD/PCA, robust PCA):
 
 - ``rsvd(a, n_rank, n_iters, n_oversamples)``  -> (U, S (r, 1), Vt)
 - ``rpca(a, n_rank, n_iters, n_oversamples)``  -> (S (r, 1), components)
@@ -45,12 +50,59 @@ from corrla_rs_tpu_torch.models.dmd import (
 )
 from corrla_rs_tpu_torch.models.pca import PcaRsvd
 from corrla_rs_tpu_torch.models.pod import PodI
+from corrla_rs_tpu_torch.ops.cg import (
+    cg_solve,
+    jacobi_preconditioner,
+    nystrom_preconditioner,
+)
+from corrla_rs_tpu_torch.ops.diagnostics import (
+    effective_sample_size,
+    gelman_rubin,
+    rank_normalized_rhat,
+)
+from corrla_rs_tpu_torch.ops.dream import DreamSampler, dream_run
 from corrla_rs_tpu_torch.ops.eig import eig, eig_host
+from corrla_rs_tpu_torch.ops.hosvd import (
+    hooi,
+    hosvd,
+    mode_multiply,
+    tucker_reconstruct,
+)
+from corrla_rs_tpu_torch.ops.id_cur import column_id, cur, row_id
+from corrla_rs_tpu_torch.ops.incremental import IncrementalPca, IncrementalSvd
 from corrla_rs_tpu_torch.ops.interp import RbfInterp
-from corrla_rs_tpu_torch.ops.random_svd import power_iter, random_svd
+from corrla_rs_tpu_torch.ops.nystrom import nystrom_approx, nystrom_eigh
+from corrla_rs_tpu_torch.ops.random_svd import (
+    block_krylov_svd,
+    power_iter,
+    random_svd,
+    single_pass_svd,
+)
+from corrla_rs_tpu_torch.ops.rank_select import (
+    adaptive_random_svd,
+    range_error_estimate,
+    select_rank,
+    svht_threshold,
+)
+from corrla_rs_tpu_torch.ops.robust_pca import robust_pca
 from corrla_rs_tpu_torch.ops.samplers import (
     DeMcSampler,
     constr_dirichlet_sample,
+)
+from corrla_rs_tpu_torch.ops.sketch_solve import sketched_lstsq
+from corrla_rs_tpu_torch.ops.slq import (
+    lanczos_fn_apply,
+    lanczos_tridiag,
+    slq_logdet,
+    slq_spectral_sum,
+)
+from corrla_rs_tpu_torch.ops.trace_est import hutchinson_trace, hutchpp_trace
+from corrla_rs_tpu_torch.ops.univariate_rv import (
+    BetaRv,
+    ExponentialRv,
+    KdeRv,
+    NormalRv,
+    build_kde,
 )
 from corrla_rs_tpu_torch.utils.debug import (
     NonFiniteError,
@@ -104,4 +156,42 @@ __all__ = [
     "PyRbfInterp",
     "PyPodI",
     "PyDMDc",
+    "block_krylov_svd",
+    "single_pass_svd",
+    "DreamSampler",
+    "dream_run",
+    "gelman_rubin",
+    "effective_sample_size",
+    "rank_normalized_rhat",
+    "NormalRv",
+    "BetaRv",
+    "ExponentialRv",
+    "KdeRv",
+    "build_kde",
+    "nystrom_eigh",
+    "nystrom_approx",
+    "svht_threshold",
+    "select_rank",
+    "range_error_estimate",
+    "adaptive_random_svd",
+    "hutchinson_trace",
+    "hutchpp_trace",
+    "sketched_lstsq",
+    "cg_solve",
+    "jacobi_preconditioner",
+    "nystrom_preconditioner",
+    "slq_spectral_sum",
+    "slq_logdet",
+    "lanczos_tridiag",
+    "lanczos_fn_apply",
+    "column_id",
+    "row_id",
+    "cur",
+    "hosvd",
+    "hooi",
+    "tucker_reconstruct",
+    "mode_multiply",
+    "IncrementalSvd",
+    "IncrementalPca",
+    "robust_pca",
 ]

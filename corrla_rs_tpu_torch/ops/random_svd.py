@@ -1,9 +1,8 @@
 """Randomized SVD: the compute core every model composes.
 
-Counterpart of ``corrla_rs_tpu/ops/random_svd.py`` (``power_iter`` and
-``random_svd``; the block-Krylov and single-pass variants are not ported
-yet). Halko / Martinsson-Tropp range finder with subspace power iteration,
-parity with the reference random_svd.rs:15-110:
+Counterpart of ``corrla_rs_tpu/ops/random_svd.py``. Halko / Martinsson-Tropp
+range finder with subspace power iteration, parity with the reference
+random_svd.rs:15-110:
 
 - Gaussian sketch Omega (m, k), Y = A Omega, then ``n_iter`` iterations of
   Y <- A (A^T Y), each followed by a Frobenius-norm rescale;
@@ -11,6 +10,10 @@ parity with the reference random_svd.rs:15-110:
   when the iteration index is > 2 (``'reference'``);
 - final Householder QR, B = Q^T A, dense SVD of the small B, U = Q U_B;
 - fat inputs (nrows < ncols) go through the transpose.
+
+Beyond the reference, as in the JAX package: ``block_krylov_svd`` keeps every
+power iterate in one preallocated Krylov block, and ``single_pass_svd`` reads
+A exactly twice (a range sketch and a co-range sketch).
 
 The big products run through cuBLAS in full f32 (TF32 is off, see
 ``utils.device``); QR, Cholesky, triangular solves and the small SVD are
@@ -22,9 +25,16 @@ from __future__ import annotations
 
 import torch
 
-from corrla_rs_tpu_torch.utils.prng import as_generator
+from corrla_rs_tpu_torch.utils.device import as_tensor
+from corrla_rs_tpu_torch.utils.prng import as_generator, fold_seed, split_seed
 
-__all__ = ["power_iter", "random_svd"]
+__all__ = ["power_iter", "random_svd", "block_krylov_svd", "single_pass_svd"]
+
+# The seams through which a seed becomes child seeds: every module of the
+# randomized family splits (and folds) here, so the parity tests replace
+# these two with the JAX package's key arithmetic.
+_split_seed = split_seed
+_fold_seed = fold_seed
 
 
 def _draw_sketch(seed_or_gen, shape, dtype, device) -> torch.Tensor:
@@ -94,6 +104,7 @@ def power_iter(a: torch.Tensor, omega_rank: int, n_iter: int, key=0,
     stabilize resolves to 'always', householder otherwise), 'householder'
     or 'cholesky'. The final orthonormalization is always Householder.
     """
+    a = as_tensor(a)
     n, m = a.shape
     if stabilize == "auto":
         stabilize = "always" if a.dtype == torch.float32 else "reference"
@@ -120,6 +131,7 @@ def random_svd(a: torch.Tensor, omega_rank: int, n_iter: int,
     Parity with reference random_svd.rs:63-110, including the fat-matrix
     transpose path. ``key`` is an int seed or a ``torch.Generator``.
     """
+    a = as_tensor(a)
     fat = a.shape[0] < a.shape[1]
     aa = a.mT if fat else a
     sketch_rank = min(omega_rank + n_oversamples, aa.shape[1])
@@ -127,8 +139,89 @@ def random_svd(a: torch.Tensor, omega_rank: int, n_iter: int,
     q = power_iter(aa, sketch_rank, n_iter, key=key, stabilize=stabilize,
                    qr_method=qr_method)
     u_b, s, vt = torch.linalg.svd(q.mT @ aa, full_matrices=False)
-    u = q @ u_b
+    return _truncate(q @ u_b, s, vt, rank, fat)
+
+
+def _truncate(u, s, vt, rank: int, fat: bool):
     if fat:
         # A = V S (Q U_B)^T   since A^T ~= (Q U_B) S V^T
         return vt.mT[:, :rank], s[:rank], u.mT[:rank, :]
     return u[:, :rank], s[:rank], vt[:rank, :]
+
+
+def block_krylov_svd(a: torch.Tensor, rank: int, n_iter: int,
+                     n_oversamples: int = 10, key=0):
+    """Randomized block-Krylov SVD (Musco & Musco 2015, arxiv 1504.05477).
+
+    Beyond the reference, which only has subspace iteration: the whole
+    Krylov block
+
+        K = [A Omega, (A A^T) A Omega, ..., (A A^T)^q A Omega]
+
+    is kept and its range taken. The same number of passes over A as
+    ``n_iter`` subspace iterations, but on gapless spectra the sigma error
+    at a fixed pass budget is typically an order of magnitude smaller. The
+    final QR and SVD run on an (n, k (q + 1)) block instead of (n, k). The
+    block is allocated once and each iterate is written into its slice.
+
+    Returns (U (n, rank), s (rank,), Vt (rank, m)) like ``random_svd``.
+    """
+    a = as_tensor(a)
+    fat = a.shape[0] < a.shape[1]
+    aa = a.mT if fat else a
+    n, m = aa.shape
+    k = min(rank + n_oversamples, m)
+    q = max(int(n_iter), 0)
+    omega = _draw_sketch(key, (m, k), aa.dtype, aa.device)
+    blocks = aa.new_empty((n, k * (q + 1)))
+    y = torch.matmul(aa, omega, out=blocks[:, :k])
+    for i in range(q):
+        # orthonormalize the running block for numerical range quality
+        y = _cholesky_qr2(y)
+        y = torch.matmul(aa, aa.mT @ y, out=blocks[:, (i + 1) * k:(i + 2) * k])
+    q_full = _householder_qr(blocks)
+    u_b, s, vt = torch.linalg.svd(q_full.mT @ aa, full_matrices=False)
+    return _truncate(q_full @ u_b, s, vt, rank, fat)
+
+
+def single_pass_svd(a: torch.Tensor, rank: int, n_oversamples: int = 10,
+                    core_oversamples: int | None = None, key=0):
+    """Two-sided sketch SVD (Tropp, Yurtsever, Udell & Cevher 2017,
+    "Practical sketching algorithms for low-rank matrix approximation").
+
+    Beyond the reference: reads A exactly twice (the range sketch
+    Y = A Omega and the co-range sketch W = Psi A; in a streaming setting
+    both accumulate in one pass), against 1 + 2 n_iter passes for
+    ``random_svd``. The price is accuracy on flat spectra: with no power
+    iteration the sketch captures sigma_i only up to the usual (sum of the
+    tail) / (gap) factors. Use it when the spectrum decays or when A cannot
+    be revisited; ``random_svd`` and ``block_krylov_svd`` are the accuracy
+    path.
+
+    core_oversamples: extra rows of the co-range sketch (l = k + this).
+    Tropp et al. recommend l ~ 2k for a stable core solve; the default is
+    l = 2k + 1, capped by the matrix dimensions.
+
+    Returns (U (n, rank), s (rank,), Vt (rank, m)) like ``random_svd``.
+    """
+    a = as_tensor(a)
+    fat = a.shape[0] < a.shape[1]
+    aa = a.mT if fat else a
+    n, m = aa.shape
+    k = min(rank + n_oversamples, m)
+    if core_oversamples is None:
+        ell = min(2 * k + 1, n)
+    else:
+        ell = min(k + int(core_oversamples), n)
+    k_om, k_psi = _split_seed(key, 2, aa.device)
+    omega = _draw_sketch(k_om, (m, k), aa.dtype, aa.device)
+    psi = _draw_sketch(k_psi, (ell, n), aa.dtype, aa.device)
+    y = aa @ omega                                      # pass 1: (n, k)
+    w = psi @ aa                                        # pass 2: (ell, m)
+    q = _householder_qr(y)                              # (n, k)
+    # core: X = (Psi Q)^+ W by QR least squares; (ell, k) is small and
+    # well conditioned w.h.p. for ell ~ 2k
+    qb, rb = torch.linalg.qr(psi @ q, mode="reduced")
+    x = torch.linalg.solve_triangular(rb, qb.mT @ w, upper=True)   # (k, m)
+    u_x, s, vt = torch.linalg.svd(x, full_matrices=False)
+    return _truncate(q @ u_x, s, vt, rank, fat)

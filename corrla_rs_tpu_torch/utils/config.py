@@ -12,13 +12,16 @@ under ``corrla_rs_tpu`` imports JAX.
   (active_subspaces.rs:243)
 - rejection sampler chunking (space_samplers.rs:98, benchmark defaults)
 - DEMC: gamma 0.8, jitter width 1e-12
+- DREAM: up to 3 chain pairs, 3 crossover values, unit-gamma jumps at
+  probability 0.2, noise widths 0.05 and 1e-6, no adaptation by default
 """
 from __future__ import annotations
 
 from dataclasses import dataclass
 
 __all__ = ["RsvdConfig", "PcaConfig", "PodConfig", "DmdConfig",
-           "ActiveSsConfig", "DirichletSamplerConfig", "DemcConfig"]
+           "ActiveSsConfig", "DirichletSamplerConfig", "DemcConfig",
+           "DreamConfig"]
 
 
 @dataclass(frozen=True)
@@ -67,3 +70,13 @@ class DirichletSamplerConfig:
 class DemcConfig:
     gamma: float = 0.8
     var_epsilon: float = 1e-12
+
+
+@dataclass(frozen=True)
+class DreamConfig:
+    delta_max: int = 3
+    n_cr: int = 3
+    gamma_jump_prob: float = 0.2
+    b: float = 0.05
+    b_star: float = 1e-6
+    n_adapt: int = 0

@@ -1,9 +1,12 @@
 """Carry fitted state from the JAX package into the port.
 
 A fitted ``PcaRsvd``, ``RbfInterp``, ``PodI``, ``DMDc`` (or ``PyDMDc``),
-``DMD`` or ``FittedActiveSsRsvd`` of ``corrla_rs_tpu`` is a flat bag of
-arrays and scalars, and so is its port counterpart, attribute for
-attribute. Two ways across, neither of which imports JAX:
+``DMD`` or ``FittedActiveSsRsvd`` of ``corrla_rs_tpu``, and the running state
+of an ``IncrementalSvd`` or ``IncrementalPca``, is a flat bag of arrays and
+scalars, and so is its port counterpart, attribute for attribute. A sampler's
+``DreamState`` (``state._asdict()``) crosses too, so a JAX run can be resumed
+in the port: its JAX key does not cross, the port's stream starts from the
+int ``key`` of the dict (default 0). Two ways across, neither of which imports JAX:
 
 - ``from_jax_state(class_name, state, device)`` takes the attributes
   (``vars(model)``, arrays as numpy or anything numpy can read);
@@ -29,6 +32,8 @@ from corrla_rs_tpu_torch.models.active_subspaces import FittedActiveSsRsvd
 from corrla_rs_tpu_torch.models.dmd import DMD, DMDc
 from corrla_rs_tpu_torch.models.pca import PcaRsvd
 from corrla_rs_tpu_torch.models.pod import PodI
+from corrla_rs_tpu_torch.ops.dream import DreamState
+from corrla_rs_tpu_torch.ops.incremental import IncrementalPca, IncrementalSvd
 from corrla_rs_tpu_torch.ops.interp import RbfInterp
 from corrla_rs_tpu_torch.utils.device import default_device
 
@@ -36,7 +41,9 @@ __all__ = ["from_jax_state", "load_jax_checkpoint"]
 
 _CLASSES = {"PcaRsvd": PcaRsvd, "RbfInterp": RbfInterp, "PodI": PodI,
             "DMDc": DMDc, "PyDMDc": PyDMDc, "DMD": DMD,
-            "FittedActiveSsRsvd": FittedActiveSsRsvd}
+            "FittedActiveSsRsvd": FittedActiveSsRsvd,
+            "IncrementalSvd": IncrementalSvd,
+            "IncrementalPca": IncrementalPca}
 _DMDC_STATE = ("n_x", "n_u", "_A", "_B", "_u_hat", "lambdas", "modes_re",
                "modes_im", "_w_re", "_w_im")
 # fitted arrays each class needs to predict
@@ -50,7 +57,12 @@ _REQUIRED = {
     "DMD": ("n_x", "n_t", "_A", "_u_r", "lambdas", "amplitudes", "modes_re",
             "modes_im", "_w_re", "_w_im"),
     "FittedActiveSsRsvd": ("components_", "singular_vals_", "n_comps"),
+    "IncrementalSvd": ("rank", "track_v", "u", "s", "v", "n_cols"),
+    "IncrementalPca": ("n_components", "components_", "singular_values_",
+                       "mean_", "n_samples_seen_"),
 }
+_DREAM_FLOAT = ("heads", "head_lnp", "p_cr", "jump_dist", "n_id")
+_DREAM_COUNT = ("n_accept", "t")
 _JAX_ONLY = "_mesh"   # a jax.sharding.Mesh, or None
 
 
@@ -60,14 +72,16 @@ def _is_array(val) -> bool:
 
 def from_jax_state(class_name: str, state: dict, device=None):
     """Port object of ``class_name`` holding the JAX object's ``state``."""
+    dev = torch.device(device) if device is not None else default_device()
+    if class_name == "DreamState":
+        return _dream_state(state, dev)
     cls = _CLASSES.get(class_name)
     if cls is None:
         raise ValueError(f"no port of {class_name!r}; known: "
-                         f"{sorted(_CLASSES)}")
+                         f"{sorted(_CLASSES) + ['DreamState']}")
     missing = [k for k in _REQUIRED[class_name] if k not in state]
     if missing:
         raise ValueError(f"{class_name} state lacks {missing}")
-    dev = torch.device(device) if device is not None else default_device()
     obj = cls.__new__(cls)
     for name, val in state.items():
         if name == _JAX_ONLY:
@@ -79,6 +93,21 @@ def from_jax_state(class_name: str, state: dict, device=None):
         setattr(obj, name, val)
     obj._device = dev
     return obj
+
+
+def _dream_state(state: dict, dev) -> DreamState:
+    missing = [k for k in _DREAM_FLOAT + _DREAM_COUNT if k not in state]
+    if missing:
+        raise ValueError(f"DreamState state lacks {missing}")
+    seed = state.get("key", 0)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(int(seed) if isinstance(seed, (int, np.integer)) else 0)
+    fields = {k: torch.as_tensor(np.array(state[k]), device=dev)
+              for k in _DREAM_FLOAT}
+    fields.update({k: torch.as_tensor(int(np.array(state[k])),
+                                      dtype=torch.int64, device=dev)
+                   for k in _DREAM_COUNT})
+    return DreamState(key=gen, **fields)
 
 
 def load_jax_checkpoint(path, device=None):

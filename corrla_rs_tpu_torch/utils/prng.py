@@ -9,7 +9,7 @@ from __future__ import annotations
 
 import torch
 
-__all__ = ["as_generator", "split_seed"]
+__all__ = ["as_generator", "split_seed", "fold_seed"]
 
 
 def as_generator(seed_or_gen, device) -> torch.Generator:
@@ -51,3 +51,16 @@ def split_seed(seed_or_gen, n: int = 2, device="cpu") -> list:
         gen.manual_seed(seed)
         children.append(gen)
     return children
+
+
+def fold_seed(seed_or_gen, data: int, device="cpu") -> torch.Generator:
+    """A generator on ``device`` derived from the parent and the int
+    ``data``, independent of the parent's ``split_seed`` children.
+
+    Counterpart of ``jax.random.fold_in``: one 62-bit draw from the parent
+    (see ``split_seed``), offset by a multiple of ``data + 1``.
+    """
+    base = split_seed(seed_or_gen, 1, "cpu")[0].initial_seed()
+    gen = torch.Generator(device=device)
+    gen.manual_seed((base + 0x9E3779B97F4A7C15 * (int(data) + 1)) % (1 << 63))
+    return gen

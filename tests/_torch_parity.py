@@ -15,6 +15,7 @@ import torch
 from corrla_rs_tpu.utils.prng import as_key
 from corrla_rs_tpu_torch.models import dmd as port_dmd
 from corrla_rs_tpu_torch.ops import random_svd as port_random_svd
+from corrla_rs_tpu_torch.ops import trace_est as port_trace_est
 from corrla_rs_tpu_torch.utils.device import default_device, set_default_device
 
 torch.set_num_threads(1)
@@ -40,6 +41,19 @@ def jax_split(seed, n, device):
     return jax.random.split(as_key(seed), int(n))
 
 
+def jax_fold(seed, data, device):
+    """The JAX package's ``jax.random.fold_in(as_key(seed), data)``."""
+    return jax.random.fold_in(as_key(seed), int(data))
+
+
+def jax_rademacher(seed, shape, dtype, device):
+    """The JAX package's probes: ``jax.random.rademacher(as_key(seed),
+    shape, dtype)``."""
+    jdt = jnp.float32 if dtype == torch.float32 else jnp.float64
+    draw = np.array(jax.random.rademacher(as_key(seed), shape, dtype=jdt))
+    return torch.from_numpy(draw).to(device)
+
+
 @pytest.fixture
 def cpu_device():
     """Run the port on the CPU for one test."""
@@ -51,9 +65,13 @@ def cpu_device():
 
 @pytest.fixture
 def same_sketch(cpu_device, monkeypatch):
-    """Port on the CPU, drawing the JAX package's sketch from the JAX
-    package's keys (DMDc splits its seed as JAX does)."""
+    """Port on the CPU, drawing the JAX package's sketches and probes from
+    the JAX package's keys (every module splits and folds its seed as JAX
+    does)."""
     monkeypatch.setattr(port_random_svd, "_draw_sketch", jax_sketch)
+    monkeypatch.setattr(port_random_svd, "_split_seed", jax_split)
+    monkeypatch.setattr(port_random_svd, "_fold_seed", jax_fold)
+    monkeypatch.setattr(port_trace_est, "_rademacher", jax_rademacher)
     monkeypatch.setattr(port_dmd, "_split_seed", jax_split)
 
 

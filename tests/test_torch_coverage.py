@@ -10,10 +10,12 @@ names, or ``module.name``; a top-level name is covered by the key of the
 module that defines it. No key may name something the port has.
 """
 import importlib
+import inspect
 import os
 import pkgutil
 import re
 
+import pytest
 import torch
 
 import corrla_rs_tpu as crt
@@ -32,9 +34,6 @@ COUNTERPARTS = {
 
 _LEAVE_OUT = "ROADMAP Leave out"
 NOT_PORTED = {
-    # queue 1 item 2: the rest of the randomized SVD core
-    "ops.random_svd.block_krylov_svd": "queue 1 item 2",
-    "ops.random_svd.single_pass_svd": "queue 1 item 2",
     # queue 1 item 7: eager torch has no traced calls to probe for, and the
     # Francis-QR solver waits for a measured need on the card
     "ops.eig.jittable_eig_supported":
@@ -43,23 +42,17 @@ NOT_PORTED = {
     "ops.eig.eigvals_device": "queue 1 item 7 (only on a measured H100 need)",
     "ops.eig.schur": "queue 1 item 7 (only on a measured H100 need)",
     "ops.eig_device": "queue 1 item 7 (only on a measured H100 need)",
-    # queue 1 item 10
-    "ops.univariate_rv": "queue 1 item 10",
-    "ops.optimize": "queue 1 item 10",
-    # queue 1 item 11: the facade's own checkpoints and logger
+    # queue 1 item 11: the facade's own checkpoints
     "utils.checkpoint": "queue 1 item 11",
-    "utils.log": "queue 1 item 11",
     # queue 1 item 12: the port's bench and its tracing
     "utils.tracing": "queue 1 item 12",
     # queue 1 item 13: samplers beyond the reference
     **{f"ops.{m}": "queue 1 item 13" for m in (
-        "dream", "ensemble_mcmc", "hmc", "nuts", "smc", "particle", "enkf",
-        "kalman", "laplace", "bridge", "psis", "diagnostics")},
+        "ensemble_mcmc", "hmc", "nuts", "smc", "particle", "enkf", "kalman",
+        "laplace", "bridge", "psis")},
     # queue 1 item 14: factorizations on the RSVD core
     **{f"ops.{m}": "queue 1 item 14" for m in (
-        "hosvd", "id_cur", "nystrom", "tt", "cp", "nmf", "completion",
-        "robust_pca", "rank_select", "incremental", "trace_est", "slq", "cg",
-        "sketch_solve")},
+        "tt", "cp", "nmf", "completion")},
     # queue 1 item 15: ROM models
     **{f"models.{m}": "queue 1 item 15" for m in (
         "edmd", "kernel_dmd", "hankel_dmd", "mrdmd", "optdmd", "bop_dmd",
@@ -164,9 +157,77 @@ def test_this_slice_is_ported():
                  "DMDc", "PyDMDc", "DMD", "dmdc_fit_ensemble",
                  "rollout_ensemble", "ActiveSsRsvd", "FittedActiveSsRsvd",
                  "PolyGradientEstimator", "AdGradientEstimator",
-                 "DeMcSampler", "constr_dirichlet_sample", "eig", "eig_host"):
+                 "DeMcSampler", "constr_dirichlet_sample", "eig", "eig_host",
+                 *SLICE_NAMES):
         assert hasattr(port, name) and name in port.__all__, name
     for rel in ("ops.knn", "ops.samplers", "ops.stats_corr", "ops.mat_utils",
-                "models.dmd", "models.active_subspaces"):
+                "models.dmd", "models.active_subspaces", *SLICE_MODULES):
         assert not any(k == rel or k.startswith(rel + ".")
                        for k in NOT_PORTED), rel
+        assert _port_module(rel) is not None, rel
+
+
+# the slice of the single-pass and Krylov SVDs, DREAM, the MLE layer and
+# the first factorizations on the RSVD core
+SLICE_MODULES = (
+    "ops.random_svd", "utils.log", "ops.optimize", "ops.univariate_rv",
+    "ops.dream", "ops.diagnostics", "ops.nystrom", "ops.rank_select",
+    "ops.trace_est", "ops.sketch_solve", "ops.cg", "ops.slq", "ops.id_cur",
+    "ops.hosvd", "ops.incremental", "ops.robust_pca",
+)
+SLICE_NAMES = (
+    "block_krylov_svd", "single_pass_svd", "DreamSampler", "dream_run",
+    "gelman_rubin", "effective_sample_size", "rank_normalized_rhat",
+    "NormalRv", "BetaRv", "ExponentialRv", "KdeRv", "build_kde",
+    "nystrom_eigh", "nystrom_approx", "svht_threshold", "select_rank",
+    "range_error_estimate", "adaptive_random_svd", "hutchinson_trace",
+    "hutchpp_trace", "sketched_lstsq", "cg_solve", "jacobi_preconditioner",
+    "nystrom_preconditioner", "slq_spectral_sum", "slq_logdet",
+    "lanczos_tridiag", "lanczos_fn_apply", "column_id", "row_id", "cur",
+    "hosvd", "hooi", "tucker_reconstruct", "mode_multiply", "IncrementalSvd",
+    "IncrementalPca", "robust_pca",
+)
+# a matmul precision is XLA's to choose; here TF32 is off once, for all
+JAX_ONLY_PARAMS = {"precision", "power_precision"}
+# each package's logger lives under its own name
+OWN_DEFAULTS = {("utils.log", "get_logger", "name"): "corrla_rs_tpu_torch"}
+
+
+def _callables(rel):
+    """(name, JAX callable, port callable) of a module's public functions,
+    and of its public classes' constructors and public methods."""
+    jmod = importlib.import_module(f"corrla_rs_tpu.{rel}")
+    pmod = _port_module(rel)
+    for name in jmod.__all__:
+        jobj, pobj = getattr(jmod, name), getattr(pmod, name)
+        if not inspect.isclass(jobj):
+            yield name, jobj, pobj
+            continue
+        if "__init__" in vars(jobj):
+            yield f"{name}.__init__", jobj.__init__, pobj.__init__
+        for meth, jfn in vars(jobj).items():
+            if inspect.isfunction(jfn) and not meth.startswith("_"):
+                yield f"{name}.{meth}", jfn, getattr(pobj, meth)
+
+
+def _params(fn):
+    """[(name, default)] of a function's parameters; a jitted function is
+    read through its wrapped one."""
+    fn = getattr(fn, "__wrapped__", fn)
+    return [(p.name, p.default)
+            for p in inspect.signature(fn).parameters.values()]
+
+
+@pytest.mark.parametrize("rel", SLICE_MODULES)
+def test_slice_signatures_equal_the_jax_package(rel):
+    # parameter names, order and defaults (``unroll`` and ``mesh`` kept for
+    # the signature's sake), the matmul precisions apart
+    n_checked = 0
+    for name, jfn, pfn in _callables(rel):
+        want = [(p, OWN_DEFAULTS.get((rel, name, p), default))
+                for p, default in _params(jfn) if p not in JAX_ONLY_PARAMS]
+        assert _params(pfn) == want, f"{rel}.{name}"
+        n_checked += 1
+    assert n_checked >= 1
+    jmod = importlib.import_module(f"corrla_rs_tpu.{rel}")
+    assert set(jmod.__all__) <= set(_port_module(rel).__all__), rel

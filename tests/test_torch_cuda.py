@@ -486,3 +486,278 @@ def test_active_ss_on_cuda_matches_cpu_f64(dev):
     torch.testing.assert_close(cg.cpu() * sign, cc, rtol=0, atol=1e-8)
     torch.testing.assert_close(vg.cpu(), vc, rtol=1e-8, atol=1e-12)
     torch.testing.assert_close(sg.cpu(), sc, rtol=1e-8, atol=1e-12)
+
+
+# ---------------------------------------------------------------------------
+# the modules without a kernel of their own: each once on the card against
+# itself on the CPU, in f64 at a small size, from the same random numbers
+
+def _seed_of(key):
+    return key.initial_seed() if isinstance(key, torch.Generator) else int(
+        key or 0)
+
+
+@pytest.fixture
+def cpu_draws(monkeypatch):
+    """Every sketch and probe is drawn by a CPU generator of the key's seed
+    and moved to the device: a run on the card and one on the CPU see the
+    same numbers (the two devices' generators give different ones)."""
+    from corrla_rs_tpu_torch.ops import random_svd, trace_est
+
+    def sketch(key, shape, dtype, device):
+        gen = torch.Generator().manual_seed(_seed_of(key))
+        return torch.randn(shape, generator=gen, dtype=dtype).to(device)
+
+    def rademacher(key, shape, dtype, device):
+        gen = torch.Generator().manual_seed(_seed_of(key))
+        bits = torch.randint(0, 2, shape, generator=gen)
+        return (2 * bits - 1).to(dtype).to(device)
+
+    monkeypatch.setattr(random_svd, "_draw_sketch", sketch)
+    monkeypatch.setattr(trace_est, "_rademacher", rademacher)
+
+
+def _np_rng():
+    import numpy as np
+
+    return np.random.default_rng(7)
+
+
+def _decaying(n, m, rate=0.7):
+    rng = _np_rng()
+    return torch.tensor(rng.standard_normal((n, m))
+                        * rate ** torch.arange(m).numpy())
+
+
+def _spd(n, cond=20.0):
+    import numpy as np
+
+    q, _ = np.linalg.qr(_np_rng().standard_normal((n, n)))
+    return torch.tensor((q * np.linspace(1.0, cond, n)) @ q.T)
+
+
+def _proj(u):
+    return u @ u.mT
+
+
+def _case_krylov_single_pass(d):
+    from corrla_rs_tpu_torch.ops import random_svd as m
+
+    a = _decaying(90, 30).to(d)
+    out = []
+    for u, s, vt in (m.block_krylov_svd(a, 5, 2, 4, key=1),
+                     m.single_pass_svd(a, 5, 4, key=2),
+                     m.single_pass_svd(a.mT, 5, 4, key=2)):
+        out += [s, _proj(u), _proj(vt.mT)]
+    return out
+
+
+def _case_nystrom_cg(d):
+    from corrla_rs_tpu_torch.ops import cg, nystrom
+
+    a = _spd(60, 500.0).to(d)
+    b = torch.tensor(_np_rng().standard_normal((60, 2))).to(d)
+    lam, vec = nystrom.nystrom_eigh(a, 8, key=3)
+    pre = cg.nystrom_preconditioner(a, 10, 0.5, key=4)
+    res = cg.cg_solve(a, b, n_iters=150, tol=1e-10, preconditioner=pre)
+    jac = cg.cg_solve(a, b[:, 0], n_iters=150, tol=1e-10,
+                      preconditioner=cg.jacobi_preconditioner(a))
+    return [lam, _proj(vec), res.x, res.residual_norms, jac.x,
+            res.converged.double()]
+
+
+def _case_rank_select_trace_slq(d):
+    from corrla_rs_tpu_torch.ops import rank_select, slq, trace_est
+
+    a = _decaying(80, 40).to(d)
+    u, s, vt, r, err = rank_select.adaptive_random_svd(a, 3.0, rank0=2, key=5)
+    w = _spd(70).to(d)
+    v0 = torch.linalg.qr(torch.tensor(_np_rng().standard_normal((70, 3)))
+                         ).Q.to(d)
+    al, be = slq.lanczos_tridiag(w, v0, 10)
+    return [s, torch.tensor([float(r), err,
+                             trace_est.hutchinson_trace(w, 16, key=1),
+                             trace_est.hutchpp_trace(w, 30, key=2),
+                             slq.slq_logdet(w, 6, 20, key=3)], device=d),
+            al, be, slq.lanczos_fn_apply(w / 10, v0, torch.exp, 20)]
+
+
+def _case_lstsq_id_cur(d):
+    from corrla_rs_tpu_torch.ops import id_cur, sketch_solve
+
+    rng = _np_rng()
+    a = torch.tensor(rng.standard_normal((300, 12))).to(d)
+    b = torch.tensor(rng.standard_normal((300, 2))).to(d)
+    x, hist = sketch_solve.sketched_lstsq(a, b, key=6)
+    m = torch.tensor(rng.standard_normal((70, 6))
+                     @ rng.standard_normal((6, 40))).to(d)
+    cols, xi = id_cur.column_id(m, 6, key=7)
+    rows, cols2, u = id_cur.cur(m, 6, key=8)
+    return [x, hist[:, :15], cols.double(), xi, rows.double(),
+            cols2.double(), m[:, cols2] @ u @ m[rows]]
+
+
+def _case_hosvd_incremental_rpca(d):
+    from corrla_rs_tpu_torch.ops import hosvd, incremental, robust_pca
+
+    rng = _np_rng()
+    t = torch.tensor(rng.standard_normal((9, 8, 7))).to(d)
+    core, factors = hosvd.hooi(t, (3, 3, 2), n_sweeps=2, key=9)
+    a = _decaying(50, 36, 0.8).to(d)
+    inc = incremental.IncrementalSvd(5)
+    pca = incremental.IncrementalPca(4)
+    for blk in torch.chunk(a, 3, dim=1):
+        inc.update(blk)
+        pca.partial_fit(blk.mT)
+    low = torch.tensor(rng.standard_normal((40, 3))
+                       @ rng.standard_normal((3, 30))).to(d)
+    spikes = (torch.tensor(rng.random((40, 30))) < 0.05).double().to(d) * 8.0
+    l_hat, s_hat, info = robust_pca.robust_pca(low + spikes)
+    return [hosvd.tucker_reconstruct(core, factors), inc.s,
+            inc.reconstruct(), pca.singular_values_, pca.mean_,
+            _proj(pca.components_.mT), l_hat, s_hat,
+            torch.tensor([float(info["iterations"]), float(info["rank"])],
+                         device=d)]
+
+
+def _case_mle_diagnostics(d):
+    from corrla_rs_tpu_torch.ops import diagnostics, univariate_rv as rv
+
+    rng = _np_rng()
+    x = torch.tensor(rng.normal(2.0, 3.0, 3000)).to(d)
+    xb = torch.tensor(rng.beta(2.0, 5.0, 3000)).to(d)
+    nrm = rv.NormalRv(0.0, 1.0).mlfit(x)
+    beta = rv.BetaRv(1.0, 1.0).mlfit(xb, method=2)
+    expo = rv.ExponentialRv(1.0).mlfit(x.abs())
+    kde = rv.KdeRv(0.3, x[:200])
+    h = torch.tensor(rng.standard_normal((120, 6, 2))).cumsum(0).to(d)
+    grid = torch.linspace(0.01, 0.99, 25, dtype=torch.float64, device=d)
+    return [torch.tensor([nrm.mu, nrm.std, beta.alpha, beta.beta, expo.lam,
+                          kde.est_bandwidth(x[200:400])], device=d),
+            rv.betainc(2.5, 0.7, grid), beta.cdf(grid), kde.pdf(x[:50]),
+            diagnostics.gelman_rubin(h),
+            diagnostics.effective_sample_size(h),
+            diagnostics.rank_normalized_rhat(h)]
+
+
+def _case_dream(d):
+    from corrla_rs_tpu_torch.ops import dream
+
+    # the same pre-drawn tensors on both devices, through the seam
+    n, dim, gens = 32, 3, 25
+    rand = dream._draw_dream(torch.Generator().manual_seed(11), gens, n, dim,
+                             3, 0.05, 1e-6, torch.float64)
+    heads = torch.tensor(_np_rng().standard_normal((n, dim)) * 2).to(d)
+    real, dream._draw_dream = dream._draw_dream, (
+        lambda gen, n_gens, *a: dream._GenRand(*(r.to(d) for r in rand)))
+    real_chunk, dream._chunk_for = dream._chunk_for, lambda n_chains: gens
+    try:
+        hist, st = dream.dream_run(
+            heads, lambda x: -0.5 * torch.sum(x * x) - 0.1 * x[0] * x[1],
+            gens, key=0, n_adapt=10)
+    finally:
+        dream._draw_dream, dream._chunk_for = real, real_chunk
+    assert hist.device.type == d.type and st.n_accept.device.type == d.type
+    return [hist, st.head_lnp, st.p_cr, st.jump_dist, st.n_id,
+            st.n_accept.double(), st.t.double()]
+
+
+SLICE_CASES = {
+    "krylov_single_pass": _case_krylov_single_pass,
+    "nystrom_cg": _case_nystrom_cg,
+    "rank_select_trace_slq": _case_rank_select_trace_slq,
+    "lstsq_id_cur": _case_lstsq_id_cur,
+    "hosvd_incremental_rpca": _case_hosvd_incremental_rpca,
+    "mle_diagnostics": _case_mle_diagnostics,
+    "dream": _case_dream,
+}
+
+
+@pytest.mark.parametrize("case", sorted(SLICE_CASES))
+def test_slice_module_on_cuda_matches_cpu_f64(dev, cpu_draws, case):
+    # f64 on both: cuBLAS/cuSOLVER against the CPU's LAPACK, 1e-8 of each
+    # result's largest entry (the fits stop at a gradient of 1e-5, so 1e-6)
+    on_card = SLICE_CASES[case](dev)
+    on_cpu = SLICE_CASES[case](torch.device("cpu"))
+    tol = 1e-6 if case == "mle_diagnostics" else 1e-8
+    assert len(on_card) == len(on_cpu)
+    for i, (got, want) in enumerate(zip(on_card, on_cpu)):
+        assert got.device.type == "cuda" and want.device.type == "cpu", i
+        scale = max(float(want.abs().max()), 1e-30)
+        err = float((got.cpu() - want).abs().max())
+        assert err <= tol * scale, (case, i, err, scale)
+
+
+def test_slice_entry_points_put_numpy_on_the_card(dev):
+    import numpy as np
+
+    import corrla_rs_tpu_torch as port
+    from corrla_rs_tpu_torch.ops import dream, optimize, univariate_rv
+
+    rng = np.random.default_rng(3)
+    a = rng.standard_normal((60, 20)) * 0.7 ** np.arange(20)
+    g = rng.standard_normal((30, 30))
+    w = g @ g.T / 30 + np.eye(30)
+    b = rng.standard_normal(30)
+    x = rng.normal(1.0, 2.0, 500)
+    f = lambda v: -0.5 * torch.sum(v * v)
+    heads = rng.standard_normal((10, 2))
+    inc = port.IncrementalSvd(3).update(a[:, :10]).update(a[:, 10:])
+    pca = port.IncrementalPca(3).partial_fit(a[:30]).partial_fit(a[30:])
+    results = {
+        "random_svd": port.random_svd(a, 4, 1, 2),
+        "single_pass_svd": port.single_pass_svd(a, 4),
+        "block_krylov_svd": port.block_krylov_svd(a, 4, 1),
+        "betainc": univariate_rv.betainc(2.0, 5.0,
+                                         np.linspace(0.1, 0.9, 5)),
+        "nystrom_eigh": port.nystrom_eigh(w, 4),
+        "nystrom_approx": port.nystrom_approx(w, 4),
+        "adaptive_random_svd": port.adaptive_random_svd(a, 0.5)[:3],
+        "sketched_lstsq": port.sketched_lstsq(a, a[:, 0]),
+        "cg_solve": port.cg_solve(w, b)[:3],
+        "jacobi_preconditioner": port.jacobi_preconditioner(w)(
+            torch.ones(30, 1, dtype=torch.float64, device=dev)),
+        "lanczos_tridiag": port.lanczos_tridiag(w, b[:, None] / np.linalg.norm(b), 5),
+        "lanczos_fn_apply": port.lanczos_fn_apply(w, b, torch.exp, 10),
+        "column_id": port.column_id(a, 4),
+        "row_id": port.row_id(a, 4),
+        "cur": port.cur(a, 4),
+        "hosvd": port.hosvd(rng.standard_normal((6, 5, 4)), (2, 2, 2)),
+        "hooi": port.hooi(rng.standard_normal((6, 5, 4)), (2, 2, 2)),
+        "IncrementalSvd": (inc.u, inc.s, inc.v, inc.reconstruct()),
+        "IncrementalPca": (pca.components_, pca.mean_, pca.transform(a)),
+        "robust_pca": port.robust_pca(a)[:2],
+        "gelman_rubin": port.gelman_rubin(rng.standard_normal((40, 4, 2))),
+        "effective_sample_size": port.effective_sample_size(
+            rng.standard_normal((40, 4, 2))),
+        "rank_normalized_rhat": port.rank_normalized_rhat(
+            rng.standard_normal((40, 4, 2))),
+        "make_dream_state": dream.make_dream_state(heads, f)[:2],
+        "dream_run": port.dream_run(heads, f, 4)[0],
+        "DreamSampler": port.DreamSampler(f, heads).sample_mcmc(3)
+        .chain_history,
+        "NormalRv.pdf": port.NormalRv(0.0, 1.0).pdf(x),
+        "NormalRv.sample": port.NormalRv(0.0, 1.0).sample(5),
+        "BetaRv.cdf": port.BetaRv(2.0, 3.0).cdf(np.linspace(0.1, 0.9, 5)),
+        "BetaRv.sample": port.BetaRv(2.0, 3.0).sample(5),
+        "ExponentialRv.sample": port.ExponentialRv(2.0).sample(5),
+        "KdeRv": port.KdeRv(0.5, x).pdf(x[:5]),
+        "build_kde": port.build_kde(0.5, x[:100], n_iter=2).supports,
+        "mlefit": optimize.mlefit(lambda p: torch.sum((p - 1.0) ** 2),
+                                  [0.0, 0.0], [[-5.0, -5.0], [5.0, 5.0]]),
+        "particle_swarm": optimize.particle_swarm(
+            lambda p: torch.sum((p - 1.0) ** 2), [[-5.0, -5.0], [5.0, 5.0]],
+            0, n_particles=8, n_iters=5),
+    }
+    for name, res in results.items():
+        tensors = [t for t in (res if isinstance(res, (tuple, list)) else
+                               [res]) for t in (t if isinstance(t, list)
+                                                else [t])]
+        assert tensors and all(isinstance(t, torch.Tensor) and t.is_cuda
+                               for t in tensors), name
+    # the scalar estimators read their result back; their work is on the
+    # card all the same, which the fits' samples show
+    assert isinstance(port.hutchpp_trace(w, 9), float)
+    assert isinstance(port.slq_logdet(w, 4, 10), float)
+    assert isinstance(port.range_error_estimate(a, np.eye(60)[:, :5]), float)
+    assert port.NormalRv(0.0, 1.0).mlfit(x).std > 0
