@@ -36,9 +36,10 @@ time, and any failure raises (exit code != 0):
    'modes' and 'reduced' methods; PyDMDc's dense-A rollout at 20,000
    states; dmdc_fit_ensemble and rollout_ensemble over 8 members of 20,000
    states. Each against the true trajectory;
-9. active_ss: api.active_ss on 8,192 samples in 8-D of y = exp(0.3 a.x),
+9. active_ss: api.active_ss on 32,768 samples in 8-D of y = exp(0.3 a.x),
    order 2, 64 neighbours (the kNN distance tile goes through the kernel
-   matrix), the leading direction against a;
+   matrix; the 32,768 local fits through the batched Jacobi pinv), the
+   leading direction against a;
 10. samplers: cs_dirichlet_sample, 1,000,000 samples in 8-D against a numpy
     rejection reference; cs_mcmc_dirichlet_sample with 1,024 seed chains x
     2,000 generations and at the reference's 12 x 3,000, both on the
@@ -51,23 +52,49 @@ time, and any failure raises (exit code != 0):
     hutchpp_trace and slq_logdet of an 8,192^2 SPD matrix; sketched_lstsq of
     200,000 x 500; cg_solve with and without nystrom_preconditioner on an
     8,192^2 system; robust_pca of 2,000 x 2,000; IncrementalSvd fed
-    50,000 x 2,000 in 10 blocks. Each against the exact answer or the
-    matrix it was built from, at the tolerance of the JAX package's own
-    test of that module (named in FACTORIZE_TOL);
+    50,000 x 2,000 in 10 blocks; tt_svd then tt_round of a 64^4 tensor of
+    known TT ranks; cp_als of a 256^3 tensor of CP rank 10; nmf of a
+    20,000 x 2,000 nonnegative rank-20 matrix; matrix_complete of a
+    4,000 x 2,000 rank-10 matrix with 30% observed (the error on the
+    unobserved entries). Each against the exact answer or the matrix it was
+    built from, at the tolerance of the JAX package's own test of that
+    module (named in FACTORIZE_TOL);
 13. mle: NormalRv, BetaRv and ExponentialRv fitted to 100,000 draws each
     (within 3 standard errors of the truth), build_kde on 10,000 points
-    (its cdf against the empirical one, its pdf's integral).
+    (its cdf against the empirical one, its pdf's integral);
+14. inference: stretch_run and hmc_run (4,096 walkers or chains; HMC with
+    jittered trajectory lengths) and nuts_run (1,024 chains) on one
+    correlated 16-D Gaussian, each against its mean and covariance with the
+    acceptance and the rank-normalized R-hat (NUTS also its mean tree depth
+    and divergences); smc_sample with 8,192 particles against a conjugate
+    Gaussian posterior's closed-form mean, covariance and evidence;
+15. filters: one linear-Gaussian state-space model (64 states, 16 observed,
+    500 steps): kalman_filter against the exact time-varying Kalman filter
+    (started at the steady state, where the two coincide), kalman_smooth
+    against the exact RTS smoother, dare by its Riccati residual;
+    enkf_filter (both methods, 1,024 members; the ETKF over the first 100
+    steps, each of which takes a 1,024^2 eigh) by the RMS distance of its
+    means to the Kalman means and its RMSE to the truth; particle_filter
+    (16,384 particles) the same way at what a bootstrap filter can give at
+    64 states, and on a model of 4 states, 2 observed, at the JAX test's
+    own limits; ukf_filter against the Kalman means (exact on a linear
+    system); esmda on a linear inverse problem against its closed-form
+    posterior mean;
+16. evidence: laplace_approx, bridge_sampling_evidence and psis on a
+    Gaussian posterior whose log-evidence is known; psis may copy its tail
+    to the host, never the weight vector.
 
-After phase 13 come the timing details of phases 7 and 9-10 (RbfInterp's
+After phase 16 come the timing details of phases 7 and 9-10 (RbfInterp's
 fit with its saddle matrix built by concatenation, as before the kernel
 matrix wrote K in place, and built in place; the kNN and grads steps of
 active_ss; a DEMC generation) and the kNN against its plain version. The
 build phase prints ptxas's registers and spills for both kernels'
 instances and fails if any spills. The kernels' launch counts
 are set to 0 before phase 4 and read after phase 7, again before phase 8
-and after phase 10, and again before phase 11 and after phase 13; every
-kernel of a path must have launched on it (phases 11-13 reach no kernel,
-and the run fails if their counts say otherwise). The last lines are the kernel table as JSON (every timed shape of each kernel,
+and after phase 10, again before phase 11 and after phase 13, and again
+before phase 14 and after phase 16; every kernel of a path must have
+launched on it (phases 11-16 reach no kernel, and the run fails if their
+counts say otherwise). The last lines are the kernel table as JSON (every timed shape of each kernel,
 with its bound and, where one exists, a one-call PyTorch equivalent's
 time), the nvidia-smi line, and the result JSON. Nothing of JAX is
 imported. Without a CUDA device it exits with code 2 and prints no result.
@@ -75,6 +102,7 @@ imported. Without a CUDA device it exits with code 2 and prints no result.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import math
 import re
@@ -102,8 +130,7 @@ SIZES = {
     "dmdc": (200_000, 1001, 10, 10),              # states, snapshots, modes, iters
     "dmdc_dense": 20_000,                         # states of PyDMDc's dense A
     "ensemble": (8, 20_000),                      # members, states each
-    # n cut from 32,768: there the batched SVD of the local fits took 44.5 s
-    "active_ss": (8192, 8, 64, 2, 4096),          # n, dims, nbrs, comps, checked
+    "active_ss": (32768, 8, 64, 2, 4096),         # n, dims, nbrs, comps, checked
     "dirichlet": (1_000_000, 8, 1 << 20),         # samples, ndim, chunk
     "demc": (1024, 2000),                         # seed chains, generations
     "demc_ref": (12, 3000),                       # the reference's scale
@@ -118,6 +145,21 @@ SIZES = {
     "robust_pca": (2000, 10, 0.05),               # side, rank, corrupted share
     "incremental": (50_000, 2000, 10, 40, 10),    # rows, columns, blocks, rank, checked
     "mle": (100_000, 10_000),                     # draws a fit, KDE points
+    "tt": (64, (8, 12, 8), (16, 24, 16)),         # side, true TT ranks, asked first
+    "cp": (256, 10, 50),                          # side of the cube, rank, sweeps
+    "nmf": (20_000, 2000, 20, 500),               # rows, columns, rank, sweeps
+    "completion": (4000, 2000, 10, 0.30, 30),     # rows, columns, rank, observed, sweeps
+    "gauss16": 16,                                # dims of the samplers' target
+    "stretch": (4096, 7000, 1000),                # walkers, generations, discarded
+    "hmc": (4096, 150, 200, 16),                  # chains, warmup, kept, leapfrog steps
+    "nuts": (1024, 100, 100, 6),                  # chains, warmup, kept, max depth
+    "smc": (8192, 4, 5),                          # particles, dims, mutation steps
+    "ssm": (64, 16, 500),                         # states, observed, steps
+    "enkf": (1024, 100),                          # members, steps of the ETKF run
+    "pf": 16_384,                                 # particles
+    "pf_small": (4, 2),                           # states, observed: the tight check
+    "esmda": (8192, 32, 64, 4),                   # members, parameters, data, stages
+    "evidence": (8, 20_000, 20_000),              # dims, posterior draws, weights
 }
 # tolerance of each factorize check, and the JAX package's test it is from
 FACTORIZE_TOL = {
@@ -138,6 +180,47 @@ FACTORIZE_TOL = {
                          "relative error; rank; residual < 1e-7)"),
     "incremental": (1e-3, "test_incremental.py::"
                           "test_incremental_svd_truncating_tracks_dominant"),
+    "tt": (1e-4, "test_tt.py::test_large_unfolding_uses_rsvd (relative "
+                 "error of the reconstruction, f32)"),
+    "cp": (1e-4, "test_cp.py::test_cp_exact_recovery (1e-7 in f64; here "
+                 "f32, at test_id_cur's f32 1e-4)"),
+    "nmf": (2e-2, "test_nmf.py::test_recovers_planted_nonneg_lowrank holds "
+                  "1e-4 after 2,000 sweeps at 60 x 45, rank 4; HALS "
+                  "converges sublinearly, and 500 sweeps at rank 20 reach "
+                  "7e-3 (relative Frobenius error; history monotone)"),
+    "completion": (1e-6, "test_completion.py::test_exact_recovery_heldout "
+                         "(relative error on the unobserved entries, f64, "
+                         "lam 1e-10)"),
+}
+# tolerances of the Monte-Carlo filters against the Kalman means, and of the
+# ensemble smoother against its posterior mean, from the JAX package's tests
+FILTER_TOL = {
+    "mc_means": (0.15, "test_particle.py::test_linear_loglik_matches_exact "
+                       "(atol on the filtered means, states of unit scale); "
+                       "at 64 states it is the limit of the RMS over steps "
+                       "and states"),
+    "enkf_truth": (0.02, "an ensemble filter's RMSE to the truth above the "
+                         "Kalman filter's (test_enkf.py::"
+                         "test_tracks_hidden_state asks half the "
+                         "observations' error)"),
+    "pf_loglik_a_step": (0.01, "the same test allows 0.5 over its 60 steps"),
+    # a bootstrap filter at 64 states loses its ancestors within the
+    # model's memory of 20 steps: the measured error falls only as
+    # N^-0.15 there (PERF.md), so these three hold it to about 1.3 times
+    # what 16,384 particles gave
+    "pf_means_wide": (0.35, "measured 0.28 RMS at 64 states"),
+    "pf_truth": (0.10, "measured 6% above the Kalman filter's RMSE"),
+    "pf_loglik_a_step_wide": (0.2, "measured 0.14 a step at 64 states"),
+    "esmda_mean": (0.08, "test_enkf.py::test_linear_gaussian_posterior"),
+    "exact": (1e-8, "test_particle.py::test_linear_matches_kalman_exactly "
+                    "(f64)"),
+}
+# tolerances of the evidence estimates on a Gaussian (|delta log Z|)
+EVIDENCE_TOL = {
+    "laplace": (1e-6, "test_laplace.py::test_gaussian_exact"),
+    "bridge": (0.02, "test_bridge.py::test_gaussian_evidence_exact_case"),
+    "psis": (0.05, "test_psis.py::test_reweighted_mean_and_smoothing_"
+                   "improves (0.06 on a mean; here on log Z), k-hat < 0.7"),
 }
 # H100 SXM peaks (NVIDIA data sheet, at 700 W): HBM bytes/s, f32 and f64
 # FLOP/s outside the tensor cores
@@ -390,11 +473,16 @@ def matvec_bound(m, n, d, c, itemsize=4):
 GUARD = -7.5   # what the cells around a kernel matrix's block hold
 
 
+KMAT_CHECK_BLOCK = 2048   # rows of the plain version held at a time
+
+
 def kmat_case(rk, gen, dev, na, nb, d, phi, dtype, eps=0.7, timed=False,
-              check_rows=None, square=False, pad=None):
+              square=False, pad=None):
     """The kernel matrix against its plain version in f64 (``square``: xb
     is xa, and the diagonal must be exactly phi(0)), and a bit-identical
     rerun; with ``timed``, its times beside the bound and the library.
+    Every row is compared, KMAT_CHECK_BLOCK rows of the plain version at a
+    time, each block held to its own largest entry.
 
     Without ``pad`` the call is ``pairwise_kernel_matrix``. With it (square
     only), the call is ``_pairwise_kernel_matrix_into`` on the top-left
@@ -406,7 +494,6 @@ def kmat_case(rk, gen, dev, na, nb, d, phi, dtype, eps=0.7, timed=False,
     xa = torch.randn(na, d, generator=gen, device=dev, dtype=dtype)
     xb = xa if square else torch.randn(nb, d, generator=gen, device=dev,
                                        dtype=dtype)
-    rows = na if check_rows is None else min(na, check_rows)
     what = f"pairwise_kernel_matrix {phi} {dtype} {na}x{nb} d={d}"
     if pad is None:
         def call():
@@ -435,17 +522,22 @@ def kmat_case(rk, gen, dev, na, nb, d, phi, dtype, eps=0.7, timed=False,
                                   phi, eps)
         check(bool((torch.diagonal(full) == phi0).all()),
               f"{what}: the diagonal is not exactly phi(0)")
-    got = full[:rows]
-    want = rk.pairwise_kernel_matrix_ref(xa[:rows].double(), xb.double(), phi,
-                                         eps)
-    err = (got.double() - want).abs()
     rtol = KMAT_RTOL[dtype]
-    ok = bool((err <= rtol * (want.abs() + want.abs().max())).all())
-    check(ok and bool(torch.isfinite(got).all()),
-          f"{what}: max err {err.max().item():.3e}")
-    out = {"max_abs_err": err.max().item(), "store": rk._kmat_store_path(full),
-           "checked_rows": rows}
-    del got, want, err
+    xb64 = xb.double()
+    max_err, ok = 0.0, True
+    for r0 in range(0, na, KMAT_CHECK_BLOCK):
+        got = full[r0:r0 + KMAT_CHECK_BLOCK]
+        want = rk.pairwise_kernel_matrix_ref(
+            xa[r0:r0 + KMAT_CHECK_BLOCK].double(), xb64, phi, eps)
+        err = (got.double() - want).abs()
+        ok = (ok and bool((err <= rtol * (want.abs() + want.abs().max()))
+                          .all()) and bool(torch.isfinite(got).all()))
+        max_err = max(max_err, err.max().item())
+        del got, want, err
+    check(ok, f"{what}: max err {max_err:.3e}")
+    out = {"max_abs_err": max_err, "store": rk._kmat_store_path(full),
+           "checked_rows": na}
+    del xb64
     if timed:
         out["ms"] = cuda_ms(call)
         out["profile"] = lambda: device_ms(call, ("kernel_matrix_kernel",))
@@ -567,8 +659,9 @@ def phase_kernels(rk, dev, seed):
     # are x against itself, called as its callers call it: the two fits
     # into the top-left block of their saddle matrix (poly degree 1 adds
     # d + 1 rows and columns; rows padded to 128 bytes), the kNN through
-    # the public wrapper. The f64 shape and the kNN's shape before the
-    # active_ss cut are measured beside them
+    # the public wrapper (all rows checked, a block at a time). The f64 shape
+    # and the kNN's shape at the earlier cut of active_ss to 8,192 samples
+    # are measured beside them
     shapes = [
         ("pairwise_kernel_matrix", f"PodI fit K {n_snap}x{n_snap} d=1", True,
          lambda: kmat_case(rk, gen, dev, n_snap, n_snap, 1, "linear",
@@ -586,11 +679,10 @@ def phase_kernels(rk, dev, seed):
         ("pairwise_kernel_matrix", f"f64 K {n_sup}x{n_sup} d=3", False,
          lambda: kmat_case(rk, gen, dev, n_sup, n_sup, 3, "linear",
                            torch.float64, eps=1.0, timed=True, square=True)),
-        ("pairwise_kernel_matrix", "kNN tile before the cut 32768x32768 d=8",
+        ("pairwise_kernel_matrix", "kNN tile at the earlier cut 8192x8192 d=8",
          False,
-         lambda: kmat_case(rk, gen, dev, 32768, 32768, 8, "linear",
-                           torch.float32, eps=1.0, timed=True,
-                           check_rows=1024, square=True)),
+         lambda: kmat_case(rk, gen, dev, 8192, 8192, k_as, "linear",
+                           torch.float32, eps=1.0, timed=True, square=True)),
         ("rbf_matvec", f"PodI predict {n_pq} q x {n_snap} s d=1 C={n_modes}",
          True,
          lambda: matvec_case(rk, gen, dev, n_pq, n_snap, 1, n_modes,
@@ -1305,6 +1397,86 @@ def phase_factorize(port, dev, gen, seed):
          ((inc.s[:n_chk] - s_ref[:n_chk]).abs() / s_ref[:n_chk]).max().item(),
          f"{n}x{m} in {blocks} blocks, rank {rank}, leading {n_chk} sigma "
          f"against random_svd ({ref_s:.4f} s)")
+    del a, inc
+
+    def rel_vec(got, want):
+        return (torch.linalg.vector_norm(got - want)
+                / torch.linalg.vector_norm(want)).item()
+
+    # tensor train: a 64^4 tensor of known TT ranks, decomposed at twice
+    # those ranks (randomized SVDs of the large unfoldings), then rounded
+    # back to them
+    side, ranks, asked = SIZES["tt"]
+    rs = (1,) + ranks + (1,)
+    t = torch.randn(rs[0], side, rs[1], generator=gen, device=dev)
+    for k in range(1, 4):
+        g_k = torch.randn(rs[k], side, rs[k + 1], generator=gen,
+                          device=dev) / rs[k] ** 0.5
+        t = torch.tensordot(t, g_k, dims=([-1], [0]))
+    t = t.reshape((side,) * 4)
+
+    def tt_fit():
+        return port.tt_round(port.tt_svd(t, asked, key=seed), ranks,
+                             key=seed + 1)
+
+    cores, sec = wall(tt_fit)
+    check([tuple(g.shape) for g in cores]
+          == [(rs[k], side, rs[k + 1]) for k in range(4)], "tt core shapes")
+    norm_gap = abs(port.tt_norm(cores).item()
+                   / torch.linalg.vector_norm(t).item() - 1.0)
+    check(norm_gap <= tol["tt"], f"tt_norm off by {norm_gap:.3e}")
+    done("tt", sec, rel_vec(port.tt_reconstruct(cores), t),
+         f"tt_svd at ranks {asked} + tt_round to {ranks} of {side}^4 f32, "
+         f"tt_norm within {norm_gap:.1e}")
+    del t, cores
+
+    # CP: a 256^3 tensor of CP rank 10
+    side, rank, n_sweeps = SIZES["cp"]
+    f0 = [torch.randn(side, rank, generator=gen, device=dev)
+          for _ in range(3)]
+    # graded weights, as test_cp.py plants them: with equal ones the
+    # unfoldings' singular values tie and ALS can sit in a swamp for its
+    # 50 sweeps, in both packages alike
+    t = torch.einsum("ir,jr,kr,r->ijk", *f0,
+                     torch.linspace(3.0, 1.0, rank, device=dev))
+    (w, factors, fits), sec = wall(lambda: port.cp_als(t, rank, n_sweeps,
+                                                       key=seed))
+    check(w.shape == (rank,) and bool((w[:-1] >= w[1:]).all())
+          and all(f.shape == (side, rank) for f in factors),
+          "cp_als weights / factor shapes")
+    done("cp", sec, rel_vec(port.cp_reconstruct(w, factors), t),
+         f"cp_als {side}^3 f32 rank {rank}, {n_sweeps} sweeps, last fit "
+         f"{fits[-1].item():.6f}")
+    del t, f0, factors
+
+    # NMF of a nonnegative rank-20 matrix
+    n, m, rank, n_sweeps = SIZES["nmf"]
+    x = torch.rand(n, rank, generator=gen, device=dev) @ torch.rand(
+        rank, m, generator=gen, device=dev)
+    (w, h, errs), sec = wall(lambda: port.nmf(x, rank, n_sweeps, key=seed))
+    check(w.min().item() >= 0.0 and h.min().item() >= 0.0,
+          "nmf factors are not nonnegative")
+    check(bool((errs[1:] <= errs[:-1] + 1e-5).all()),
+          "nmf error history is not monotone")
+    done("nmf", sec, rel_fro(w @ h, x),
+         f"{n}x{m} f32 rank {rank}, {n_sweeps} sweeps (after 10: "
+         f"{errs[9].item():.3e})")
+    del x, w, h
+
+    # matrix completion, in f64: the error on the entries it never saw
+    n, m, rank, frac, n_sweeps = SIZES["completion"]
+    truth = (torch.randn(n, rank, generator=gen, device=dev,
+                         dtype=torch.float64)
+             @ torch.randn(rank, m, generator=gen, device=dev,
+                           dtype=torch.float64))
+    mask = torch.rand(n, m, generator=gen, device=dev) < frac
+    data = torch.where(mask, truth, torch.nan)
+    (m_hat, _, _, hist), sec = wall(lambda: port.matrix_complete(
+        data, mask, rank, n_sweeps, lam=1e-10, key=seed))
+    held = ~mask
+    done("completion", sec, rel_vec(m_hat[held], truth[held]),
+         f"{n}x{m} f64 rank {rank}, {frac:.0%} observed, {n_sweeps} sweeps, "
+         f"observed RMSE {hist[-1].item():.1e}")
     return out
 
 
@@ -1364,6 +1536,494 @@ def phase_mle(port, dev, seed):
     out.append(f"build_kde on {n_kde} points: bandwidth {kde.bandwidth:.4f}, "
                f"cdf within {cdf_err:.3e} of the empirical deciles (tol "
                f"0.02), pdf integral {mass:.5f} (tol 1e-3), {sec:.4f} s")
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phases 14-16: the inference layer
+
+def gauss16(dev):
+    """The samplers' target: a 16-D Gaussian with correlation 0.5^|i-j| and
+    standard deviations from 0.5 to 2. Returns (ln_prob, cov f64)."""
+    d = SIZES["gauss16"]
+    idx = torch.arange(d, dtype=torch.float64, device=dev)
+    sd = torch.logspace(math.log10(0.5), math.log10(2.0), d,
+                        dtype=torch.float64, device=dev)
+    cov = 0.5 ** (idx[:, None] - idx[None, :]).abs() * sd[:, None] * sd[None, :]
+    prec = torch.linalg.inv(cov).float()
+
+    def ln_prob(x):
+        return -0.5 * (x @ prec @ x)
+
+    return ln_prob, cov
+
+
+def held_to_gaussian(port, name, hist, cov, dev):
+    """The checks DREAM has: pooled mean within 0.05 sigma, covariance
+    within 10%, rank-normalized R-hat < 1.05. ``hist`` (gens, chains, d)."""
+    d = hist.shape[-1]
+    pooled = hist.double().reshape(-1, d)
+    sd = torch.sqrt(torch.diagonal(cov))
+    mean_err = (pooled.mean(0).abs() / sd).max().item()
+    cov_err = ((torch.cov(pooled.T) - cov).abs().max()
+               / cov.abs().max()).item()
+    check(mean_err <= 0.05, f"{name} pooled mean {mean_err:.3e} sigma off")
+    check(cov_err <= 0.10, f"{name} covariance {cov_err:.3e} off (tol 0.10)")
+    rhat = port.rank_normalized_rhat(hist.double())
+    check(rhat.device == dev and rhat.max().item() < 1.05,
+          f"{name} rank-normalized R-hat {rhat.max().item():.4f} >= 1.05")
+    return (f"pooled mean {mean_err:.3e} sigma off (tol 0.05), covariance "
+            f"{cov_err:.3e} off (tol 0.10), R-hat {rhat.max().item():.4f} "
+            "(< 1.05)")
+
+
+def phase_inference(port, dev, seed):
+    ln_prob, cov = gauss16(dev)
+    d = SIZES["gauss16"]
+    rng = np.random.default_rng(seed)
+    out = []
+
+    def start(n):
+        return (rng.standard_normal((n, d)) * 3.0).astype(np.float32)
+
+    # stretch move
+    n, gens, burn = SIZES["stretch"]
+    x0 = start(n)
+    wall(lambda: port.stretch_run(x0, ln_prob, 20, key=seed))   # warm up
+    (hist, state), sec = wall(lambda: port.stretch_run(x0, ln_prob, gens,
+                                                       key=seed))
+    check(hist.device == dev and hist.shape == (gens, n, d)
+          and bool(torch.isfinite(hist).all()),
+          "stretch history device / shape / finite")
+    accept = int(state.n_accept) / (gens * n)
+    check(0.1 <= accept <= 0.6, f"stretch acceptance {accept:.3f} outside "
+          "0.1-0.6")
+    out.append(f"stretch_run {n} walkers x {d} dims x {gens} generations "
+               f"({burn} discarded) f32: {sec:.4f} s, {sec / gens * 1e3:.4f} "
+               f"ms a generation; acceptance {accept:.4f} (0.1-0.6), "
+               + held_to_gaussian(port, "stretch", hist[burn:], cov, dev))
+    del hist
+
+    # HMC
+    n, n_warm, n_keep, n_leap = SIZES["hmc"]
+    x0 = start(n)
+    res, sec = wall(lambda: port.hmc_run(x0, ln_prob, n_keep, n_warm, n_leap,
+                                         key=seed, jitter_steps=True))
+    check(res.history.device == dev and res.history.shape == (n_keep, n, d)
+          and bool(torch.isfinite(res.history).all()),
+          "hmc history device / shape / finite")
+    check(0.6 <= res.accept_ratio <= 0.95 and res.n_divergent == 0,
+          f"hmc acceptance {res.accept_ratio:.3f} outside 0.6-0.95 or "
+          f"{res.n_divergent} divergences")
+    out.append(f"hmc_run {n} chains x {d} dims, {n_warm} warmup + {n_keep} "
+               f"kept, 1-{n_leap} leapfrog steps f32: {sec:.4f} s, "
+               f"{sec / (n_warm + n_keep) * 1e3:.4f} ms a generation; "
+               f"acceptance {res.accept_ratio:.4f} (0.6-0.95), step size "
+               f"{res.step_size:.4f}, inverse mass "
+               f"{res.inv_mass.min().item():.3f}-"
+               f"{res.inv_mass.max().item():.3f}, 0 divergences, "
+               + held_to_gaussian(port, "hmc", res.history, cov, dev))
+    del res
+
+    # NUTS
+    n, n_warm, n_keep, depth = SIZES["nuts"]
+    x0 = start(n)
+    res, sec = wall(lambda: port.nuts_run(x0, ln_prob, n_keep, n_warm, depth,
+                                          key=seed))
+    check(res.history.device == dev and res.history.shape == (n_keep, n, d)
+          and bool(torch.isfinite(res.history).all()),
+          "nuts history device / shape / finite")
+    check(0.6 <= res.accept_ratio <= 0.95,
+          f"nuts acceptance {res.accept_ratio:.3f} outside 0.6-0.95")
+    check(res.n_divergent <= 0.001 * n * n_keep
+          and 1.0 <= res.mean_tree_depth <= depth,
+          f"nuts: {res.n_divergent} divergences, mean tree depth "
+          f"{res.mean_tree_depth:.3f}")
+    out.append(f"nuts_run {n} chains x {d} dims, {n_warm} warmup + {n_keep} "
+               f"kept, max depth {depth} f32: {sec:.4f} s, "
+               f"{sec / (n_warm + n_keep) * 1e3:.4f} ms a generation; "
+               f"acceptance {res.accept_ratio:.4f} (0.6-0.95), step size "
+               f"{res.step_size:.4f}, mean tree depth "
+               f"{res.mean_tree_depth:.3f}, {res.n_divergent} divergences, "
+               + held_to_gaussian(port, "nuts", res.history, cov, dev))
+    del res
+
+    # tempered SMC on a conjugate Gaussian: prior N(0, s0^2 I), one
+    # observation y of x with noise s^2, in f64
+    n, d_s, n_mcmc = SIZES["smc"]
+    s0, s = 2.0, 0.5
+    y = torch.linspace(-1.0, 1.5, d_s, dtype=torch.float64, device=dev)
+
+    def ln_prior(x):
+        return (-0.5 * torch.sum(x ** 2) / s0 ** 2
+                - 0.5 * d_s * math.log(2 * math.pi * s0 ** 2))
+
+    def ln_like(x):
+        return (-0.5 * torch.sum((x - y) ** 2) / s ** 2
+                - 0.5 * d_s * math.log(2 * math.pi * s ** 2))
+
+    init = s0 * rng.standard_normal((n, d_s))
+    res, sec = wall(lambda: port.smc_sample(ln_like, ln_prior, init,
+                                            n_mcmc=n_mcmc, key=seed))
+    var = s0 ** 2 + s ** 2
+    logz = (-0.5 * d_s * math.log(2 * math.pi * var)
+            - 0.5 * (y ** 2).sum().item() / var)
+    post_var = 1.0 / (1.0 / s0 ** 2 + 1.0 / s ** 2)
+    post_mean = y * post_var / s ** 2
+    check(res.particles.device == dev and res.particles.shape == (n, d_s),
+          "smc particles device / shape")
+    dz = abs(res.log_evidence - logz)
+    mean_err = (res.particles.mean(0) - post_mean).abs().max().item()
+    var_err = (res.particles.var(0) / post_var - 1.0).abs().max().item()
+    check(dz <= 0.15 and mean_err <= 0.05 and var_err <= 0.15,
+          f"smc: |delta log Z| {dz:.3e}, mean off {mean_err:.3e}, variance "
+          f"off {var_err:.3e}")
+    check(res.betas[-1].item() == 1.0
+          and bool((res.betas[1:] > res.betas[:-1]).all())
+          and res.accept_ratios.min().item() > 0.1,
+          "smc temperature ladder / mutation acceptance")
+    out.append(f"smc_sample {n} particles x {d_s} dims f64, {n_mcmc} "
+               f"mutation steps: {res.n_stages} stages in {sec:.4f} s; "
+               f"|delta log Z| {dz:.3e} (tol 0.15, log Z {logz:.4f}), mean "
+               f"off {mean_err:.3e} (tol 0.05), variance off {var_err:.3e} "
+               "(tol 0.15; test_smc.py::"
+               "test_gaussian_conjugate_evidence_and_posterior)")
+    return out
+
+
+def state_space_model(seed, n, p):
+    """x' = A x + w, y = C x + v on the host in f64: A a rotation shrunk by
+    0.95, Q chosen for a stationary state variance of 1, C rows of unit
+    norm, R = 4 I (weakly informative observations, which a bootstrap
+    particle filter needs in many dimensions). Returns (A, C, q, r, rng)."""
+    rng = np.random.default_rng(seed)
+    a = 0.95 * np.linalg.qr(rng.standard_normal((n, n)))[0]
+    q_var, r_var = 1.0 - 0.95 ** 2, 4.0
+    c = rng.standard_normal((p, n)) / math.sqrt(n)
+    return a, c, q_var, r_var, rng
+
+
+def steady_state_record(a, c, q_var, r_var, p_pred, t_len, rng):
+    """A record that starts in the steady state: the first state is drawn
+    from the predicted covariance. Returns the truth (T, n), the record
+    (T, p), and the steady filtered covariance, from which a filter that
+    forecasts before it assimilates has to start."""
+    n, p = a.shape[0], c.shape[0]
+    gain = p_pred @ c.T @ np.linalg.inv(c @ p_pred @ c.T + r_var * np.eye(p))
+    p_filt = p_pred - gain @ c @ p_pred
+    x = np.linalg.cholesky(p_pred) @ rng.standard_normal(n)
+    xs, ys = [], []
+    for _ in range(t_len):
+        ys.append(c @ x + math.sqrt(r_var) * rng.standard_normal(p))
+        xs.append(x)
+        x = a @ x + math.sqrt(q_var) * rng.standard_normal(n)
+    return np.stack(xs), np.stack(ys), 0.5 * (p_filt + p_filt.T)
+
+
+def kalman_exact(a, c, q_var, r_var, p0, ys):
+    """The time-varying Kalman filter and RTS smoother in numpy f64, from
+    the predicted state 0 with covariance p0: filtered means (T, n), the
+    log-likelihood, smoothed means (T, n), the last filtered covariance."""
+    n, p = a.shape[0], c.shape[0]
+    qm, rm = q_var * np.eye(n), r_var * np.eye(p)
+    m, cov, ll = np.zeros(n), p0.copy(), 0.0
+    mf, pf, mp, pp = [], [], [], []
+    for y in ys:
+        mp.append(m)
+        pp.append(cov)
+        s = c @ cov @ c.T + rm
+        k = np.linalg.solve(s, c @ cov).T
+        e = y - c @ m
+        ll -= 0.5 * (p * math.log(2 * math.pi) + np.linalg.slogdet(s)[1]
+                     + e @ np.linalg.solve(s, e))
+        m_f, p_f = m + k @ e, cov - k @ s @ k.T
+        mf.append(m_f)
+        pf.append(p_f)
+        m, cov = a @ m_f, a @ p_f @ a.T + qm
+    ms = [None] * len(ys)
+    ms[-1] = mf[-1]
+    for t in range(len(ys) - 2, -1, -1):
+        g = np.linalg.solve(pp[t + 1].T, a @ pf[t].T).T
+        ms[t] = mf[t] + g @ (ms[t + 1] - mp[t + 1])
+    return np.stack(mf), ll, np.stack(ms), pf[-1]
+
+
+def bootstrap_filter(port, dev, a, c, q_var, r_var, p_filt, ys, n_part, rng,
+                     seed):
+    """particle_filter on the linear model from N(0, p_filt). The transition
+    gets the run's generator and the whole cloud (the port's contract)."""
+    n, p = a.shape[0], c.shape[0]
+    a_t = torch.as_tensor(a, device=dev)
+    c_t = torch.as_tensor(c, device=dev)
+    sd_q = math.sqrt(q_var)
+
+    def propagate(gen, cloud):
+        return cloud @ a_t.mT + sd_q * torch.randn(
+            cloud.shape, generator=gen, dtype=cloud.dtype, device=cloud.device)
+
+    def loglik(xp, y):
+        return (-0.5 * torch.sum((y - c_t @ xp) ** 2) / r_var
+                - 0.5 * p * math.log(2 * math.pi * r_var))
+
+    cloud = rng.standard_normal((n_part, n)) @ np.linalg.cholesky(p_filt).T
+    return wall(lambda: port.particle_filter(cloud, ys, propagate, loglik,
+                                             seed))
+
+
+def phase_filters(port, dev, seed):
+    n, p, t_len = SIZES["ssm"]
+    a, c, q_var, r_var, rng = state_space_model(seed, n, p)
+    tol_mc, tol_exact = FILTER_TOL["mc_means"][0], FILTER_TOL["exact"][0]
+    out = []
+    eye_n, eye_p = np.eye(n), np.eye(p)
+
+    # the steady state, and a record that starts in it
+    p_ss, sec = wall(lambda: port.dare(a, c, q_var * eye_n, r_var * eye_p))
+    check(p_ss.device == dev, "dare is not on the card")
+    ph = p_ss.cpu().numpy()
+    xs, ys, p_filt = steady_state_record(a, c, q_var, r_var, ph, t_len, rng)
+    resid = a @ p_filt @ a.T + q_var * eye_n - ph
+    dare_err = np.abs(resid).max() / np.abs(ph).max()
+    check(dare_err <= 1e-10, f"dare Riccati residual {dare_err:.3e}")
+    out.append(f"dare {n} states, {p} observed: Riccati residual "
+               f"{dare_err:.1e} (tol 1e-10) in {sec:.4f} s")
+    mf, ll, ms, pf_last = kalman_exact(a, c, q_var, r_var, ph, ys)
+    post_sd = math.sqrt(np.trace(pf_last) / n)
+
+    def worst(got, want):
+        return (got.cpu() - torch.from_numpy(want)).abs().max().item()
+
+    def rms(got, want):
+        return (got.cpu() - torch.from_numpy(want)).square().mean().sqrt().item()
+
+    # kalman_filter / kalman_smooth: exact from the steady state
+    u0 = np.zeros((1, t_len))
+    sm, sec = wall(lambda: port.kalman_smooth(a, np.zeros((n, 1)), c, None,
+                                              q_var, r_var, u0, ys.T))
+    check(sm["x_filt"].device == dev and sm["x_smooth"].shape == (n, t_len),
+          "kalman_smooth device / shape")
+    e_f, e_s = worst(sm["x_filt"].mT, mf), worst(sm["x_smooth"].mT, ms)
+    e_ll = abs(sm["loglik"] - ll) / abs(ll)
+    err_f, err_s = rms(sm["x_filt"].mT, xs), rms(sm["x_smooth"].mT, xs)
+    check(e_f <= tol_exact and e_s <= tol_exact and e_ll <= 1e-10,
+          f"kalman_smooth: filtered {e_f:.3e}, smoothed {e_s:.3e}, loglik "
+          f"{e_ll:.3e} off the exact recursions")
+    check(err_s < err_f < 1.0, f"kalman: smoothed RMSE {err_s:.4f} against "
+          f"filtered {err_f:.4f} against a state of unit variance")
+    out.append(f"kalman_smooth {t_len} steps f64: filtered means "
+               f"{e_f:.1e}, smoothed {e_s:.1e} off the exact time-varying "
+               f"recursions (tol {tol_exact}), loglik {e_ll:.1e} rel; RMSE "
+               f"to the truth {err_f:.4f} filtered, {err_s:.4f} smoothed "
+               f"(posterior sd {post_sd:.3f}); {sec:.4f} s")
+
+    a_t = torch.as_tensor(a, device=dev)
+    c_t = torch.as_tensor(c, device=dev)
+
+    def mc_line(name, means, steps, sec, tol_rms, tol_truth, extra=""):
+        """A Monte-Carlo filter's means: their RMS distance to the Kalman
+        means, and their RMSE to the truth against the Kalman filter's."""
+        err, far = rms(means, mf[:steps]), worst(means, mf[:steps])
+        to_truth, best = rms(means, xs[:steps]), rms(
+            torch.from_numpy(mf[:steps]), xs[:steps])
+        check(means.device == dev and err <= tol_rms
+              and to_truth <= (1.0 + tol_truth) * best,
+              f"{name}: means {err:.3e} RMS off the Kalman means (tol "
+              f"{tol_rms}), RMSE to the truth {to_truth:.4f} against the "
+              f"Kalman filter's {best:.4f} (tol {tol_truth:.0%} above)")
+        out.append(f"{name}: means {err:.3e} RMS off the Kalman means over "
+                   f"{steps} steps x {n} states (tol {tol_rms}; largest "
+                   f"{far:.3f}), RMSE to the truth {to_truth:.4f} against "
+                   f"{best:.4f} (tol {tol_truth:.0%} above){extra}; "
+                   f"{sec:.4f} s, {sec / steps * 1e3:.4f} ms a step")
+
+    # ensemble filters from N(0, P filtered)
+    n_ens, etkf_steps = SIZES["enkf"]
+    ens0 = rng.standard_normal((n_ens, n)) @ np.linalg.cholesky(p_filt).T
+    for method, steps in (("stochastic", t_len), ("etkf", etkf_steps)):
+        res, sec = wall(lambda: port.enkf_filter(
+            ens0, ys[:steps], lambda v: a_t @ v, c, r_var, seed,
+            method=method, q=q_var))
+        check(bool((res["spread"] > 0).all()), f"enkf {method}: collapsed")
+        mc_line(f"enkf_filter {method} {n_ens} members", res["means"], steps,
+                sec, tol_mc, FILTER_TOL["enkf_truth"][0],
+                f", last spread {res['spread'][-1].item():.3f}")
+
+    # bootstrap particle filter: at this model's 64 states it is held to
+    # what 16,384 particles can give there, and on a model of 4 states, 2
+    # observed, to the JAX test's own limits
+    n_part = SIZES["pf"]
+    res, sec = bootstrap_filter(port, dev, a, c, q_var, r_var, p_filt, ys,
+                                n_part, rng, seed)
+    tol_ll = FILTER_TOL["pf_loglik_a_step_wide"][0] * t_len
+    check(abs(res["loglik"] - ll) <= tol_ll and res["ess"].min().item() > 1.0,
+          f"particle_filter: loglik {res['loglik']:.3f} against {ll:.3f} "
+          f"(tol {tol_ll}), least ESS {res['ess'].min().item():.1f}")
+    mc_line(f"particle_filter {n_part} particles", res["means"], t_len, sec,
+            FILTER_TOL["pf_means_wide"][0], FILTER_TOL["pf_truth"][0],
+            f", loglik {res['loglik']:.3f} against {ll:.3f} (tol {tol_ll}), "
+            f"mean ESS {res['ess'].mean().item():.0f}")
+    n_s, p_s = SIZES["pf_small"]
+    a_s, c_s, _, _, rng_s = state_space_model(seed + 1, n_s, p_s)
+    ph_s = port.dare(a_s, c_s, q_var * np.eye(n_s),
+                     r_var * np.eye(p_s)).cpu().numpy()
+    _, ys_s, pf_s = steady_state_record(a_s, c_s, q_var, r_var, ph_s, t_len,
+                                        rng_s)
+    mf_s, ll_s, _, _ = kalman_exact(a_s, c_s, q_var, r_var, ph_s, ys_s)
+    res, sec = bootstrap_filter(port, dev, a_s, c_s, q_var, r_var, pf_s, ys_s,
+                                n_part, rng_s, seed)
+    far = worst(res["means"], mf_s)
+    tol_ll = FILTER_TOL["pf_loglik_a_step"][0] * t_len
+    check(far <= tol_mc and abs(res["loglik"] - ll_s) <= tol_ll,
+          f"particle_filter at {n_s} states: means {far:.3e} off the Kalman "
+          f"means (tol {tol_mc}), loglik {res['loglik']:.3f} against "
+          f"{ll_s:.3f} (tol {tol_ll})")
+    out.append(f"particle_filter {n_part} particles at {n_s} states, {p_s} "
+               f"observed: means within {far:.3e} of the Kalman means (tol "
+               f"{tol_mc}), loglik {res['loglik']:.3f} against {ll_s:.3f} "
+               f"(tol {tol_ll}); {sec:.4f} s")
+
+    # unscented filter: exact on a linear system
+    res, sec = wall(lambda: port.ukf_filter(
+        np.zeros(n), p_filt, ys, lambda v: a_t @ v, lambda v: c_t @ v, q_var,
+        r_var))
+    e_u = worst(res["means"], mf)
+    e_ll = abs(res["loglik"] - ll) / abs(ll)
+    check(res["means"].device == dev and e_u <= tol_exact and e_ll <= 1e-10,
+          f"ukf_filter: means {e_u:.3e}, loglik {e_ll:.3e} off the Kalman "
+          "filter")
+    out.append(f"ukf_filter: means {e_u:.1e} off the Kalman means (tol "
+               f"{tol_exact}), loglik {e_ll:.1e} rel; {sec:.4f} s, "
+               f"{sec / t_len * 1e3:.4f} ms a step")
+
+    # ES-MDA on a linear inverse problem, prior N(0, I)
+    n_ens, d_th, p_d, n_mda = SIZES["esmda"]
+    g = rng.standard_normal((p_d, d_th)) / math.sqrt(d_th)
+    r_d = 0.25
+    y_obs = g @ rng.standard_normal(d_th) + math.sqrt(r_d) * \
+        rng.standard_normal(p_d)
+    post_cov = np.linalg.inv(np.eye(d_th) + g.T @ g / r_d)
+    post_mean = post_cov @ (g.T @ y_obs / r_d)
+    g_t = torch.as_tensor(g, device=dev)
+    res, sec = wall(lambda: port.esmda(rng.standard_normal((n_ens, d_th)),
+                                       lambda th: g_t @ th, y_obs, r_d, seed,
+                                       n_mda=n_mda))
+    e_m = worst(res["mean"], post_mean)
+    mis = res["data_misfit"]
+    tol_es = FILTER_TOL["esmda_mean"][0]
+    check(res["ensemble"].device == dev and e_m <= tol_es
+          and bool(np.all(np.diff(mis) < 1e-6)),
+          f"esmda: mean {e_m:.3e} off the posterior mean (tol {tol_es}), "
+          f"misfits {mis}")
+    out.append(f"esmda {n_ens} members, {d_th} parameters, {p_d} data, "
+               f"{n_mda} stages: mean within {e_m:.3e} of the closed-form "
+               f"posterior mean (tol {tol_es}), misfit {mis[0]:.2f} -> "
+               f"{mis[-1]:.2f}; {sec:.4f} s")
+    return out
+
+
+@contextlib.contextmanager
+def host_copies():
+    """Within the block, the element count of every CUDA tensor copied to
+    the host through ``.cpu()``, ``.to``, ``.tolist()`` or ``.numpy()``."""
+    sizes = []
+    saved = {}
+
+    def counted(real):
+        def call(self, *args, **kwargs):
+            out = real(self, *args, **kwargs)
+            if self.is_cuda and not (isinstance(out, torch.Tensor)
+                                     and out.is_cuda):
+                sizes.append(self.numel())
+            return out
+        return call
+
+    for how in ("cpu", "to", "tolist", "numpy", "__array__"):
+        saved[how] = getattr(torch.Tensor, how)
+        setattr(torch.Tensor, how, counted(saved[how]))
+    try:
+        yield sizes
+    finally:
+        for how, real in saved.items():
+            setattr(torch.Tensor, how, real)
+
+
+def phase_evidence(port, dev, seed):
+    d, n_draws, n_w = SIZES["evidence"]
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    g = torch.randn(d, d, generator=gen, device=dev, dtype=torch.float64)
+    cov = g @ g.mT / d + 0.5 * torch.eye(d, dtype=torch.float64, device=dev)
+    mu = torch.linspace(-1.0, 1.0, d, dtype=torch.float64, device=dev)
+    prec = torch.linalg.inv(cov)
+    chol = torch.linalg.cholesky(cov)
+    # an unnormalized Gaussian: log Z = d/2 log 2 pi + 1/2 log det cov - 3
+    logz = (0.5 * d * math.log(2 * math.pi)
+            + torch.log(torch.diagonal(chol)).sum().item() - 3.0)
+
+    def ln_post(x):
+        dx = x - mu
+        return -0.5 * (dx @ prec @ dx) - 3.0
+
+    out = []
+    lap, sec = wall(lambda: port.laplace_approx(ln_post, np.zeros(d)))
+    dz = abs(lap.log_evidence - logz)
+    mode_err = (lap.x_map - mu).abs().max().item()
+    cov_err = (lap.cov - cov).abs().max().item()
+    tol = EVIDENCE_TOL["laplace"][0]
+    check(lap.x_map.device == dev and lap.converged and dz <= tol
+          and mode_err <= 1e-5 and cov_err <= 1e-8,
+          f"laplace_approx: |delta log Z| {dz:.3e}, mode {mode_err:.3e}, "
+          f"covariance {cov_err:.3e}")
+    out.append(f"laplace_approx {d}-D f64: |delta log Z| {dz:.1e} (tol "
+               f"{tol}), mode off {mode_err:.1e}, covariance off "
+               f"{cov_err:.1e}; {sec:.4f} s")
+
+    draws = mu + torch.randn(n_draws, d, generator=gen, device=dev,
+                             dtype=torch.float64) @ chol.mT
+    br, sec = wall(lambda: port.bridge_sampling_evidence(ln_post, draws,
+                                                         key=seed))
+    dz = abs(br.log_evidence - logz)
+    tol = EVIDENCE_TOL["bridge"][0]
+    check(br.proposal_chol.device == dev and br.converged and dz <= tol,
+          f"bridge_sampling_evidence: |delta log Z| {dz:.3e} (tol {tol}), "
+          f"converged {br.converged}")
+    out.append(f"bridge_sampling_evidence from {n_draws} draws: |delta log "
+               f"Z| {dz:.2e} (tol {tol}) in {br.n_iterations} iterations; "
+               f"{sec:.4f} s")
+
+    # importance weights from a proposal 1.3 times as wide as the posterior
+    wide = 1.3
+    z = torch.randn(n_w, d, generator=gen, device=dev, dtype=torch.float64)
+    xq = mu + wide * (z @ chol.mT)
+    ln_q = (-0.5 * torch.sum(z ** 2, dim=1) - 0.5 * d * math.log(2 * math.pi)
+            - torch.log(torch.diagonal(chol)).sum() - d * math.log(wide))
+    lw = torch.func.vmap(ln_post)(xq) - ln_q
+    res, sec = wall(lambda: port.psis(lw))
+    # the weights stay on the card: only the tail and its cutoff may come to
+    # the host, for the Pareto fit
+    with host_copies() as copied:
+        again = port.psis(lw)
+    check(torch.equal(again.log_weights, res.log_weights) and copied
+          and max(copied) <= res.n_tail + 1 < n_w // 10,
+          f"psis copied {max(copied, default=0)} of {n_w} weights to the "
+          f"host (tail {res.n_tail})")
+    # log Z = log mean w: the smoothed weights are self-normalized, so the
+    # estimate comes from the raw ones and the smoothing is held by k-hat,
+    # the ESS and the resampled mean
+    z_hat = (torch.logsumexp(lw, dim=0) - math.log(n_w)).item()
+    dz = abs(z_hat - logz)
+    tol = EVIDENCE_TOL["psis"][0]
+    smp, _ = port.importance_resample(xq, lw, 20_000, key=seed)
+    mean_err = ((smp.mean(0) - mu).abs()
+                / torch.sqrt(torch.diagonal(cov))).max().item()
+    check(res.log_weights.device == dev and res.k_hat < 0.7 and dz <= tol
+          and mean_err <= 0.05 and smp.device == dev,
+          f"psis: k-hat {res.k_hat:.3f}, |delta log Z| {dz:.3e}, resampled "
+          f"mean {mean_err:.3e} sigma off")
+    out.append(f"psis on {n_w} weights ({max(copied)} of them to the host, "
+               f"the tail): k-hat {res.k_hat:.3f} (< 0.7), ESS "
+               f"{res.ess:.0f}, |delta log Z| {dz:.2e} (tol {tol}); "
+               f"importance_resample mean {mean_err:.3e} sigma off (tol "
+               f"0.05); {sec:.4f} s")
     return out
 
 
@@ -1557,6 +2217,22 @@ def main(argv=None) -> int:
           f"{third}", flush=True)
     torch.cuda.empty_cache()
 
+    # 14-16. the inference layer; it reaches no kernel either
+    rk.pairwise_kernel_matrix.launches = 0
+    rk.rbf_matvec.launches = 0
+    for name, phase, offset in (("inference", phase_inference, 7),
+                                ("filters", phase_filters, 8),
+                                ("evidence", phase_evidence, 9)):
+        t0 = time.perf_counter()
+        report(name, t0, "; ".join(phase(port, dev, args.seed + offset)))
+        torch.cuda.empty_cache()
+    fourth = {"pairwise_kernel_matrix": rk.pairwise_kernel_matrix.launches,
+              "rbf_matvec": rk.rbf_matvec.launches}
+    check(not any(fourth.values()),
+          f"inference/filters/evidence launched a kernel: {fourth}")
+    print(f"[launches] ok  inference/filters/evidence (no kernel on this "
+          f"path): {fourth}", flush=True)
+
     # timing details and the kNN against its plain version (not counted)
     t0 = time.perf_counter()
     fit_r = detail_rbf_fit(rk, dev, gen)
@@ -1583,7 +2259,8 @@ def main(argv=None) -> int:
     # counts
     paths = {"rsvd/rpca/PodI/RbfInterp": first,
              "dmdc/active_ss/samplers": second,
-             "dream/factorize/mle": third}
+             "dream/factorize/mle": third,
+             "inference/filters/evidence": fourth}
     table = {"kernels": []}
     for name in ("pairwise_kernel_matrix", "rbf_matvec"):
         top = max((row for row in timings[name] if row["main_path"]),

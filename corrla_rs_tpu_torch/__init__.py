@@ -5,9 +5,12 @@ names, signatures and return shapes. It imports ``torch`` and never ``jax``.
 It covers the reference's whole pyo3 surface, and of what the JAX package
 adds to it the rest of the randomized SVD core (``block_krylov_svd``,
 ``single_pass_svd``), the DREAM sampler with the MCMC diagnostics, the
-MLE / univariate-RV layer and the first factorizations on the RSVD core
-(Nystrom, rank selection, trace and log-det estimators, sketched least
-squares, CG, ID/CUR, HOSVD, incremental SVD/PCA, robust PCA):
+MLE / univariate-RV layer, the factorizations on the RSVD core (Nystrom,
+rank selection, trace and log-det estimators, sketched least squares, CG,
+ID/CUR, HOSVD, incremental SVD/PCA, robust PCA, tensor train, CP, NMF,
+matrix completion) and the inference layer (stretch, HMC, NUTS and tempered
+SMC samplers; Kalman, ensemble, particle and unscented filters; Laplace,
+bridge-sampling and PSIS evidence estimators):
 
 - ``rsvd(a, n_rank, n_iters, n_oversamples)``  -> (U, S (r, 1), Vt)
 - ``rpca(a, n_rank, n_iters, n_oversamples)``  -> (S (r, 1), components)
@@ -50,11 +53,14 @@ from corrla_rs_tpu_torch.models.dmd import (
 )
 from corrla_rs_tpu_torch.models.pca import PcaRsvd
 from corrla_rs_tpu_torch.models.pod import PodI
+from corrla_rs_tpu_torch.ops.bridge import bridge_sampling_evidence
 from corrla_rs_tpu_torch.ops.cg import (
     cg_solve,
     jacobi_preconditioner,
     nystrom_preconditioner,
 )
+from corrla_rs_tpu_torch.ops.completion import matrix_complete
+from corrla_rs_tpu_torch.ops.cp import cp_als, cp_reconstruct
 from corrla_rs_tpu_torch.ops.diagnostics import (
     effective_sample_size,
     gelman_rubin,
@@ -62,6 +68,14 @@ from corrla_rs_tpu_torch.ops.diagnostics import (
 )
 from corrla_rs_tpu_torch.ops.dream import DreamSampler, dream_run
 from corrla_rs_tpu_torch.ops.eig import eig, eig_host
+from corrla_rs_tpu_torch.ops.enkf import (
+    enkf_analysis,
+    enkf_filter,
+    esmda,
+    etkf_analysis,
+)
+from corrla_rs_tpu_torch.ops.ensemble_mcmc import EnsembleSampler, stretch_run
+from corrla_rs_tpu_torch.ops.hmc import hmc_run
 from corrla_rs_tpu_torch.ops.hosvd import (
     hooi,
     hosvd,
@@ -71,7 +85,18 @@ from corrla_rs_tpu_torch.ops.hosvd import (
 from corrla_rs_tpu_torch.ops.id_cur import column_id, cur, row_id
 from corrla_rs_tpu_torch.ops.incremental import IncrementalPca, IncrementalSvd
 from corrla_rs_tpu_torch.ops.interp import RbfInterp
+from corrla_rs_tpu_torch.ops.kalman import (
+    dare,
+    dlqr,
+    kalman_filter,
+    kalman_smooth,
+)
+from corrla_rs_tpu_torch.ops.laplace import laplace_approx, laplace_sample
+from corrla_rs_tpu_torch.ops.nmf import nmf
+from corrla_rs_tpu_torch.ops.nuts import nuts_run
 from corrla_rs_tpu_torch.ops.nystrom import nystrom_approx, nystrom_eigh
+from corrla_rs_tpu_torch.ops.particle import particle_filter, ukf_filter
+from corrla_rs_tpu_torch.ops.psis import importance_resample, psis
 from corrla_rs_tpu_torch.ops.random_svd import (
     block_krylov_svd,
     power_iter,
@@ -96,7 +121,15 @@ from corrla_rs_tpu_torch.ops.slq import (
     slq_logdet,
     slq_spectral_sum,
 )
+from corrla_rs_tpu_torch.ops.smc import smc_sample
 from corrla_rs_tpu_torch.ops.trace_est import hutchinson_trace, hutchpp_trace
+from corrla_rs_tpu_torch.ops.tt import (
+    tt_dot,
+    tt_norm,
+    tt_reconstruct,
+    tt_round,
+    tt_svd,
+)
 from corrla_rs_tpu_torch.ops.univariate_rv import (
     BetaRv,
     ExponentialRv,
@@ -194,4 +227,33 @@ __all__ = [
     "IncrementalSvd",
     "IncrementalPca",
     "robust_pca",
+    "tt_svd",
+    "tt_reconstruct",
+    "tt_round",
+    "tt_dot",
+    "tt_norm",
+    "cp_als",
+    "cp_reconstruct",
+    "nmf",
+    "matrix_complete",
+    "EnsembleSampler",
+    "stretch_run",
+    "hmc_run",
+    "nuts_run",
+    "smc_sample",
+    "dare",
+    "dlqr",
+    "kalman_filter",
+    "kalman_smooth",
+    "enkf_analysis",
+    "etkf_analysis",
+    "enkf_filter",
+    "esmda",
+    "particle_filter",
+    "ukf_filter",
+    "laplace_approx",
+    "laplace_sample",
+    "bridge_sampling_evidence",
+    "psis",
+    "importance_resample",
 ]

@@ -6,7 +6,8 @@ iterations and min(n_dim, 10) oversamples (pca_rsvd.rs:65-66), store the
 singular values and components (= V rows); ``explained_var`` = s^2 / (n-1)
 (pca_rsvd.rs:91-99); the forward transform centers then projects
 (pca_rsvd.rs:43-46); the inverse transform projects back and re-adds the
-training means (pca_rsvd.rs:49-52). The ``mesh=`` path is not ported yet.
+training means (pca_rsvd.rs:49-52). ``mesh=`` is kept for the signature and
+raises on anything but ``None``.
 """
 from __future__ import annotations
 
@@ -28,8 +29,10 @@ class PcaRsvd:
     """
 
     def __init__(self, x_mat, rank: int, key=0, n_iter: int | None = None,
-                 stabilize: str = "auto", config: PcaConfig | None = None,
-                 device=None):
+                 stabilize: str = "auto", mesh=None,
+                 config: PcaConfig | None = None, device=None):
+        if mesh is not None:
+            raise NotImplementedError("PcaRsvd with mesh= is not ported")
         cfg = config or PcaConfig()
         self.pca_rank = int(rank)
         self._n_iter = int(n_iter if n_iter is not None else cfg.n_iter)

@@ -7,7 +7,7 @@ via pinv(modes) in one batched product (pod_rom.rs:61-75), one
 linear-kernel RBF fit of all mode weights over the exogenous variable t
 (pod_rom.rs:78-95), prediction y(t) = modes @ w(t) (pod_rom.rs:107-118).
 The RBF fit and predict run through the port's CUDA kernels on the GPU.
-The ``mesh=`` path is not ported yet.
+``mesh=`` is kept for the signature and raises on anything but ``None``.
 
 Snapshot layout matches the reference: rows = snapshots.
 """
@@ -33,8 +33,10 @@ class PodI:
     moved to the snapshots' device and dtype.
     """
 
-    def __init__(self, x_data, t, n_modes: int, key=0,
+    def __init__(self, x_data, t, n_modes: int, key=0, mesh=None,
                  config: PodConfig | None = None, device=None):
+        if mesh is not None:
+            raise NotImplementedError("PodI with mesh= is not ported")
         cfg = config or PodConfig()
         self._n_iter = int(cfg.n_iter)
         self._n_oversamples = int(cfg.n_oversamples)

@@ -133,8 +133,13 @@ def rank_normalized_rhat(history) -> torch.Tensor:
     h = as_tensor(history).to(torch.float64)
     n, m, d = h.shape
     bulk = gelman_rubin(_rank_normal(h))
-    # numpy's median: the mean of the two middle values for an even count
+    # numpy's median: the mean of the two middle values for an even count.
+    # A sort a dimension: torch.quantile refuses more than 2^24 elements,
+    # which 4,096 chains pass after 4,096 generations
     pooled = h.reshape(n * m, d)
-    median = torch.quantile(pooled, 0.5, dim=0)
+    lo, hi = (n * m - 1) // 2, (n * m) // 2
+    median = torch.stack([
+        0.5 * (col[lo] + col[hi])
+        for col in (torch.sort(pooled[:, k]).values for k in range(d))])
     tail = gelman_rubin(_rank_normal((h - median[None, None, :]).abs()))
     return torch.maximum(bulk, tail)

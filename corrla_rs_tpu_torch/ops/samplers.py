@@ -324,10 +324,12 @@ def _init_state(init_heads, ln_prob_fn, key) -> DemcState:
 
 
 def demc_run(init_heads, ln_prob_fn, n_steps: int, gamma: float,
-             var_epsilon: float, key, prop_fixup_fn=None):
+             var_epsilon: float, key, prop_fixup_fn=None, unroll: int = 4):
     """Run n_steps generations of DEMC on all chains; returns (history,
     state). history: (n_steps, n_chains, ndim), one generation a step.
-    ``key`` is an int seed or a ``torch.Generator`` on the heads' device."""
+    ``key`` is an int seed or a ``torch.Generator`` on the heads' device.
+    ``unroll`` is accepted for the JAX package's signature and ignored: the
+    generations run in a host loop, which has nothing to unroll."""
     state = _init_state(init_heads, ln_prob_fn, key)
     n_chains, ndim = state.heads.shape
     n_steps = int(n_steps)

@@ -21,6 +21,7 @@ import torch
 
 from corrla_rs_tpu_torch.ops import random_svd as _random_svd
 from corrla_rs_tpu_torch.ops.mat_utils import (
+    _fit_pinv,
     center_mat_col,
     pinv,
     zcenter_mat_col,
@@ -123,7 +124,7 @@ def linear_fit(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
 
     Returns (k+1, y_cols): slopes then intercept. Leading dims batch.
     """
-    return pinv(torch.cat([x, _ones_col(x)], dim=-1)) @ y
+    return _fit_pinv(torch.cat([x, _ones_col(x)], dim=-1)) @ y
 
 
 def jac_from_lin(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
@@ -162,7 +163,7 @@ def build_full_vandermonde(x: torch.Tensor, degree: int) -> torch.Tensor:
 def quad_fit(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
     """Fit a full quadratic in k dims. stats_corr.rs:213-219. Leading dims
     batch."""
-    return pinv(build_vandermonde(x, True)) @ y
+    return _fit_pinv(build_vandermonde(x, True)) @ y
 
 
 def quad_eval(x: torch.Tensor, coeffs: torch.Tensor) -> torch.Tensor:

@@ -4,9 +4,13 @@ A fitted ``PcaRsvd``, ``RbfInterp``, ``PodI``, ``DMDc`` (or ``PyDMDc``),
 ``DMD`` or ``FittedActiveSsRsvd`` of ``corrla_rs_tpu``, and the running state
 of an ``IncrementalSvd`` or ``IncrementalPca``, is a flat bag of arrays and
 scalars, and so is its port counterpart, attribute for attribute. A sampler's
-``DreamState`` (``state._asdict()``) crosses too, so a JAX run can be resumed
-in the port: its JAX key does not cross, the port's stream starts from the
-int ``key`` of the dict (default 0). Two ways across, neither of which imports JAX:
+``DreamState`` or ``EnsembleState`` (``state._asdict()``) crosses too, so a
+JAX run can be resumed in the port: its JAX key does not cross, the port's
+stream starts from the int ``key`` of the dict (default 0). So do a
+``LaplaceResult`` (``result._asdict()``), a tensor train (``"tt_cores"``:
+``{"cores": [...]}``, a list of tensors back) and a CP model
+(``"cp_factors"``: ``{"weights": w, "factors": [...]}``, ``(weights,
+factors)`` back). Two ways across, neither of which imports JAX:
 
 - ``from_jax_state(class_name, state, device)`` takes the attributes
   (``vars(model)``, arrays as numpy or anything numpy can read);
@@ -33,8 +37,10 @@ from corrla_rs_tpu_torch.models.dmd import DMD, DMDc
 from corrla_rs_tpu_torch.models.pca import PcaRsvd
 from corrla_rs_tpu_torch.models.pod import PodI
 from corrla_rs_tpu_torch.ops.dream import DreamState
+from corrla_rs_tpu_torch.ops.ensemble_mcmc import EnsembleState
 from corrla_rs_tpu_torch.ops.incremental import IncrementalPca, IncrementalSvd
 from corrla_rs_tpu_torch.ops.interp import RbfInterp
+from corrla_rs_tpu_torch.ops.laplace import LaplaceResult
 from corrla_rs_tpu_torch.utils.device import default_device
 
 __all__ = ["from_jax_state", "load_jax_checkpoint"]
@@ -63,6 +69,14 @@ _REQUIRED = {
 }
 _DREAM_FLOAT = ("heads", "head_lnp", "p_cr", "jump_dist", "n_id")
 _DREAM_COUNT = ("n_accept", "t")
+_ENSEMBLE_FLOAT = ("walkers", "lnp")
+_ENSEMBLE_COUNT = ("n_accept", "n_reject")
+_LAPLACE_ARRAYS = ("x_map", "cov", "chol_cov", "x_map_all")
+_LAPLACE_SCALARS = (("log_evidence", float), ("ln_post_map", float),
+                    ("converged", bool))
+# states that are no class of fitted attributes, each made by its own function
+_OTHER_STATES = ("DreamState", "EnsembleState", "LaplaceResult", "tt_cores",
+                 "cp_factors")
 _JAX_ONLY = "_mesh"   # a jax.sharding.Mesh, or None
 
 
@@ -73,12 +87,12 @@ def _is_array(val) -> bool:
 def from_jax_state(class_name: str, state: dict, device=None):
     """Port object of ``class_name`` holding the JAX object's ``state``."""
     dev = torch.device(device) if device is not None else default_device()
-    if class_name == "DreamState":
-        return _dream_state(state, dev)
+    if class_name in _OTHER_STATES:
+        return _MAKERS[class_name](state, dev)
     cls = _CLASSES.get(class_name)
     if cls is None:
         raise ValueError(f"no port of {class_name!r}; known: "
-                         f"{sorted(_CLASSES) + ['DreamState']}")
+                         f"{sorted(_CLASSES) + list(_OTHER_STATES)}")
     missing = [k for k in _REQUIRED[class_name] if k not in state]
     if missing:
         raise ValueError(f"{class_name} state lacks {missing}")
@@ -95,19 +109,62 @@ def from_jax_state(class_name: str, state: dict, device=None):
     return obj
 
 
-def _dream_state(state: dict, dev) -> DreamState:
-    missing = [k for k in _DREAM_FLOAT + _DREAM_COUNT if k not in state]
+def _require(name: str, state: dict, keys) -> None:
+    missing = [k for k in keys if k not in state]
     if missing:
-        raise ValueError(f"DreamState state lacks {missing}")
-    seed = state.get("key", 0)
-    gen = torch.Generator(device=dev)
-    gen.manual_seed(int(seed) if isinstance(seed, (int, np.integer)) else 0)
-    fields = {k: torch.as_tensor(np.array(state[k]), device=dev)
-              for k in _DREAM_FLOAT}
-    fields.update({k: torch.as_tensor(int(np.array(state[k])),
-                                      dtype=torch.int64, device=dev)
-                   for k in _DREAM_COUNT})
-    return DreamState(key=gen, **fields)
+        raise ValueError(f"{name} state lacks {missing}")
+
+
+def _tensor(val, dev) -> torch.Tensor:
+    return torch.as_tensor(np.array(val), device=dev)
+
+
+def _sampler_state(cls, floats, counts):
+    """Maker of a sampler's state tuple: float arrays, int64 counters and
+    a fresh generator from the dict's int ``key`` (a JAX key does not
+    cross)."""
+    def build(state: dict, dev):
+        _require(cls.__name__, state, floats + counts)
+        seed = state.get("key", 0)
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(int(seed) if isinstance(seed, (int, np.integer))
+                        else 0)
+        fields = {k: _tensor(state[k], dev) for k in floats}
+        fields.update({k: torch.as_tensor(int(np.array(state[k])),
+                                          dtype=torch.int64, device=dev)
+                       for k in counts})
+        return cls(key=gen, **fields)
+    return build
+
+
+def _laplace_result(state: dict, dev) -> LaplaceResult:
+    _require("LaplaceResult", state,
+             _LAPLACE_ARRAYS + tuple(k for k, _ in _LAPLACE_SCALARS))
+    fields = {k: _tensor(state[k], dev) for k in _LAPLACE_ARRAYS}
+    fields.update({k: kind(np.array(state[k]))
+                   for k, kind in _LAPLACE_SCALARS})
+    return LaplaceResult(**fields)
+
+
+def _tt_cores(state: dict, dev) -> list:
+    _require("tt_cores", state, ("cores",))
+    return [_tensor(g, dev) for g in state["cores"]]
+
+
+def _cp_factors(state: dict, dev):
+    _require("cp_factors", state, ("weights", "factors"))
+    return (_tensor(state["weights"], dev),
+            [_tensor(f, dev) for f in state["factors"]])
+
+
+_MAKERS = {
+    "DreamState": _sampler_state(DreamState, _DREAM_FLOAT, _DREAM_COUNT),
+    "EnsembleState": _sampler_state(EnsembleState, _ENSEMBLE_FLOAT,
+                                    _ENSEMBLE_COUNT),
+    "LaplaceResult": _laplace_result,
+    "tt_cores": _tt_cores,
+    "cp_factors": _cp_factors,
+}
 
 
 def load_jax_checkpoint(path, device=None):

@@ -516,6 +516,52 @@ def cpu_draws(monkeypatch):
     monkeypatch.setattr(random_svd, "_draw_sketch", sketch)
     monkeypatch.setattr(trace_est, "_rademacher", rademacher)
 
+    # the samplers' and filters' seams: drawn by a CPU generator that
+    # follows the run's generator (or key), then moved to where it is
+    from corrla_rs_tpu_torch.ops import (enkf, ensemble_mcmc, hmc, nuts,
+                                         particle, psis, smc)
+
+    followers = {}
+
+    def follower(key):
+        """A CPU generator of the key's seed: a fresh one for an int seed,
+        one that advances with the run for a generator."""
+        fresh = torch.Generator().manual_seed(_seed_of(key))
+        if not isinstance(key, torch.Generator):
+            return fresh
+        # the run's generator is kept alive beside its follower, so that
+        # its id is not handed to a later run's generator
+        return followers.setdefault(id(key), (key, fresh))[1]
+
+    def moved(out, device):
+        if isinstance(out, torch.Tensor):
+            return out.to(device)
+        if isinstance(out, tuple):
+            parts = [moved(t, device) for t in out]
+            return type(out)(*parts) if hasattr(out, "_fields") else tuple(
+                parts)
+        return out      # None, or a host list
+
+    def from_generator(real):
+        return lambda gen, *args: moved(real(follower(gen), *args),
+                                        gen.device)
+
+    for mod, name in ((ensemble_mcmc, "_draw_stretch"), (hmc, "_draw_hmc"),
+                      (nuts, "_draw_nuts"), (smc, "_draw_smc"),
+                      (particle, "_draw_offsets")):
+        monkeypatch.setattr(mod, name, from_generator(getattr(mod, name)))
+    real_normals = enkf._draw_normals
+    monkeypatch.setattr(
+        enkf, "_draw_normals",
+        lambda key, *args: moved(real_normals(follower(key), *args[:-1],
+                                              "cpu"), args[-1]))
+    monkeypatch.setattr(
+        psis, "_draw_categorical",
+        lambda key, logw, n: torch.multinomial(
+            torch.exp(logw.cpu()), n, replacement=True,
+            generator=torch.Generator().manual_seed(_seed_of(key))
+        ).to(logw.device))
+
 
 def _np_rng():
     import numpy as np
@@ -662,7 +708,122 @@ def _case_dream(d):
             st.n_accept.double(), st.t.double()]
 
 
+def _case_tensor_factorize(d):
+    from corrla_rs_tpu_torch.ops import completion, cp, nmf, tt
+
+    rng = _np_rng()
+    g = [rng.standard_normal(s) for s in ((1, 6, 3), (3, 5, 4), (4, 7, 2),
+                                          (2, 4, 1))]
+    t = torch.tensor(g[0])
+    for core in g[1:]:
+        t = torch.tensordot(t, torch.tensor(core), dims=([-1], [0]))
+    t = t.reshape(6, 5, 7, 4).to(d)
+    cores = tt.tt_round(tt.tt_svd(t, (5, 8, 3), key=1), (3, 4, 2), key=2)
+    fs = [rng.standard_normal((n, 3)) for n in (9, 8, 7)]
+    t3 = torch.tensor(np_einsum("ir,jr,kr->ijk", *fs)).to(d)
+    w, factors, fits = cp.cp_als(t3, 3, n_sweeps=20, key=3)
+    x = torch.tensor(rng.random((40, 4)) @ rng.random((4, 30))).to(d)
+    nw, nh, errs = nmf.nmf(x, 4, n_sweeps=30, key=4)
+    truth = rng.standard_normal((50, 3)) @ rng.standard_normal((3, 40))
+    mask = rng.random((50, 40)) < 0.5
+    m_hat, _, _, hist = completion.matrix_complete(
+        torch.tensor(truth).to(d), torch.tensor(mask).to(d), 3, n_sweeps=15,
+        key=5)
+    return [tt.tt_reconstruct(cores), tt.tt_norm(cores)[None],
+            cp.cp_reconstruct(w, factors), w, fits, nw @ nh, errs, m_hat,
+            hist]
+
+
+def np_einsum(*args):
+    import numpy as np
+
+    return np.einsum(*args)
+
+
+def _lnp_gauss(x):
+    prec = torch.tensor([[1.5, 0.4, 0.0], [0.4, 1.0, -0.3],
+                         [0.0, -0.3, 2.0]], dtype=x.dtype, device=x.device)
+    return -0.5 * x @ prec @ x
+
+
+def _case_samplers(d):
+    from corrla_rs_tpu_torch.ops import ensemble_mcmc, hmc, nuts, smc
+
+    x0 = torch.tensor(_np_rng().standard_normal((8, 3))).to(d)
+    hist, st = ensemble_mcmc.stretch_run(x0, _lnp_gauss, 30, key=1)
+    h = hmc.hmc_run(x0, _lnp_gauss, 6, n_warmup=5, n_leapfrog=5, key=2,
+                    jitter_steps=True)
+    n = nuts.nuts_run(x0, _lnp_gauss, 5, n_warmup=5, max_depth=4, key=3)
+    parts = torch.tensor(_np_rng().standard_normal((128, 3)) * 2).to(d)
+    s = smc.smc_sample(_lnp_gauss, lambda x: -0.125 * torch.sum(x * x),
+                       parts, n_mcmc=2, key=4)
+    assert st.n_accept.device.type == d.type
+    return [hist, st.lnp, st.n_accept.double()[None], h.history, h.inv_mass,
+            torch.tensor([h.step_size, h.accept_ratio], device=d), n.history,
+            torch.tensor([n.step_size, n.accept_ratio, n.mean_tree_depth],
+                         device=d), s.particles, s.betas, s.ess,
+            torch.tensor([s.log_evidence], device=d)]
+
+
+def _case_filters(d):
+    from corrla_rs_tpu_torch.ops import enkf, kalman, particle
+
+    rng = _np_rng()
+    a = rng.standard_normal((5, 5))
+    a = torch.tensor(a * 0.9 / abs(torch.linalg.eigvals(
+        torch.tensor(a))).max().item()).to(d)
+    b = torch.tensor(rng.standard_normal((5, 2))).to(d)
+    c = torch.tensor(rng.standard_normal((2, 5))).to(d)
+    u = torch.tensor(rng.standard_normal((2, 30))).to(d)
+    y = torch.tensor(rng.standard_normal((2, 30))).to(d)
+    ks = kalman.kalman_smooth(a, b, c, None, 0.01, 0.1, u, y)
+    k_gain, _ = kalman.dlqr(a, b, 1.0, 0.5)
+    ens = torch.tensor(rng.standard_normal((12, 5))).to(d)
+    step = lambda v: torch.tanh(a @ v)
+    out = [ks["x_filt"], ks["x_smooth"], ks["gain"],
+           torch.tensor([ks["loglik"]], device=d), k_gain,
+           enkf.enkf_analysis(ens, y[:, 0], c, 0.1, 1),
+           enkf.etkf_analysis(ens, y[:, 0], c, [0.1, 0.2])]
+    for method in ("etkf", "stochastic"):
+        f = enkf.enkf_filter(ens, y.mT, step, c, 0.1, 2, method=method,
+                             q=0.01)
+        out += [f["means"], f["ensemble"], f["spread"]]
+    es = enkf.esmda(ens, lambda th: c @ th, y[:, 0], 0.1, 3, n_mda=3)
+    pf = particle.particle_filter(
+        torch.tensor(rng.standard_normal((64, 5))).to(d), y.mT,
+        lambda gen, cloud: 0.9 * cloud + 0.1 * torch.sin(3.0 * cloud),
+        lambda x, obs: -0.5 * torch.sum((obs - c @ x) ** 2), 4)
+    uk = particle.ukf_filter(torch.zeros(5, dtype=torch.float64, device=d),
+                             1.0, y.mT, step, lambda v: c @ v, 0.01, 0.1)
+    return out + [es["ensemble"], es["predicted"], pf["means"], pf["ess"],
+                  pf["log_weights"], uk["means"], uk["covs"],
+                  torch.tensor([pf["loglik"], uk["loglik"]], device=d)]
+
+
+def _case_evidence(d):
+    from corrla_rs_tpu_torch.ops import bridge, laplace, psis
+
+    rng = _np_rng()
+    draws = torch.tensor(rng.standard_normal((400, 3)) * 0.7).to(d)
+    lap = laplace.laplace_approx(
+        lambda x: _lnp_gauss(x - 1.0),
+        torch.zeros(3, dtype=torch.float64, device=d), n_restarts=3, key=1)
+    br = bridge.bridge_sampling_evidence(_lnp_gauss, draws, key=2)
+    lw = torch.tensor(rng.standard_normal(500) ** 2 * 0.3).to(d)
+    smp, res = psis.importance_resample(draws[:, :1].repeat(2, 1)[:500], lw,
+                                        50, key=3)
+    assert res.log_weights.device.type == d.type
+    return [lap.x_map, lap.cov, lap.chol_cov, laplace.laplace_sample(lap, 5, 4),
+            torch.tensor([lap.log_evidence, br.log_evidence, res.k_hat,
+                          res.ess], device=d), br.proposal_chol,
+            res.log_weights, smp]
+
+
 SLICE_CASES = {
+    "tensor_factorize": _case_tensor_factorize,
+    "samplers_beyond_demc": _case_samplers,
+    "filters": _case_filters,
+    "evidence": _case_evidence,
     "krylov_single_pass": _case_krylov_single_pass,
     "nystrom_cg": _case_nystrom_cg,
     "rank_select_trace_slq": _case_rank_select_trace_slq,
@@ -679,7 +840,7 @@ def test_slice_module_on_cuda_matches_cpu_f64(dev, cpu_draws, case):
     # result's largest entry (the fits stop at a gradient of 1e-5, so 1e-6)
     on_card = SLICE_CASES[case](dev)
     on_cpu = SLICE_CASES[case](torch.device("cpu"))
-    tol = 1e-6 if case == "mle_diagnostics" else 1e-8
+    tol = 1e-6 if case in ("mle_diagnostics", "evidence") else 1e-8
     assert len(on_card) == len(on_cpu)
     for i, (got, want) in enumerate(zip(on_card, on_cpu)):
         assert got.device.type == "cuda" and want.device.type == "cpu", i
@@ -761,3 +922,149 @@ def test_slice_entry_points_put_numpy_on_the_card(dev):
     assert isinstance(port.slq_logdet(w, 4, 10), float)
     assert isinstance(port.range_error_estimate(a, np.eye(60)[:, :5]), float)
     assert port.NormalRv(0.0, 1.0).mlfit(x).std > 0
+
+
+def test_slice_inference_entry_points_put_numpy_on_the_card(dev):
+    # the inference layer and the tensor factorizations: numpy (or a list)
+    # in, tensors on the card out, whatever the size
+    import numpy as np
+
+    import corrla_rs_tpu_torch as port
+
+    rng = np.random.default_rng(5)
+    f = lambda v: -0.5 * torch.sum(v * v)
+    t3 = rng.standard_normal((6, 5, 4))
+    cores = port.tt_svd(t3, (2, 2))
+    w, factors, fits = port.cp_als(t3, 2, n_sweeps=3)
+    x_pos = rng.random((12, 9))
+    mask = rng.random((12, 9)) < 0.7
+    heads = rng.standard_normal((8, 2))
+    a = 0.8 * np.eye(3)
+    c = rng.standard_normal((2, 3))
+    u, y = rng.standard_normal((1, 10)), rng.standard_normal((2, 10))
+    b = np.ones((3, 1))
+    kf = port.kalman_smooth(a, b, c, None, 0.01, 0.1, u, y)
+    ens = rng.standard_normal((6, 3))
+    step = lambda v: 0.9 * v
+    flt = port.enkf_filter(ens, y.T, step, c, 0.1, 0, method="stochastic")
+    es = port.esmda(ens, lambda th: th[:2], y[:, 0], 0.1, 0, n_mda=2)
+    pf = port.particle_filter(
+        rng.standard_normal((16, 3)), y.T,
+        lambda gen, cloud: 0.9 * cloud + 0.1 * torch.randn(
+            cloud.shape, generator=gen, device=cloud.device,
+            dtype=cloud.dtype),
+        lambda x, obs: -0.5 * torch.sum((obs - x[:2]) ** 2), 0)
+    uk = port.ukf_filter(np.zeros(3), 1.0, y.T, step, lambda v: v[:2], 0.01,
+                         0.1)
+    lap = port.laplace_approx(f, [0.3, -0.2])
+    draws = rng.standard_normal((200, 2))
+    br = port.bridge_sampling_evidence(f, draws)
+    smc = port.smc_sample(f, f, rng.standard_normal((64, 2)), n_mcmc=1)
+    hmc = port.hmc_run(heads, f, 3, n_warmup=2, n_leapfrog=3)
+    nuts = port.nuts_run(heads, f, 3, n_warmup=2, max_depth=3)
+    results = {
+        "tt_svd": cores, "tt_round": port.tt_round(cores, (1, 1)),
+        "tt_reconstruct": port.tt_reconstruct([np.asarray(g.cpu())
+                                               for g in cores]),
+        "tt_dot": port.tt_dot(cores, cores), "tt_norm": port.tt_norm(cores),
+        "cp_als": [w, fits] + factors,
+        "cp_reconstruct": port.cp_reconstruct(
+            w.cpu().numpy(), [g.cpu().numpy() for g in factors]),
+        "nmf": port.nmf(x_pos, 2, n_sweeps=3),
+        "matrix_complete": port.matrix_complete(x_pos, mask, 2, n_sweeps=3),
+        "stretch_run": port.stretch_run(heads, f, 3)[0],
+        "EnsembleSampler": port.EnsembleSampler(f, heads).sample_mcmc(16)
+        .chain_history,
+        "hmc_run": [hmc.history, hmc.final, hmc.inv_mass],
+        "nuts_run": [nuts.history, nuts.final, nuts.inv_mass],
+        "smc_sample": [smc.particles, smc.betas, smc.ess, smc.accept_ratios],
+        "dare": port.dare(a, c, 0.01 * np.eye(3), 0.1 * np.eye(2)),
+        "dlqr": port.dlqr(a, b, 1.0, 1.0),
+        "kalman_smooth": [kf[k] for k in ("x_filt", "innovations", "gain",
+                                          "innovation_cov", "state_cov",
+                                          "x_smooth")],
+        "enkf_analysis": port.enkf_analysis(ens, y[:, 0], c, 0.1, 0),
+        "etkf_analysis": port.etkf_analysis(ens, y[:, 0], c, [0.1, 0.2]),
+        "enkf_filter": [flt["means"], flt["ensemble"], flt["spread"]],
+        "esmda": [es["ensemble"], es["mean"], es["predicted"]],
+        "particle_filter": [pf["means"], pf["ess"], pf["particles"],
+                            pf["log_weights"]],
+        "ukf_filter": [uk["means"], uk["covs"]],
+        "laplace_approx": [lap.x_map, lap.cov, lap.chol_cov, lap.x_map_all],
+        "laplace_sample": port.laplace_sample(lap, 4),
+        "bridge_sampling_evidence": [br.proposal_mean, br.proposal_chol],
+        "psis": port.psis(rng.standard_normal(50)).log_weights,
+        "importance_resample": port.importance_resample(
+            draws, rng.standard_normal(200), 10)[0],
+    }
+    for name, res in results.items():
+        tensors = list(res) if isinstance(res, (tuple, list)) else [res]
+        assert tensors and all(isinstance(t, torch.Tensor) and t.is_cuda
+                               for t in tensors), name
+    # the scalars are read back once, at the end of their run
+    assert isinstance(smc.log_evidence, float) and isinstance(pf["loglik"],
+                                                              float)
+    assert isinstance(hmc.accept_ratio, float) and isinstance(nuts.n_divergent,
+                                                              int)
+
+
+def test_slice_psis_keeps_the_weights_on_the_card(dev, monkeypatch):
+    # every copy of a CUDA tensor to the host is counted (``.cpu()``,
+    # ``.to``, ``.tolist()``): psis may bring the tail and the cutoff for the
+    # Pareto fit, never the n weights
+    from corrla_rs_tpu_torch.ops import psis as psis_mod
+
+    gen = torch.Generator(device=dev).manual_seed(5)
+    n = 200_000
+    lw = torch.randn(n, generator=gen, device=dev, dtype=torch.float64) ** 2 \
+        * 0.4
+    copied = []
+
+    def counted(how):
+        real = getattr(torch.Tensor, how)
+
+        def call(self, *args, **kwargs):
+            out = real(self, *args, **kwargs)
+            if self.is_cuda and not (isinstance(out, torch.Tensor)
+                                     and out.is_cuda):
+                copied.append(self.numel())
+            return out
+        return call
+
+    for how in ("cpu", "to", "tolist", "numpy", "__array__"):
+        monkeypatch.setattr(torch.Tensor, how, counted(how))
+    res = psis_mod.psis(lw)
+    smp, _ = psis_mod.importance_resample(lw[:, None], lw, 1000, key=1)
+    monkeypatch.undo()
+    assert res.n_tail == 1342 and copied
+    assert max(copied) <= res.n_tail + 1, copied
+    assert res.log_weights.is_cuda and smp.is_cuda
+    want = psis_mod.psis(lw.cpu())
+    assert res.k_hat == pytest.approx(want.k_hat, abs=1e-10)
+    assert float((res.log_weights.cpu() - want.log_weights).abs().max()) \
+        <= 1e-10
+
+
+def test_slice_polynomial_fits_take_the_batched_pinv_on_the_card(
+        dev, monkeypatch):
+    from corrla_rs_tpu_torch.ops import mat_utils, stats_corr
+
+    calls = []
+    real = mat_utils.pinv_batched
+    monkeypatch.setattr(mat_utils, "pinv_batched",
+                        lambda a, eps=1e-14: calls.append(tuple(a.shape))
+                        or real(a, eps))
+    gen = torch.Generator(device=dev).manual_seed(7)
+    x = torch.randn(1024, 40, 3, generator=gen, device=dev,
+                    dtype=torch.float64)
+    y = torch.randn(1024, 40, 1, generator=gen, device=dev,
+                    dtype=torch.float64)
+    coeffs = stats_corr.quad_fit(x, y)
+    assert calls == [(1024, 40, 10)] and coeffs.is_cuda
+    # a small batch keeps torch.linalg.svd, and both agree with the CPU
+    few = stats_corr.quad_fit(x[:16], y[:16])
+    assert calls == [(1024, 40, 10)]
+    want = stats_corr.quad_fit(x.cpu(), y.cpu())
+    scale = float(want.abs().max())
+    assert float((coeffs.cpu() - want).abs().max()) <= 1e-9 * scale
+    assert float((few.cpu() - want[:16]).abs().max()) <= 1e-9 * scale

@@ -1,6 +1,7 @@
 """The port's package boundary: no JAX, public names, device defaults, and
 chip_smoke.py's refusal to run without a CUDA device."""
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -33,12 +34,34 @@ def test_port_never_imports_jax():
         "bad = sorted(m for m in sys.modules if m == 'jax' or "
         "m.startswith(('jax.', 'jaxlib', 'corrla_rs_tpu.')) or "
         "m == 'corrla_rs_tpu')\n"
-        "print('LOADED', len([m for m in sys.modules if "
-        "m.startswith('corrla_rs_tpu_torch')]))\n"
+        "print('LOADED', ' '.join(sorted(m for m in sys.modules if "
+        "m.startswith('corrla_rs_tpu_torch'))))\n"
         "assert not bad, bad\n"
     )
     assert proc.returncode == 0, proc.stderr
-    assert int(proc.stdout.split("LOADED")[1]) >= 15
+    loaded = set(proc.stdout.split("LOADED")[1].split())
+    assert len(loaded) >= 50
+    # the modules of the inference layer and the tensor factorizations
+    for name in ("tt", "cp", "nmf", "completion", "ensemble_mcmc", "hmc",
+                 "nuts", "smc", "kalman", "enkf", "particle", "laplace",
+                 "bridge", "psis"):
+        assert f"corrla_rs_tpu_torch.ops.{name}" in loaded, name
+
+
+def test_no_source_of_the_port_names_jax():
+    # by the text as well: no import statement of the port's package or of
+    # chip_smoke.py names jax or the JAX package, inside a function either
+    pattern = re.compile(
+        r"^\s*(?:import|from)\s+(?:jax|jaxlib|corrla_rs_tpu)(?![\w])", re.M)
+    sources = [os.path.join(ROOT, "chip_smoke.py")]
+    for folder, _, files in os.walk(os.path.join(ROOT, "corrla_rs_tpu_torch")):
+        sources += [os.path.join(folder, f) for f in files
+                    if f.endswith(".py")]
+    assert len(sources) >= 50
+    for path in sources:
+        with open(path) as f:
+            hits = pattern.findall(f.read())
+        assert not hits, (path, hits)
 
 
 def test_public_names_mirror_the_jax_package():
