@@ -8,9 +8,13 @@ adds to it the rest of the randomized SVD core (``block_krylov_svd``,
 MLE / univariate-RV layer, the factorizations on the RSVD core (Nystrom,
 rank selection, trace and log-det estimators, sketched least squares, CG,
 ID/CUR, HOSVD, incremental SVD/PCA, robust PCA, tensor train, CP, NMF,
-matrix completion) and the inference layer (stretch, HMC, NUTS and tempered
+matrix completion), the inference layer (stretch, HMC, NUTS and tempered
 SMC samplers; Kalman, ensemble, particle and unscented filters; Laplace,
-bridge-sampling and PSIS evidence estimators):
+bridge-sampling and PSIS evidence estimators), Gaussian processes and
+Bayesian optimisation with the space-filling designs, Grassmann
+interpolation, the ROM models on the DMD core (Hankel, multi-resolution,
+physics-informed and online DMD, ERA/OKID, DEIM, gappy POD, sparsity-
+promoting DMD) and the checkpoints:
 
 - ``rsvd(a, n_rank, n_iters, n_oversamples)``  -> (U, S (r, 1), Vt)
 - ``rpca(a, n_rank, n_iters, n_oversamples)``  -> (S (r, 1), components)
@@ -25,7 +29,8 @@ bridge-sampling and PSIS evidence estimators):
   ``eig_host``, ``dmdc_fit_ensemble``, ``rollout_ensemble``,
   ``constr_dirichlet_sample``
 
-The two RBF steps, and the kNN distances of ``active_ss``, run through
+The two RBF steps, the kNN distances of ``active_ss`` and the GPs'
+distances (``ops.interp.pairwise_dists``, differentiable) run through
 hand-written CUDA kernels for sm_90a (``csrc/``), built with ``nvcc`` on
 first use. Numpy inputs go to ``utils.device.default_device()`` (``cuda``)
 unless a ``device`` is given; TF32 is off. ``utils.convert`` carries fitted
@@ -51,8 +56,14 @@ from corrla_rs_tpu_torch.models.dmd import (
     dmdc_fit_ensemble,
     rollout_ensemble,
 )
+from corrla_rs_tpu_torch.models.era import Era, era, era_okid, okid
+from corrla_rs_tpu_torch.models.hankel_dmd import HankelDmd, hankel_embed
+from corrla_rs_tpu_torch.models.mrdmd import MrDmd, mrdmd
+from corrla_rs_tpu_torch.models.online_dmd import OnlineDmd
 from corrla_rs_tpu_torch.models.pca import PcaRsvd
+from corrla_rs_tpu_torch.models.pidmd import PiDmd
 from corrla_rs_tpu_torch.models.pod import PodI
+from corrla_rs_tpu_torch.ops.bayes_opt import BayesOpt, bayes_opt_minimize
 from corrla_rs_tpu_torch.ops.bridge import bridge_sampling_evidence
 from corrla_rs_tpu_torch.ops.cg import (
     cg_solve,
@@ -61,6 +72,12 @@ from corrla_rs_tpu_torch.ops.cg import (
 )
 from corrla_rs_tpu_torch.ops.completion import matrix_complete
 from corrla_rs_tpu_torch.ops.cp import cp_als, cp_reconstruct
+from corrla_rs_tpu_torch.ops.deim import deim_points, deim_reconstruct
+from corrla_rs_tpu_torch.ops.design import (
+    halton_sample,
+    latin_hypercube,
+    sobol_sample,
+)
 from corrla_rs_tpu_torch.ops.diagnostics import (
     effective_sample_size,
     gelman_rubin,
@@ -75,6 +92,19 @@ from corrla_rs_tpu_torch.ops.enkf import (
     etkf_analysis,
 )
 from corrla_rs_tpu_torch.ops.ensemble_mcmc import EnsembleSampler, stretch_run
+from corrla_rs_tpu_torch.ops.gappy import (
+    gappy_pod_fill,
+    gappy_reconstruct,
+    oversample_points,
+)
+from corrla_rs_tpu_torch.ops.gp import GpRegressor, SparseGpRegressor
+from corrla_rs_tpu_torch.ops.grassmann import (
+    GrassmannInterp,
+    grassmann_distance,
+    grassmann_exp,
+    grassmann_log,
+    subspace_angles,
+)
 from corrla_rs_tpu_torch.ops.hmc import hmc_run
 from corrla_rs_tpu_torch.ops.hosvd import (
     hooi,
@@ -122,6 +152,7 @@ from corrla_rs_tpu_torch.ops.slq import (
     slq_spectral_sum,
 )
 from corrla_rs_tpu_torch.ops.smc import smc_sample
+from corrla_rs_tpu_torch.ops.spdmd import spdmd
 from corrla_rs_tpu_torch.ops.trace_est import hutchinson_trace, hutchpp_trace
 from corrla_rs_tpu_torch.ops.tt import (
     tt_dot,
@@ -137,6 +168,7 @@ from corrla_rs_tpu_torch.ops.univariate_rv import (
     NormalRv,
     build_kde,
 )
+from corrla_rs_tpu_torch.utils.checkpoint import load_model, save_model
 from corrla_rs_tpu_torch.utils.debug import (
     NonFiniteError,
     debug_enabled,
@@ -256,4 +288,34 @@ __all__ = [
     "bridge_sampling_evidence",
     "psis",
     "importance_resample",
+    "GpRegressor",
+    "SparseGpRegressor",
+    "latin_hypercube",
+    "sobol_sample",
+    "halton_sample",
+    "BayesOpt",
+    "bayes_opt_minimize",
+    "GrassmannInterp",
+    "grassmann_log",
+    "grassmann_exp",
+    "subspace_angles",
+    "grassmann_distance",
+    "HankelDmd",
+    "hankel_embed",
+    "MrDmd",
+    "mrdmd",
+    "PiDmd",
+    "Era",
+    "era",
+    "okid",
+    "era_okid",
+    "OnlineDmd",
+    "deim_points",
+    "deim_reconstruct",
+    "gappy_reconstruct",
+    "gappy_pod_fill",
+    "oversample_points",
+    "spdmd",
+    "save_model",
+    "load_model",
 ]

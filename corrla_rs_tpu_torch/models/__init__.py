@@ -1,1 +1,2 @@
-"""Fitted models of the port: PCA, POD, DMD/DMDc and active subspaces."""
+"""Fitted models of the port: PCA, POD, DMD/DMDc, active subspaces and the
+ROM models on the DMD core."""

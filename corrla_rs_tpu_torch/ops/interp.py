@@ -14,6 +14,17 @@ through the port's CUDA kernels (``ops.rbf_kernels``) for CUDA tensors:
 - ``rbf_predict`` is ``rbf_matvec(xq, x, c[:n]) + P_q c[n:]``, which never
   forms the (n_query, n) kernel matrix.
 
+``pairwise_dists`` is the routed distance matrix that the Gaussian processes
+call: on CUDA tensors it launches the kernel-matrix kernel with phi = linear,
+on CPU tensors it runs the plain ``rbf_kernels.pairwise_dists``. It is a
+``torch.autograd.Function`` (``forward`` and ``setup_context`` apart, so that
+``torch.func.grad`` and ``torch.func.vmap`` take it) whose backward is plain
+PyTorch: with W = G / R, zero where R = 0, dxa = rowsum(W) xa - W xb and
+dxb = colsum(W) xb - W^T xa. The JAX package's ``jax.grad`` of its
+``pairwise_dists`` gives NaN at R = 0 (sqrt'(0) * 0); the port gives 0
+there, the subgradient of a distance at its minimum (ROADMAP, Differences by
+design).
+
 Kernel-type integer codes match the pyo3 binding
 (lib_math_utils_py.rs:187-193): 1=linear, 2=multiquadric, 3=cubic,
 anything else=gaussian.
@@ -22,10 +33,10 @@ from __future__ import annotations
 
 import torch
 
+from corrla_rs_tpu_torch.ops import rbf_kernels
 from corrla_rs_tpu_torch.ops.mat_utils import pinv
 from corrla_rs_tpu_torch.ops.rbf_kernels import (
     _pairwise_kernel_matrix_into,
-    pairwise_dists,
     rbf_kernel_eval,
     rbf_matvec,
 )
@@ -41,6 +52,53 @@ _KERNEL_NAMES = {1: "linear", 2: "multiquadric", 3: "cubic"}
 # matrix's tile stores end in half-written 32-byte sectors and took 0.49
 # against 0.36 ms at n = 16,384 on an H100 (tests/kmat_saddle_layout.py)
 _SADDLE_ROW_BYTES = 128
+
+
+class _PairwiseDists(torch.autograd.Function):
+    """||xa_i - xb_j|| on the kernel-matrix kernel, with a plain backward."""
+
+    @staticmethod
+    def forward(xa, xb):
+        if xa.device.type == "cpu":
+            return rbf_kernels.pairwise_dists(xa, xb)
+        return rbf_kernels.pairwise_kernel_matrix(xa.contiguous(),
+                                                  xb.contiguous(), "linear")
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.save_for_backward(*inputs, output)
+
+    @staticmethod
+    def backward(ctx, grad):
+        xa, xb, r = ctx.saved_tensors
+        live = r > 0
+        w = torch.where(live, grad / torch.where(live, r, 1.0), 0.0)
+        dxa = dxb = None
+        if ctx.needs_input_grad[0]:
+            dxa = w.sum(1, keepdim=True) * xa - w @ xb
+        if ctx.needs_input_grad[1]:
+            dxb = w.sum(0)[:, None] * xb - w.mT @ xa
+        return dxa, dxb
+
+    @staticmethod
+    def vmap(info, in_dims, xa, xb):
+        # one call a batch member: the kernel takes 2-D operands
+        xa, xb = (t.movedim(d, 0) if d is not None
+                  else t.expand(info.batch_size, *t.shape)
+                  for t, d in zip((xa, xb), in_dims))
+        return torch.stack([_PairwiseDists.apply(a, b)
+                            for a, b in zip(xa, xb)]), 0
+
+
+def pairwise_dists(xa: torch.Tensor, xb: torch.Tensor) -> torch.Tensor:
+    """Euclidean distance matrix (n_a, n_b) of xa (n_a, d) and xb (n_b, d).
+
+    CUDA tensors launch ``rbf_kernels.pairwise_kernel_matrix`` (phi =
+    linear, counted in its ``launches``); CPU tensors run the plain
+    ``rbf_kernels.pairwise_dists``. Differentiable in both operands (see the
+    module docstring for the gradient at R = 0).
+    """
+    return _PairwiseDists.apply(xa, xb)
 
 
 def _padded_square(size: int, dtype: torch.dtype,

@@ -97,8 +97,11 @@ def _bfgs(cost, p0, gtol: float = 1e-5, max_iters: int | None = None,
     win falls below the rounding of the cost (the attainable accuracy),
     when no step of the line search lowers the cost, or after ``max_iters``
     (default 200 a dimension) iterations. A trial point whose cost is not finite
-    is rejected like one that is too high. The inverse-Hessian update is
-    skipped where the curvature s.y is not safely positive.
+    is rejected like one that is too high, and so is one whose cost only
+    equals the current one: a step shrunk until the cost rounds to the same
+    value is no decrease, and accepting it would repeat the same search
+    until ``max_iters``. The inverse-Hessian update is skipped where the
+    curvature s.y is not safely positive.
     """
     value_and_grad = torch.func.grad_and_value(cost)
 
@@ -135,7 +138,8 @@ def _bfgs(cost, p0, gtol: float = 1e-5, max_iters: int | None = None,
         for _ in range(n_backtrack):
             p_new = p + t * dirn
             f_new, g_new = evaluate(p_new)
-            if bool(f_new <= f + 1e-4 * t * slope):   # False for NaN
+            # False for NaN, and for a cost that did not go down
+            if bool((f_new <= f + 1e-4 * t * slope) & (f_new < f)):
                 break
             t *= 0.5
         else:

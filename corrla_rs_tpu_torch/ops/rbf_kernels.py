@@ -61,7 +61,8 @@ _REF_CHUNK_ELEMS = 1 << 26
 
 # the matvec's launch shape (csrc/rbf_matvec.cuh): MV_THREADS x MV_QT
 # queries a block, column chunks of one of _MV_COLS (by element size: f64
-# has no 20-column instance), at most 65535 chunks or splits
+# has no 20-column instance); query blocks times chunks share gridDim.x
+# (at most 2^31 - 1), splits lie on gridDim.z (at most 65535)
 _MV_QUERIES_PER_BLOCK = 128 * 4
 _MV_COLS = {4: (1, 2, 4, 8, 16, 20), 8: (1, 2, 4, 8, 16)}
 _MV_MAX_GRID_YZ = 65535
@@ -210,10 +211,10 @@ def _check_operands(name: str, **tensors: torch.Tensor) -> torch.Tensor:
 
 def _raise_on_error(lib, name: str, rc: int) -> None:
     """Raise on a refused launch. The C side refuses what its grid or shared
-    memory cannot take as invalid value: for the matvec more than 1,310,700
-    columns in f32 and 1,048,560 in f64, or a feature dim above about 80 in
-    f32 and 40 in f64, where its queries no longer fit in shared memory; for
-    the kernel matrix a row stride below n_b or an unknown phi."""
+    memory cannot take as invalid value: for the matvec more than 2^31 - 1
+    query blocks times column chunks, or a feature dim above about 80 in f32
+    and 40 in f64, where its queries no longer fit in shared memory; for the
+    kernel matrix a row stride below n_b or an unknown phi."""
     if rc != 0:
         raise RuntimeError(f"{name}: CUDA kernel launch failed: "
                            f"{lib.corrla_error_string(rc).decode()} ({rc})")

@@ -1,9 +1,11 @@
 """Carry fitted state from the JAX package into the port.
 
 A fitted ``PcaRsvd``, ``RbfInterp``, ``PodI``, ``DMDc`` (or ``PyDMDc``),
-``DMD`` or ``FittedActiveSsRsvd`` of ``corrla_rs_tpu``, and the running state
-of an ``IncrementalSvd`` or ``IncrementalPca``, is a flat bag of arrays and
-scalars, and so is its port counterpart, attribute for attribute. A sampler's
+``DMD``, ``FittedActiveSsRsvd``, ``GpRegressor``, ``SparseGpRegressor``,
+``HankelDmd``, ``MrDmd``, ``PiDmd``, ``Era`` or ``OnlineDmd`` of
+``corrla_rs_tpu``, and the running state of an ``IncrementalSvd`` or
+``IncrementalPca``, is a flat bag of arrays, lists of arrays and scalars,
+and so is its port counterpart, attribute for attribute. A sampler's
 ``DreamState`` or ``EnsembleState`` (``state._asdict()``) crosses too, so a
 JAX run can be resumed in the port: its JAX key does not cross, the port's
 stream starts from the int ``key`` of the dict (default 0). So do a
@@ -16,7 +18,9 @@ factors)`` back). Two ways across, neither of which imports JAX:
   (``vars(model)``, arrays as numpy or anything numpy can read);
 - ``load_jax_checkpoint(path, device)`` reads the ``.npz`` that the JAX
   package's ``utils.checkpoint.save_model`` writes (``__class__``,
-  ``__scalars__`` as JSON, ``arr_<name>`` arrays).
+  ``__scalars__`` as JSON, ``arr_<name>`` arrays, ``lst_<name>_<i>`` lists
+  of arrays); the port's ``utils.checkpoint.load_model`` reads it the same
+  way.
 
 Both return the port's object, which predicts what the JAX object predicts.
 Real arrays go to ``device`` (default: ``utils.device.default_device()``)
@@ -34,10 +38,16 @@ import torch
 from corrla_rs_tpu_torch import PyDMDc
 from corrla_rs_tpu_torch.models.active_subspaces import FittedActiveSsRsvd
 from corrla_rs_tpu_torch.models.dmd import DMD, DMDc
+from corrla_rs_tpu_torch.models.era import Era
+from corrla_rs_tpu_torch.models.hankel_dmd import HankelDmd
+from corrla_rs_tpu_torch.models.mrdmd import MrDmd
+from corrla_rs_tpu_torch.models.online_dmd import OnlineDmd
 from corrla_rs_tpu_torch.models.pca import PcaRsvd
+from corrla_rs_tpu_torch.models.pidmd import PiDmd
 from corrla_rs_tpu_torch.models.pod import PodI
 from corrla_rs_tpu_torch.ops.dream import DreamState
 from corrla_rs_tpu_torch.ops.ensemble_mcmc import EnsembleState
+from corrla_rs_tpu_torch.ops.gp import GpRegressor, SparseGpRegressor
 from corrla_rs_tpu_torch.ops.incremental import IncrementalPca, IncrementalSvd
 from corrla_rs_tpu_torch.ops.interp import RbfInterp
 from corrla_rs_tpu_torch.ops.laplace import LaplaceResult
@@ -49,9 +59,14 @@ _CLASSES = {"PcaRsvd": PcaRsvd, "RbfInterp": RbfInterp, "PodI": PodI,
             "DMDc": DMDc, "PyDMDc": PyDMDc, "DMD": DMD,
             "FittedActiveSsRsvd": FittedActiveSsRsvd,
             "IncrementalSvd": IncrementalSvd,
-            "IncrementalPca": IncrementalPca}
+            "IncrementalPca": IncrementalPca, "GpRegressor": GpRegressor,
+            "SparseGpRegressor": SparseGpRegressor, "HankelDmd": HankelDmd,
+            "MrDmd": MrDmd, "PiDmd": PiDmd, "Era": Era,
+            "OnlineDmd": OnlineDmd}
 _DMDC_STATE = ("n_x", "n_u", "_A", "_B", "_u_hat", "lambdas", "modes_re",
                "modes_im", "_w_re", "_w_im")
+_DMD_STATE = ("n_x", "n_t", "_A", "_u_r", "lambdas", "amplitudes",
+              "modes_re", "modes_im", "_w_re", "_w_im")
 # fitted arrays each class needs to predict
 _REQUIRED = {
     "PcaRsvd": ("means", "pca_s", "components_", "n_samples"),
@@ -60,12 +75,24 @@ _REQUIRED = {
     "PodI": ("modes", "t_abscissa", "_rbf_coeffs", "mode_weights"),
     "DMDc": _DMDC_STATE,
     "PyDMDc": _DMDC_STATE,
-    "DMD": ("n_x", "n_t", "_A", "_u_r", "lambdas", "amplitudes", "modes_re",
-            "modes_im", "_w_re", "_w_im"),
+    "DMD": _DMD_STATE,
     "FittedActiveSsRsvd": ("components_", "singular_vals_", "n_comps"),
     "IncrementalSvd": ("rank", "track_v", "u", "s", "v", "n_cols"),
     "IncrementalPca": ("n_components", "components_", "singular_values_",
                        "mean_", "n_samples_seen_"),
+    "GpRegressor": ("kernel", "length_scale", "signal_var", "noise_var",
+                    "x_train", "_y_mean", "_yc", "_chol", "_alpha"),
+    "SparseGpRegressor": ("kernel", "length_scale", "signal_var",
+                          "noise_var", "x_ind", "_y_mean", "_y_scale",
+                          "_l_mm", "_l_b", "_c"),
+    "HankelDmd": _DMD_STATE + ("n_delays", "n_state", "_h_last"),
+    "MrDmd": ("n_x", "n_t", "levels", "t0s", "t1s", "modes_re", "modes_im",
+              "lam_re", "lam_im", "amp_re", "amp_im"),
+    "PiDmd": ("family", "n_state", "n_modes", "lambdas"),
+    "Era": ("order", "n_outputs", "n_inputs", "a", "b", "c", "hsv",
+            "lambdas"),
+    "OnlineDmd": ("n_state", "n_ctrl", "forgetting", "ridge", "_ab", "_p",
+                  "n_seen"),
 }
 _DREAM_FLOAT = ("heads", "head_lnp", "p_cr", "jump_dist", "n_id")
 _DREAM_COUNT = ("n_accept", "t")
@@ -96,14 +123,28 @@ def from_jax_state(class_name: str, state: dict, device=None):
     missing = [k for k in _REQUIRED[class_name] if k not in state]
     if missing:
         raise ValueError(f"{class_name} state lacks {missing}")
+    return _restore(cls, state, dev)
+
+
+def _restore(cls, state: dict, device=None):
+    """An object of ``cls`` holding ``state``, without ``__init__``: real
+    arrays (and lists of them) become tensors on ``device`` (default
+    ``utils.device.default_device()``), complex arrays stay host numpy."""
+    dev = torch.device(device) if device is not None else default_device()
+
+    def carry(val):
+        val = np.array(val)
+        return val if np.iscomplexobj(val) else torch.as_tensor(val,
+                                                                device=dev)
+
     obj = cls.__new__(cls)
     for name, val in state.items():
         if name == _JAX_ONLY:
             continue
         if _is_array(val):
-            val = np.array(val)
-            if not np.iscomplexobj(val):
-                val = torch.as_tensor(val, device=dev)
+            val = carry(val)
+        elif isinstance(val, list) and val and all(map(_is_array, val)):
+            val = [carry(v) for v in val]
         setattr(obj, name, val)
     obj._device = dev
     return obj
@@ -167,12 +208,16 @@ _MAKERS = {
 }
 
 
-def load_jax_checkpoint(path, device=None):
-    """Port object from an ``.npz`` written by the JAX ``save_model``."""
+def _read_checkpoint(path):
+    """(class name, attributes) of a ``save_model`` ``.npz``, arrays as
+    numpy and lists of arrays as lists."""
     with np.load(path, allow_pickle=False) as data:
         class_name = str(data["__class__"])
-        state = {}
+        state, lengths = {}, {}
         for name, val in json.loads(str(data["__scalars__"])).items():
+            if name.startswith("__len_"):
+                lengths[name[len("__len_"):]] = int(val)
+                continue
             if isinstance(val, dict) and "__dict__" in val:
                 val = val["__dict__"]
             elif isinstance(val, dict) and "__json__" in val:
@@ -181,4 +226,11 @@ def load_jax_checkpoint(path, device=None):
         for key in data.files:
             if key.startswith("arr_"):
                 state[key[len("arr_"):]] = data[key]
-    return from_jax_state(class_name, state, device)
+        for name, n in lengths.items():
+            state[name] = [data[f"lst_{name}_{i}"] for i in range(n)]
+    return class_name, state
+
+
+def load_jax_checkpoint(path, device=None):
+    """Port object from an ``.npz`` written by the JAX ``save_model``."""
+    return from_jax_state(*_read_checkpoint(path), device)

@@ -54,6 +54,15 @@ def as_tensor(x, device=None, dtype=None) -> torch.Tensor:
     return torch.as_tensor(arr, device=device or _DEFAULT_DEVICE, dtype=dtype)
 
 
+def _host_f64(x) -> np.ndarray:
+    """``x`` (a tensor on any device, or anything numpy reads) as a float64
+    (complex128 if complex) numpy array on the host."""
+    if isinstance(x, torch.Tensor):
+        x = x.detach().cpu().numpy()
+    x = np.asarray(x)
+    return x if np.iscomplexobj(x) else x.astype(np.float64, copy=False)
+
+
 def describe_device(device=None) -> dict:
     """Name and precision settings of ``device`` (default: the default)."""
     dev = torch.device(device or _DEFAULT_DEVICE)

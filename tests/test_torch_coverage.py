@@ -42,21 +42,17 @@ NOT_PORTED = {
     "ops.eig.eigvals_device": "queue 1 item 7 (only on a measured H100 need)",
     "ops.eig.schur": "queue 1 item 7 (only on a measured H100 need)",
     "ops.eig_device": "queue 1 item 7 (only on a measured H100 need)",
-    # queue 1 item 11: the facade's own checkpoints
-    "utils.checkpoint": "queue 1 item 11",
     # queue 1 item 12: the port's bench and its tracing
     "utils.tracing": "queue 1 item 12",
-    # queue 1 item 15: ROM models
+    # queue 1 item 15: the rest of the ROM models
     **{f"models.{m}": "queue 1 item 15" for m in (
-        "edmd", "kernel_dmd", "hankel_dmd", "mrdmd", "optdmd", "bop_dmd",
-        "online_dmd", "pidmd", "spod", "era", "opinf", "sindy")},
-    **{f"ops.{m}": "queue 1 item 15" for m in (
-        "deim", "gappy", "grassmann", "spdmd")},
-    # queue 1 item 16: UQ / statistics
+        "edmd", "kernel_dmd", "optdmd", "bop_dmd", "spod", "opinf",
+        "sindy")},
+    # queue 1 item 16: the rest of UQ / statistics
     **{f"ops.{m}": "queue 1 item 16" for m in (
-        "gp", "bayes_opt", "pce", "quadrature", "sobol", "morris", "design",
-        "shapley", "mlmc", "multifidelity", "copula", "vine", "rvine", "gmm",
-        "cma", "cca", "pls")},
+        "pce", "quadrature", "sobol", "morris", "shapley", "mlmc",
+        "multifidelity", "copula", "vine", "rvine", "gmm", "cma", "cca",
+        "pls")},
     # queue 1 items 17-19
     "ops.streaming": "queue 1 item 17",
     "parallel.mesh": "queue 1 item 18",
@@ -160,22 +156,21 @@ def test_this_slice_is_ported():
         assert _port_module(rel) is not None, rel
 
 
-# the slice of the inference layer (ensemble, gradient and tempered
-# samplers, the filters, the evidence estimators) and the tensor
-# factorizations
+# the slice of Gaussian processes and Bayesian optimisation, Grassmann
+# interpolation, the ROM models on the DMD core and the checkpoints
 SLICE_MODULES = (
-    "ops.tt", "ops.cp", "ops.nmf", "ops.completion", "ops.ensemble_mcmc",
-    "ops.hmc", "ops.nuts", "ops.smc", "ops.kalman", "ops.enkf",
-    "ops.particle", "ops.laplace", "ops.bridge", "ops.psis",
+    "ops.gp", "ops.design", "ops.bayes_opt", "ops.grassmann", "ops.deim",
+    "ops.gappy", "ops.spdmd", "models.hankel_dmd", "models.mrdmd",
+    "models.pidmd", "models.era", "models.online_dmd", "utils.checkpoint",
 )
 SLICE_NAMES = (
-    "tt_svd", "tt_reconstruct", "tt_round", "tt_dot", "tt_norm", "cp_als",
-    "cp_reconstruct", "nmf", "matrix_complete", "EnsembleSampler",
-    "stretch_run", "hmc_run", "nuts_run", "smc_sample", "dare", "dlqr",
-    "kalman_filter", "kalman_smooth", "enkf_analysis", "etkf_analysis",
-    "enkf_filter", "esmda", "particle_filter", "ukf_filter",
-    "laplace_approx", "laplace_sample", "bridge_sampling_evidence", "psis",
-    "importance_resample",
+    "GpRegressor", "SparseGpRegressor", "latin_hypercube", "sobol_sample",
+    "halton_sample", "BayesOpt", "bayes_opt_minimize", "GrassmannInterp",
+    "grassmann_log", "grassmann_exp", "subspace_angles",
+    "grassmann_distance", "HankelDmd", "hankel_embed", "MrDmd", "mrdmd",
+    "PiDmd", "Era", "era", "okid", "era_okid", "OnlineDmd", "deim_points",
+    "deim_reconstruct", "gappy_reconstruct", "gappy_pod_fill",
+    "oversample_points", "spdmd", "save_model", "load_model",
 )
 # a matmul precision is XLA's to choose; here TF32 is off once, for all
 JAX_ONLY_PARAMS = {"precision", "power_precision"}

@@ -1068,3 +1068,203 @@ def test_slice_polynomial_fits_take_the_batched_pinv_on_the_card(
     scale = float(want.abs().max())
     assert float((coeffs.cpu() - want).abs().max()) <= 1e-9 * scale
     assert float((few.cpu() - want[:16]).abs().max()) <= 1e-9 * scale
+
+
+# ---------------------------------------------------------------------------
+# Gaussian processes, Bayesian optimisation, Grassmann interpolation and the
+# ROM models on the card
+
+@pytest.mark.parametrize("dtype,cols", [(torch.float32, 20),
+                                        (torch.float64, 16)])
+@pytest.mark.parametrize("m", [1, 3])
+def test_slice_matvec_past_65535_column_chunks(dev, dtype, cols, m):
+    # 65,535 chunks of the widest instance and 7 columns more: one launch,
+    # every column against the plain version, and a bit-identical rerun
+    n, c = 16, 65535 * cols + 7
+    gen = torch.Generator(device=dev).manual_seed(m)
+    q = torch.randn(m, 2, generator=gen, device=dev, dtype=dtype)
+    x = torch.randn(n, 2, generator=gen, device=dev, dtype=dtype)
+    coef = torch.randn(n, c, generator=gen, device=dev, dtype=dtype)
+    plan = rk._matvec_plan(m, n, c, rk._sm_count(dev), coef.element_size())
+    assert plan.col_chunks > rk._MV_MAX_GRID_YZ and plan.splits == 1
+    before = rk.rbf_matvec.launches
+    got = rk.rbf_matvec(q, x, coef, "linear", 1.0)
+    torch.cuda.synchronize()
+    assert rk.rbf_matvec.launches == before + 1
+    qd, xd, cd = q.double(), x.double(), coef.double()
+    want = rk.rbf_matvec_ref(qd, xd, cd, "linear", 1.0)
+    scale = rk.rbf_matvec_ref(qd, xd, cd.abs(), "linear", 1.0)
+    assert bool(((got.double() - want).abs() <= MATVEC_RTOL[dtype] * scale)
+                .all())
+    assert torch.equal(got, rk.rbf_matvec(q, x, coef, "linear", 1.0))
+
+
+def _plain_dists_grads(xa, xb, g):
+    """(dxa, dxb) of sum(g * ||xa_i - xb_j||) by autograd through the plain
+    distances, zero where the distance is 0."""
+    xa = xa.detach().requires_grad_(True)
+    xb = xb.detach().requires_grad_(True)
+    diff = xa[:, None, :] - xb[None, :, :]
+    sq = torch.sum(diff * diff, dim=-1)
+    live = sq > 0
+    r = torch.where(live, torch.sqrt(torch.where(live, sq, 1.0)), 0.0)
+    return torch.autograd.grad(torch.sum(g * r), (xa, xb))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_slice_pairwise_dists_function_on_the_card(dev, dtype):
+    # forward: the kernel matrix with phi = linear, one counted launch;
+    # backward: plain PyTorch, equal to autograd through the plain distances
+    # (rows of xa repeated in xb: R = 0 there, and the gradient 0)
+    from corrla_rs_tpu_torch.ops import interp
+
+    gen = torch.Generator(device=dev).manual_seed(7)
+    xa = torch.randn(37, 5, generator=gen, device=dev, dtype=dtype)
+    xb = torch.cat([xa[:4], torch.randn(50, 5, generator=gen, device=dev,
+                                        dtype=dtype)])
+    g = torch.randn(37, 54, generator=gen, device=dev, dtype=dtype)
+    a, b = xa.clone().requires_grad_(True), xb.clone().requires_grad_(True)
+    before = rk.pairwise_kernel_matrix.launches
+    r = interp.pairwise_dists(a, b)
+    assert rk.pairwise_kernel_matrix.launches == before + 1
+    want = rk.pairwise_dists(xa.double(), xb.double())
+    assert bool(((r.double() - want).abs()
+                 <= KMAT_RTOL[dtype] * want.abs().max()).all())
+    assert bool((torch.diagonal(r[:4, :4]) == 0).all())
+    da, db = torch.autograd.grad(torch.sum(g * r), (a, b))
+    wa, wb = _plain_dists_grads(xa.double(), xb.double(), g.double())
+    tol = 1e-12 if dtype == torch.float64 else 1e-4
+    for got, ref in ((da, wa), (db, wb)):
+        assert float((got.double() - ref).abs().max()) <= tol * float(
+            ref.abs().max())
+    # torch.func takes the Function too, as the GPs' MLE and BayesOpt use it
+    fa = torch.func.grad(lambda t: torch.sum(g * interp.pairwise_dists(
+        t, xb)))(xa)
+    assert torch.equal(fa, da)
+
+
+def test_slice_pairwise_dists_gradcheck_on_the_card(dev):
+    from corrla_rs_tpu_torch.ops import interp
+
+    gen = torch.Generator(device=dev).manual_seed(8)
+    xa = torch.randn(6, 3, generator=gen, device=dev, dtype=torch.float64,
+                     requires_grad=True)
+    xb = torch.randn(9, 3, generator=gen, device=dev, dtype=torch.float64,
+                     requires_grad=True)
+    before = rk.pairwise_kernel_matrix.launches
+    assert torch.autograd.gradcheck(interp.pairwise_dists, (xa, xb))
+    assert rk.pairwise_kernel_matrix.launches > before
+
+
+def test_slice_gp_and_grassmann_launch_their_kernels(dev):
+    # the GPs' distances launch the kernel matrix; Grassmann interpolation
+    # launches it in its fit and the matvec in its predict; each equal to
+    # the same computation on the CPU in f64
+    import numpy as np
+
+    from corrla_rs_tpu_torch.ops import gp, grassmann
+
+    rng = np.random.default_rng(9)
+    x = rng.uniform(-1, 1, (40, 3))
+    y = np.sin(2 * x[:, 0]) + 0.1 * x[:, 1]
+    xq = rng.uniform(-1, 1, (25, 3))
+    hyp = ("matern52", 0.7, 1.3, 1e-3)
+    before = rk.pairwise_kernel_matrix.launches
+    card = gp.GpRegressor(*hyp, device=dev).fit(x, y, optimize_hypers=False)
+    mc, vc = card.predict(xq)
+    assert rk.pairwise_kernel_matrix.launches >= before + 2 and mc.is_cuda
+    cpu = gp.GpRegressor(*hyp, device="cpu").fit(x, y, optimize_hypers=False)
+    mp, vp = cpu.predict(xq)
+    assert float((mc.cpu() - mp).abs().max()) <= 1e-10 * float(
+        mp.abs().max())
+    assert float((vc.cpu() - vp).abs().max()) <= 1e-10 * float(
+        vp.abs().max())
+    fitted = gp.GpRegressor("rbf", device=dev).fit(x, y)
+    assert fitted.x_train.is_cuda and np.isfinite(fitted.noise_var)
+
+    q = np.linalg.qr(rng.standard_normal((3, 300, 4)))[0]
+    bases = np.linalg.qr(q[0] + 0.2 * np.arange(9)[:, None, None] / 9
+                         * q[1] + 0.1 * (np.arange(9) % 3)[:, None, None]
+                         * q[2])[0]
+    params = np.stack([np.arange(9) / 9, np.arange(9) % 3], 1)
+    before = (rk.pairwise_kernel_matrix.launches, rk.rbf_matvec.launches)
+    gi = grassmann.GrassmannInterp(bases, params, ref=4, device=dev)
+    theta = np.array([[0.3, 1.2], [0.5, 0.4]])
+    yc = gi(theta)
+    after = (rk.pairwise_kernel_matrix.launches, rk.rbf_matvec.launches)
+    assert after[0] > before[0] and after[1] > before[1] and yc.is_cuda
+    yp = grassmann.GrassmannInterp(bases, params, ref=4, device="cpu")(theta)
+    assert float((yc.cpu() @ yc.cpu().mT - yp @ yp.mT).abs().max()) <= 1e-10
+
+
+def test_slice_gp_rom_entry_points_put_numpy_on_the_card(dev):
+    # numpy in, tensors on the card out, whatever the size; okid and spdmd
+    # return host numpy by design, as the JAX package's do
+    import numpy as np
+
+    import corrla_rs_tpu_torch as port
+
+    rng = np.random.default_rng(11)
+    x = rng.uniform(-1, 1, (20, 2))
+    y = np.sin(3 * x[:, 0])
+    sig = np.sin(0.4 * np.arange(60)) + 0.5 * np.cos(0.9 * np.arange(60))
+    field = np.outer(rng.standard_normal(12), np.cos(0.1 * np.arange(40)))
+    q = np.linalg.qr(rng.standard_normal((3, 30, 2)))[0]
+    u = np.linalg.qr(rng.standard_normal((50, 4)))[0]
+    a_sys = 0.5 * np.eye(3)
+    u_in = rng.standard_normal((1, 200))
+    y_out = np.stack([np.convolve(u_in[0], 0.5 ** np.arange(30))[:200]])
+    gpr = port.GpRegressor("rbf", 0.5, 1.0, 1e-3).fit(x, y,
+                                                      optimize_hypers=False)
+    sgp = port.SparseGpRegressor(inducing=8).fit(x, y, optimize_hypers=False)
+    bo = port.BayesOpt([[0.0, 1.0], [0.0, 1.0]], n_candidates=64,
+                       n_grad_steps=2).tell(x[:4] / 2 + 0.5, y[:4])
+    hd = port.HankelDmd(sig, n_delays=6, n_modes=4)
+    mr = port.mrdmd(field, n_modes=2, max_levels=2)
+    pid = port.PiDmd(field, 2, family="orthogonal")
+    er = port.era(np.stack([a_sys[:1, :1] ** k for k in range(10)]), 1)
+    eo = port.era_okid(u_in, y_out, 1)
+    od = port.OnlineDmd(3).fit_stream(rng.standard_normal((3, 20)))
+    pts, proj = port.deim_points(u)
+    results = {
+        "GpRegressor": list(gpr.predict(x[:5])) + [gpr.predict_cov(x[:3]),
+                                                  gpr.sample_posterior(
+                                                      x[:3], 2)],
+        "SparseGpRegressor": list(sgp.predict(x[:5])),
+        "latin_hypercube": port.latin_hypercube([[0, 1], [0, 2]], 5),
+        "sobol_sample": port.sobol_sample([[0, 1], [0, 2]], 8),
+        "halton_sample": port.halton_sample([[0, 1], [0, 2]], 5),
+        "BayesOpt.ask": bo.ask(),
+        "bayes_opt_minimize": [port.bayes_opt_minimize(
+            lambda p: float(torch.sum(p * p)), [[-1.0, 1.0]], n_init=3,
+            n_iters=1, n_candidates=32, n_grad_steps=2)[i] for i in (0, 2)],
+        "GrassmannInterp": port.GrassmannInterp(q, [[0.0], [0.5], [1.0]])(
+            np.array([0.25])),
+        "grassmann_log": port.grassmann_log(q[0], q[1]),
+        "grassmann_exp": port.grassmann_exp(q[0], q[1] * 0.1),
+        "subspace_angles": port.subspace_angles(q[0], q[1]),
+        "grassmann_distance": port.grassmann_distance(q[0], q[1]),
+        "HankelDmd": [hd.forecast(5), hd.modes_re],
+        "hankel_embed": port.hankel_embed(field, 3),
+        "mrdmd": mr.reconstruct(),
+        "PiDmd": pid.predict_multiple(field[:, 0], 3),
+        "era": [er.a, er.predict(np.ones((1, 4)))],
+        "era_okid": eo.predict(u_in[:, :10]),
+        "OnlineDmd": [od.a, od.predict(np.ones(3), n_steps=3)],
+        "deim_points": [pts, proj],
+        "deim_reconstruct": port.deim_reconstruct(u, proj.cpu().numpy(),
+                                                  u[pts.cpu().numpy()]),
+        "gappy_reconstruct": list(port.gappy_reconstruct(
+            u, pts.cpu().numpy(), u[pts.cpu().numpy()])),
+        "gappy_pod_fill": list(port.gappy_pod_fill(
+            field, rng.random(field.shape) < 0.8, 1, n_sweeps=2)),
+        "oversample_points": port.oversample_points(u, pts.cpu().numpy(), 2),
+    }
+    for name, res in results.items():
+        tensors = res if isinstance(res, list) else [res]
+        assert tensors and all(isinstance(t, torch.Tensor) and t.is_cuda
+                               for t in tensors), name
+    markov, d = port.okid(u_in, y_out, 5)
+    assert isinstance(markov, np.ndarray) and markov.shape == (5, 1, 1)
+    sp = port.spdmd(port.DMD(field, 2), field, [0.0, 1.0])
+    assert sp["nnz"].shape == (2,)

@@ -41,11 +41,17 @@ def test_port_never_imports_jax():
     assert proc.returncode == 0, proc.stderr
     loaded = set(proc.stdout.split("LOADED")[1].split())
     assert len(loaded) >= 50
-    # the modules of the inference layer and the tensor factorizations
-    for name in ("tt", "cp", "nmf", "completion", "ensemble_mcmc", "hmc",
-                 "nuts", "smc", "kalman", "enkf", "particle", "laplace",
-                 "bridge", "psis"):
-        assert f"corrla_rs_tpu_torch.ops.{name}" in loaded, name
+    # the modules of the inference layer and the tensor factorizations,
+    # and those of the GPs, Grassmann interpolation and the ROM models
+    for name in ("ops.tt", "ops.cp", "ops.nmf", "ops.completion",
+                 "ops.ensemble_mcmc", "ops.hmc", "ops.nuts", "ops.smc",
+                 "ops.kalman", "ops.enkf", "ops.particle", "ops.laplace",
+                 "ops.bridge", "ops.psis", "ops.gp", "ops.design",
+                 "ops.bayes_opt", "ops.grassmann", "ops.deim", "ops.gappy",
+                 "ops.spdmd", "models.hankel_dmd", "models.mrdmd",
+                 "models.pidmd", "models.era", "models.online_dmd",
+                 "utils.checkpoint"):
+        assert f"corrla_rs_tpu_torch.{name}" in loaded, name
 
 
 def test_no_source_of_the_port_names_jax():
