@@ -17,7 +17,8 @@ time, and any failure raises (exit code != 0):
    untouched) and at the main path's shapes, called as the main path calls
    them (the fits' K into the block of their saddle matrix; the GPs' K,
    K_q and K_mn in f64; Grassmann interpolation's fit and its predict at
-   2,000,000 columns, beside the kernel matrix plus a GEMM), with kernel
+   2,000,000 columns, beside the kernel matrix plus a GEMM; Edmd's RBF
+   lift, gaussian, 2,048 x 200,000 in f64), with kernel
    and plain times (the median of 5 windows of at least 20 ms each),
    bit-identical reruns and the kernel matrix's exact phi(0) diagonal. For
    the kernel matrix also its device time (torch.profiler) and the store
@@ -98,9 +99,31 @@ time, and any failure raises (exit code != 0):
     the kernel matrix, its predict the matvec at 2,000,000 columns),
     HankelDmd, mrdmd, PiDmd (every family), okid / era_okid, OnlineDmd,
     deim_points / gappy_reconstruct / gappy_pod_fill and spdmd, each
-    against a known truth at its JAX test's tolerance (ROM_TOL).
+    against a known truth at its JAX test's tolerance (ROM_TOL);
+19. koopman: Edmd with a degree-3 polynomial dictionary of an 8-state
+    linear system (200,000 pairs f64; the spectrum is every product of up
+    to three of the system's eigenvalues) and with 2,048 RBF centres in 2-D
+    (200,000 pairs f64, its lift through the kernel matrix; the exact
+    eigenvalues 1 and 0.9 among the validated ones, the one-step map),
+    with the Gram expansion's lift timed against the kernel's; KernelDmd
+    (poly kernel) exact at 4,096 and Nystrom at 32,768 snapshots of 20,000
+    states; spod of 100,000 points x 4,096 snapshots f32 with two planted
+    travelling waves; OpInf of 200,000 states x 2,000 snapshots, r = 20;
+    Sindy on Lorenz-63 at 200,000 samples (degree 5 from exact and
+    finite-difference derivatives, the weak form, a 10,000-step simulate);
+    OptDmd and bop_dmd with 10 planted continuous eigenvalues; bagged_dmd
+    of 64 members on 200,000 x 1,001 f32, its member eigs timed. Each
+    against a known truth at its JAX test's tolerance (KOOPMAN_TOL);
+20. uq: Smolyak level 5 in 8-D and a 16^5 tensor Gauss-Legendre rule on
+    closed-form integrands; PCE of Ishigami by quadrature and by
+    regression (Sobol' indices against the analytic ones) and a
+    total-degree-5 PCE in 8-D on 262,144 samples; sobol_indices of the 8-D
+    G-function at n_base 2^20 with 200 bootstrap resamples; Morris
+    screening of a 20-D G-function; Shapley effects of a correlated 8-D
+    linear model; MLMC of a geometric Brownian motion; MFMC over
+    replicates against plain MC (UQ_TOL).
 
-After phase 18 come the timing details of phases 7 and 9-10 (RbfInterp's
+After phase 20 come the timing details of phases 7 and 9-10 (RbfInterp's
 fit with its saddle matrix built by concatenation, as before the kernel
 matrix wrote K in place, and built in place; the kNN and grads steps of
 active_ss; a DEMC generation) and the kNN against its plain version. The
@@ -108,10 +131,10 @@ build phase prints ptxas's registers and spills for both kernels'
 instances and fails if any spills. The kernels' launch counts
 are set to 0 before phase 4 and read after phase 7, again before phase 8
 and after phase 10, again before phase 11 and after phase 13, again
-before phase 14 and after phase 16, and around each of phases 17 and 18;
-every kernel of a path must have launched on it (phases 11-16 reach no
-kernel, and the run fails if their counts say otherwise; phase 17 must
-launch the kernel matrix, phase 18 both kernels). The last lines are the kernel table as JSON (every timed shape of each kernel,
+before phase 14 and after phase 16, and around each of phases 17 to 20;
+every kernel of a path must have launched on it (phases 11-16 and 20
+reach no kernel, and the run fails if their counts say otherwise; phases
+17 and 19 must launch the kernel matrix, phase 18 both kernels). The last lines are the kernel table as JSON (every timed shape of each kernel,
 with its bound and, where one exists, a one-call PyTorch equivalent's
 time), the nvidia-smi line, and the result JSON. Nothing of JAX is
 imported. Without a CUDA device it exits with code 2 and prints no result.
@@ -188,6 +211,28 @@ SIZES = {
     "online_dmd": (512, 2, 10_000, 64),           # states, controls, pairs, batch
     "deim": (200_000, 20, 256, 0.7),              # rows, modes, snapshots, observed
     "spdmd": (200_000, 1001, 10, 20),             # states, snapshots, modes, gammas
+    "edmd_poly": (8, 3, 200_000),                 # states, degree, pairs
+    "edmd_roll": 1000,                            # lifted rollout steps
+    "edmd_rbf": (2048, 200_000),                  # centres, pairs (2-D)
+    "edmd_gamma": 40.0,                           # the RBF's gamma
+    "kdmd": (20_000, 4096, 32_768),               # states, exact and Nystrom snapshots
+    "spod": (100_000, 4096, 256),                 # points, snapshots, n_fft
+    "opinf": (200_000, 2000, 20),                 # states, snapshots, r
+    "opinf_roll": 1000,                           # RK4 steps of the forecast
+    "sindy": (200_000, 5, 10_000),                # samples, degree, simulate steps
+    "sindy_track": 250,                           # steps held to the truth
+    "optdmd": (20_000, 1001, 10),                 # states, snapshots, eigenvalues
+    "bagged": (200_000, 1001, 64, 10),            # states, snapshots, members, modes
+    "smolyak": (8, 5),                            # dims, level
+    "tensor_gl": (16, 5),                         # points a dim, dims
+    "pce_ishigami": (9, 8, 65_536),               # order, Smolyak level, samples
+    "pce_8d": (8, 5, 262_144),                    # dims, total degree, samples
+    "g_function_a": [0.0, 1.0, 4.5, 9.0, 99.0, 99.0, 99.0, 99.0],
+    "sobol": (1 << 20, 200),                      # n_base, bootstrap resamples
+    "morris": (20, 4096),                         # dims, trajectories
+    "shapley": (8, 4096, 256),                    # dims, outer, inner draws
+    "mlmc": (7, 4, 5e-4),                         # levels, coarsest steps, target SE
+    "mfmc": (1000.0, 200),                        # budget, replicates
 }
 # tolerance of each factorize check, and the JAX package's test it is from
 FACTORIZE_TOL = {
@@ -277,6 +322,73 @@ ROM_TOL = {
                     "(missing entries, 60 sweeps)"),
     "spdmd": (1e-4, "test_spdmd.py::test_spdmd_selects_planted_modes (kept "
                     "lambdas; nnz monotone, 3 planted kept at < 0.1 % loss)"),
+}
+# tolerance of each Koopman/DMD-family check against its known truth, and
+# the JAX package's test it is from
+KOOPMAN_TOL = {
+    "edmd_spectrum": (1e-7, "test_edmd.py::test_poly_dictionary_recovers_"
+                            "koopman_spectrum (each true eigenvalue; here "
+                            "the sets both ways)"),
+    "edmd_residual": (1e-6, "test_edmd.py::test_resdmd_residuals_small_on_"
+                            "invariant_subspace (the invariant pairs; here "
+                            "the dictionary is invariant: every pair)"),
+    "edmd_predict": (1e-7, "test_edmd.py::test_lifted_prediction_exact_on_"
+                           "invariant_subspace (atol)"),
+    "edmd_rbf_residual": (1e-6, "the same residual test's "
+                                "validated_spectrum(1e-6)"),
+    "edmd_rbf_spectrum": (1e-6, "test_edmd.py::test_poly_dictionary_recovers_"
+                                "koopman_spectrum at 1e-7; here 1e-6 for the "
+                                "ridge's pull on the RBF Gram"),
+    "edmd_rbf_step": (1e-3, "test_edmd.py::test_rbf_dictionary_forecasts_"
+                            "nonpoly_system (1e-3)"),
+    "kdmd_eigh": (1e-7, "test_kernel_dmd.py::test_poly_kernel_exact_on_"
+                        "invariant_subspace"),
+    "kdmd_nystrom": (1e-7, "the same test; test_kernel_dmd.py::test_nystrom_"
+                           "gram_matches_eigh (a Gram of exact rank)"),
+    "spod_mode": (1e-3, "test_spod.py::test_spod_two_tone_peaks_and_mode_"
+                        "shapes (|<u, phi>| > 0.999)"),
+    "spod_orth": (1e-2, "test_spod.py::test_spod_orthonormal_and_sorted "
+                        "(1e-8 in f64); in f32 the method of snapshots "
+                        "loses about eps_f32 sqrt(n_x) lambda_1 / lambda_k "
+                        "on a weak mode (at a tone's bin 8.4 on the card)"),
+    "opinf": (1e-6, "test_opinf.py::test_exact_operator_recovery_identity_"
+                    "basis (operators 1e-8; here the forecast through a "
+                    "fitted POD basis, err / max|x|)"),
+    "sindy_exact": (2e-4, "test_sindy.py::test_lorenz_exact_derivatives "
+                          "(abs 2e-4 at degree 2; here relative, degree 5)"),
+    "sindy_fd": (2e-3, "test_sindy.py::test_lorenz_fd_derivatives_and_"
+                       "forecast (rel 2e-3, support exact)"),
+    "sindy_weak": (5e-3, "test_sindy.py::test_weak_form_matches_strong_on_"
+                         "clean_data (rel 5e-3, degree 2)"),
+    "sindy_sim": (5e-2, "test_sindy.py::test_lorenz_fd_derivatives_and_"
+                        "forecast (atol 5e-2 over 250 steps)"),
+    "optdmd": (1e-6, "test_optdmd.py::test_optdmd_exact_recovery_and_"
+                     "forecast"),
+    "optdmd_predict": (1e-6, "the same test's forecast"),
+    "bop_dmd": (1e-6, "test_optdmd.py::test_bop_dmd_uq holds 0.05 with 1% "
+                      "noise; noise-free here, at the exact-recovery 1e-6"),
+    "bagged": (5e-3, "test_bop_dmd.py::test_bagged_dmd_recovers_spectrum"),
+}
+# tolerance of each UQ check against its known truth, and the JAX test
+UQ_TOL = {
+    "smolyak": (1e-10, "test_quadrature.py::test_smolyak_polynomial_"
+                       "exactness (abs)"),
+    "tensor_gl": (1e-12, "test_quadrature.py::test_tensor_grid (abs 1e-13 "
+                         "on a monomial; here relative)"),
+    "pce_sobol": (0.01, "test_pce.py::test_ishigami_sobol_via_pce (atol)"),
+    "pce_8d": (1e-9, "test_pce.py::test_exact_polynomial_recovery_uniform "
+                     "(rtol 1e-9 on predictions; here the coefficients)"),
+    "sobol": (3.0, "bootstrap standard errors (test_sobol.py::"
+                   "test_bootstrap_bands_cover_point_estimates)"),
+    "morris": (0.5, "test_morris.py::test_ishigami_screening_ranks_inputs "
+                    "(ranking; here mu* of the a = 99 inputs under half "
+                    "the 4th input's)"),
+    "shapley": (0.03, "test_shapley.py::test_mc_matches_closed_form (atol)"),
+    "mlmc": (3.0, "standard errors (test_mlmc.py::"
+                  "test_unbiased_and_se_calibrated holds 4 over replicates)"),
+    "mfmc": (1.0, "test_multifidelity.py::test_unbiased_and_variance_"
+                  "reduction (the MFMC variance below plain MC's at the "
+                  "same budget)"),
 }
 # Branin's box (its global minimum is 0.397887), the keys of the Bayesian
 # optimisation runs on it, and how near the minimum one of them must get
@@ -800,6 +912,7 @@ def phase_kernels(rk, dev, seed):
     n_bo = n_cand + n_cand // 8
     bo_pad = 1 << (n_init + n_iters - 2).bit_length()
     n_gr, r_gr, side, n_grq = SIZES["grassmann"]
+    n_ec, n_ep = SIZES["edmd_rbf"]
     f64 = torch.float64
     shapes += [
         ("pairwise_kernel_matrix", f"GP fit K {n_gp}x{n_gp} d={d_gp} f64",
@@ -828,6 +941,12 @@ def phase_kernels(rk, dev, seed):
          lambda: matvec_case(rk, gen, dev, n_grq, side ** 2, 2, n_gr * r_gr,
                              "linear", torch.float32, eps=1.0, timed=True,
                              uniform=True, two_calls=True)),
+        # Edmd's RBF dictionary: the centres against the snapshot pairs,
+        # gaussian with eps = sqrt(gamma), every row checked
+        ("pairwise_kernel_matrix", f"Edmd RBF lift {n_ec}x{n_ep} d=2 f64",
+         True,
+         lambda: kmat_case(rk, gen, dev, n_ec, n_ep, 2, "gaussian", f64,
+                           eps=math.sqrt(SIZES["edmd_gamma"]), timed=True)),
     ]
     results = []
     for name, label, main, run in shapes:
@@ -2728,6 +2847,655 @@ def phase_rom(port, dev, seed):
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 19: the Koopman and DMD-family ROM models
+
+def planted_spectrum_error(got, want) -> float:
+    """Largest distance from a value of either set to the nearest value of
+    the other (two spectra equal as sets)."""
+    got, want = np.asarray(got).ravel(), np.asarray(want).ravel()
+    gap = np.abs(got[:, None] - want[None, :])
+    return float(max(gap.min(axis=1).max(), gap.min(axis=0).max()))
+
+
+def product_spectrum(lam, degree: int) -> np.ndarray:
+    """1 and every product of at most ``degree`` of the values ``lam``
+    (with repetition): the Koopman spectrum of x' = A x on the polynomials
+    of total degree <= degree, A's eigenvalues ``lam``."""
+    import itertools
+
+    out = [1.0 + 0j]
+    for k in range(1, degree + 1):
+        out += [np.prod(c) for c in
+                itertools.combinations_with_replacement(lam, k)]
+    return np.asarray(out, np.complex128)
+
+
+def rotation_latent(gen, pairs, dev):
+    """(A (2p, 2p) real, eigenvalues (2p,)) of a block-diagonal latent
+    operator with the given (radius, angle) pairs, turned by a random
+    orthogonal matrix."""
+    lam, blocks = [], []
+    for rad, ang in pairs:
+        c, s = rad * math.cos(ang), rad * math.sin(ang)
+        blocks.append(torch.tensor([[c, -s], [s, c]], dtype=torch.float64))
+        lam += [rad * complex(math.cos(ang), math.sin(ang)),
+                rad * complex(math.cos(ang), -math.sin(ang))]
+    a = torch.block_diag(*blocks).to(dev)
+    q, _ = torch.linalg.qr(torch.randn(a.shape[0], a.shape[0],
+                                       generator=gen, device=dev,
+                                       dtype=torch.float64))
+    return q @ a @ q.mT, np.asarray(lam)
+
+
+KOOPMAN_PAIRS = ((0.999, 0.05), (0.998, 0.11), (0.996, 0.23), (0.995, 0.4))
+OPTDMD_ALPHAS = (-0.002 + 0.05j, -0.01 + 0.13j, -0.005 + 0.31j,
+                 -0.02 + 0.6j, -0.001 + 1.1j)
+
+
+def lorenz_host(n: int, dt: float) -> np.ndarray:
+    """(n, 3) RK4 trajectory of Lorenz-63 (10, 28, 8/3) from (-8, 8, 27),
+    on the host in Python floats: one long trajectory is a loop of small
+    steps, which the device would run as 2,000 launches a time unit."""
+    s, r, b = 10.0, 28.0, 8.0 / 3.0
+
+    def f(x, y, z):
+        return s * (y - x), x * (r - z) - y, x * y - b * z
+
+    out = np.empty((n, 3))
+    x, y, z = -8.0, 8.0, 27.0
+    for i in range(n):
+        out[i] = (x, y, z)
+        k1 = f(x, y, z)
+        k2 = f(x + 0.5 * dt * k1[0], y + 0.5 * dt * k1[1], z + 0.5 * dt * k1[2])
+        k3 = f(x + 0.5 * dt * k2[0], y + 0.5 * dt * k2[1], z + 0.5 * dt * k2[2])
+        k4 = f(x + dt * k3[0], y + dt * k3[1], z + dt * k3[2])
+        x += dt / 6.0 * (k1[0] + 2 * k2[0] + 2 * k3[0] + k4[0])
+        y += dt / 6.0 * (k1[1] + 2 * k2[1] + 2 * k3[1] + k4[1])
+        z += dt / 6.0 * (k1[2] + 2 * k2[2] + 2 * k3[2] + k4[2])
+    return out
+
+
+def lorenz_rhs(x):
+    s, r, b = 10.0, 28.0, 8.0 / 3.0
+    return torch.stack([s * (x[:, 1] - x[:, 0]),
+                        x[:, 0] * (r - x[:, 2]) - x[:, 1],
+                        x[:, 0] * x[:, 1] - b * x[:, 2]], dim=1)
+
+
+LORENZ_TRUTH = ({"x0": -10.0, "x1": 10.0},
+                {"x0": 28.0, "x1": -1.0, "x0 x2": -1.0},
+                {"x2": -8.0 / 3.0, "x0 x1": 1.0})
+
+
+def sindy_error(model):
+    """(largest relative error of a true Lorenz coefficient, whether every
+    other coefficient is exactly 0)."""
+    w = model.coefficients_.double().cpu().numpy()
+    worst, clean = 0.0, True
+    for dim, terms in enumerate(LORENZ_TRUTH):
+        for j, name in enumerate(model.feature_names_):
+            want = terms.get(name, 0.0)
+            if want:
+                worst = max(worst, abs(w[j, dim] - want) / abs(want))
+            else:
+                clean = clean and w[j, dim] == 0.0
+    return worst, clean
+
+
+def rbf_map(v):
+    """x1' = 0.9 x1, x2' = 0.8 x2 + 0.2 x1^2 on state columns (2, n): the
+    constant and x1 are exact eigenfunctions (eigenvalues 1 and 0.9)."""
+    return torch.stack([0.9 * v[0], 0.8 * v[1] + 0.2 * v[0] ** 2])
+
+
+def edmd_rbf_data(gen, dev):
+    """(x (2, n) pairs in [-1, 1]^2, centres (n_c, 2)), f64 (SIZES)."""
+    n_c, n_p = SIZES["edmd_rbf"]
+    x = torch.rand(2, n_p, generator=gen, device=dev,
+                   dtype=torch.float64) * 2 - 1
+    centers = torch.rand(n_c, 2, generator=gen, device=dev,
+                         dtype=torch.float64) * 2 - 1
+    return x, centers
+
+
+def kdmd_data(gen, dev, m, a_lat, q):
+    """(x, y) = (Q z, Q A z) for m latent Gaussian states z, f64."""
+    z = torch.randn(a_lat.shape[0], m, generator=gen, device=dev,
+                    dtype=torch.float64)
+    return q @ z, q @ (a_lat @ z)
+
+
+def optdmd_data(gen, dev):
+    """(x (n_x, m) f64, alphas): 10 planted continuous eigenvalues in
+    conjugate pairs (OPTDMD_ALPHAS) with random complex modes."""
+    n_x, m, n_modes = SIZES["optdmd"]
+    alphas = np.array([a_ for p in OPTDMD_ALPHAS for a_ in (p, np.conj(p))])
+    f64 = torch.float64
+    phi = torch.randn(n_x, n_modes, generator=gen, device=dev, dtype=f64) \
+        + 1j * torch.randn(n_x, n_modes, generator=gen, device=dev,
+                           dtype=f64)
+    phi[:, 1::2] = phi[:, 0::2].conj()
+    tt = torch.arange(m, device=dev, dtype=f64)
+    dyn = torch.exp(torch.as_tensor(alphas, device=dev)[:, None] * tt[None])
+    return (phi @ dyn).real.contiguous(), alphas
+
+
+def bagged_data(gen, dev):
+    """(x (n_x, m) f32, eigenvalues): a 10-state latent rotation system
+    (KOOPMAN_PAIRS and one more pair) lifted to n_x states."""
+    n_x, m, _, _ = SIZES["bagged"]
+    a_lat, lam_lat = rotation_latent(gen, KOOPMAN_PAIRS + ((0.99, 0.7),), dev)
+    zs = [torch.randn(a_lat.shape[0], generator=gen, device=dev,
+                      dtype=torch.float64)]
+    for _ in range(m - 1):
+        zs.append(a_lat @ zs[-1])
+    q = torch.linalg.qr(torch.randn(n_x, a_lat.shape[0], generator=gen,
+                                    device=dev, dtype=torch.float64))[0]
+    return (q @ torch.stack(zs, dim=1)).float(), lam_lat
+
+
+@contextlib.contextmanager
+def timed_calls(module, name, seconds: list):
+    """Time every call of ``module.name`` (device synchronised), appending
+    its seconds to ``seconds``."""
+    fn = getattr(module, name)
+
+    def wrapper(*args, **kwargs):
+        out, sec = wall(lambda: fn(*args, **kwargs))
+        seconds.append(sec)
+        return out
+
+    setattr(module, name, wrapper)
+    try:
+        yield seconds
+    finally:
+        setattr(module, name, fn)
+
+
+def phase_koopman(port, dev, seed):
+    from corrla_rs_tpu_torch.models import bop_dmd as bop_mod
+    from corrla_rs_tpu_torch.models import edmd as edmd_mod
+    from corrla_rs_tpu_torch.ops import rbf_kernels as rk
+
+    out = []
+    tol = {k: v[0] for k, v in KOOPMAN_TOL.items()}
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    f64 = torch.float64
+
+    def done(name, err, line):
+        check(err <= tol[name], f"{name}: {err:.3e} > {tol[name]} ({line})")
+        say(out, f"{line}: {err:.2e} (tol {tol[name]})")
+        torch.cuda.empty_cache()
+
+    def peak_gib():
+        return torch.cuda.max_memory_allocated() / 2**30
+
+    # EDMD, degree-3 polynomial dictionary of an 8-state linear system:
+    # the dictionary is invariant, the spectrum is every product of up to
+    # three of A's eigenvalues
+    n_s, deg, n_p = SIZES["edmd_poly"]
+    lam_a = np.linspace(0.55, 0.95, n_s)
+    q, _ = torch.linalg.qr(torch.randn(n_s, n_s, generator=gen, device=dev,
+                                       dtype=f64))
+    a = q @ torch.diag(torch.as_tensor(lam_a, device=dev)) @ q.mT
+    x = torch.rand(n_s, n_p, generator=gen, device=dev, dtype=f64) * 2 - 1
+    torch.cuda.reset_peak_memory_stats()
+    ed, sec = wall(lambda: port.Edmd(x, degree=deg, y_data=a @ x))
+    done("edmd_spectrum", planted_spectrum_error(
+        ed.lambdas, product_spectrum(lam_a, deg)),
+        f"Edmd poly degree {deg}, {n_s} states, {n_p} pairs f64 "
+        f"({ed.n_features} features): fit {sec:.4f} s, peak "
+        f"{peak_gib():.2f} GiB; eigenvalues to the products of A's")
+    res, r_sec = wall(ed.residuals)
+    done("edmd_residual", float(res.max()),
+         f"Edmd residuals {r_sec:.4f} s, largest")
+    x0 = x[:, 0]
+    n_roll = SIZES["edmd_roll"]
+    pred, p_sec = wall(lambda: ed.predict(x0, n_roll))
+    truth = torch.stack([torch.linalg.matrix_power(a, k + 1) @ x0
+                         for k in range(n_roll)], dim=1)
+    done("edmd_predict", (pred - truth).abs().max().item(),
+         f"Edmd lifted rollout {n_roll} steps {p_sec:.4f} s "
+         f"({p_sec / n_roll * 1e3:.4f} ms a step), max err")
+    del x, ed, pred, truth
+
+    # EDMD, RBF dictionary in 2-D on rbf_map, whose constant and x1 are
+    # exact eigenfunctions inside the dictionary
+    n_c, n_p = SIZES["edmd_rbf"]
+    gamma = SIZES["edmd_gamma"]
+    fmap = rbf_map
+    x, centers = edmd_rbf_data(gen, dev)
+    # the JAX package's Gram expansion against the kernel matrix, at this
+    # shape, on the same inputs; these launches compare and are not counted
+    launches = rk.pairwise_kernel_matrix.launches
+    lift = torch.empty(n_c, n_p, dtype=f64, device=dev)
+    gram_ms = cuda_ms(lambda: edmd_mod._rbf_features_gram(x, centers,
+                                                          gamma))
+    kern_ms = cuda_ms(lambda: edmd_mod._rbf_features_into(lift, x, centers,
+                                                          gamma))
+    gap = rel_max(lift, edmd_mod._rbf_features_gram(x, centers, gamma))
+    check(gap <= 1e-12, f"Edmd RBF lift: kernel vs Gram expansion {gap:.2e}")
+    say(out, f"Edmd RBF lift {n_c}x{n_p} d=2 f64: Gram expansion "
+             f"{gram_ms:.4f} ms, kernel matrix (gaussian, eps = sqrt(gamma))"
+             f" {kern_ms:.4f} ms (median of 5 windows); the two agree to "
+             f"{gap:.1e}")
+    del lift
+    rk.pairwise_kernel_matrix.launches = launches
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    ed, sec = wall(lambda: port.Edmd(x, dictionary="rbf", centers=centers,
+                                     gamma=gamma, y_data=fmap(x)))
+    lam_v, res_v = ed.validated_spectrum(tol["edmd_rbf_residual"])
+    err = max(planted_spectrum_error(lam_v[np.abs(lam_v - 1) < 0.05], [1.0])
+              if np.any(np.abs(lam_v - 1) < 0.05) else math.inf,
+              planted_spectrum_error(lam_v[np.abs(lam_v - 0.9) < 0.01], [0.9])
+              if np.any(np.abs(lam_v - 0.9) < 0.01) else math.inf)
+    done("edmd_rbf_spectrum", err,
+         f"Edmd rbf {n_c} centres, {n_p} pairs f64 (psi {n_c * n_p * 8 / 1e9:.2f}"
+         f" GB a side): fit {sec:.4f} s, peak {peak_gib():.2f} GiB; "
+         f"{lam_v.size} eigenvalues validated at residual <= "
+         f"{tol['edmd_rbf_residual']}; 1 and 0.9 among them, err")
+    xt = torch.rand(2, 4096, generator=gen, device=dev, dtype=f64) * 2 - 1
+    step = (ed.koopman @ ed.lift(xt))[1:3]
+    done("edmd_rbf_step", rel_max(step, fmap(xt)),
+         "Edmd rbf one-step prediction at 4,096 new points, err / max|x'|")
+    del x, ed, step, centers
+
+    # kernel DMD: x = Q z, z' = A z (4 rotation pairs), poly kernel of
+    # degree 2: the Koopman spectrum on quadratics {1, lam_i, lam_i lam_j}
+    n_x, m_exact, m_nys = SIZES["kdmd"]
+    a_lat, lam_lat = rotation_latent(gen, KOOPMAN_PAIRS, dev)
+    k = a_lat.shape[0]
+    q = torch.linalg.qr(torch.randn(n_x, k, generator=gen, device=dev,
+                                    dtype=f64))[0]
+    want = product_spectrum(lam_lat, 2)
+    rank = len(want)
+    for method, m in (("eigh", m_exact), ("nystrom", m_nys)):
+        x, y = kdmd_data(gen, dev, m, a_lat, q)
+        torch.cuda.reset_peak_memory_stats()
+        kd, sec = wall(lambda: port.KernelDmd(
+            x, rank, kernel="poly", degree=2, length_scale=3.0,
+            gram_method=method, key=seed, y_data=y))
+        done(f"kdmd_{method}", planted_spectrum_error(kd.lambdas, want),
+             f"KernelDmd {method} poly degree 2, {n_x} states x {m} "
+             f"snapshots f64, rank {rank}: fit {sec:.4f} s, peak "
+             f"{peak_gib():.2f} GiB; eigenvalues to {{1, lam_i, "
+             f"lam_i lam_j}}")
+        del x, y, kd
+
+    # SPOD of two travelling waves at on-bin frequencies, f32
+    n_x, n_t, n_fft = SIZES["spod"]
+    s = torch.linspace(0, 1, n_x, device=dev)[:, None]
+    t = torch.arange(n_t, device=dev, dtype=torch.float32)[None, :]
+    b1, b2 = n_fft // 12, 3 * n_fft // 16          # on-bin frequencies
+    f1, f2 = b1 / n_fft, b2 / n_fft
+    x = (torch.cos(2 * math.pi * (f1 * t - 3 * s))
+         + 0.7 * torch.cos(2 * math.pi * (f2 * t - 7 * s))
+         + 0.05 * torch.randn(n_x, n_t, generator=gen, device=dev))
+    del s, t
+    torch.cuda.reset_peak_memory_stats()
+    fit, sec = wall(lambda: port.spod(x, n_fft=n_fft, overlap=0.5))
+    peaks = fit.peak_frequencies(2)
+    check(np.allclose(peaks, [f1, f2], rtol=0, atol=1e-12),
+          f"spod peaks {peaks.tolist()} != {[f1, f2]}")
+    worst = 0.0
+    for f, kx in ((b1, 3), (b2, 7)):
+        u = torch.exp(-2j * math.pi * kx * torch.linspace(
+            0, 1, n_x, device=dev, dtype=torch.float64))
+        u = u / torch.linalg.vector_norm(u)
+        re, im = fit.mode(f, 0)
+        phi = torch.complex(re.double(), im.double())
+        worst = max(worst, 1.0 - abs(torch.vdot(u, phi).item()))
+    done("spod_mode", worst,
+         f"spod {n_x}x{n_t} f32, n_fft {n_fft}, {fit.n_blocks} blocks, "
+         f"{fit.n_freq} frequencies: {sec:.4f} s, peak {peak_gib():.2f} "
+         f"GiB; peaks at {peaks.tolist()}; 1 - |<wave, mode>| at both")
+    def orth(f):
+        phi = torch.complex(fit.modes_re[f], fit.modes_im[f])
+        return (phi.mH @ phi - torch.eye(phi.shape[1], device=dev)).abs() \
+            .max().item()
+
+    # at a bin of noise alone; at a tone's bin the noise modes lie ~5e4
+    # below the tone and the f32 Gram's rounding over n_x points leaves
+    # them far from orthogonal (reported, not held)
+    done("spod_orth", orth((b1 + b2) // 2),
+         f"spod modes at bin {(b1 + b2) // 2} (noise only), |Phi^H Phi - I|; "
+         f"at the tone's bin {b1}: {orth(b1):.2e}")
+    del x, fit
+
+    # operator inference: random latent states of a quadratic ODE in r
+    # dimensions, lifted to n_x states (persistently exciting), exact
+    # derivatives; the fitted ROM forecasts the true one's RK4 trajectory
+    n_x, n_t, r = SIZES["opinf"]
+    a_true = -0.3 * torch.eye(r, device=dev, dtype=f64) + 0.05 * torch.randn(
+        r, r, generator=gen, device=dev, dtype=f64)
+    h_true = 0.02 * torch.randn(r, r * (r + 1) // 2, generator=gen,
+                                device=dev, dtype=f64)
+    c_true = 0.01 * torch.randn(r, generator=gen, device=dev, dtype=f64)
+
+    def rhs(zz):
+        return (c_true + zz @ a_true.mT
+                + port.kron2_compressed(zz) @ h_true.mT)
+
+    z = torch.randn(n_t, r, generator=gen, device=dev, dtype=f64)
+    q = torch.linalg.qr(torch.randn(n_x, r, generator=gen, device=dev,
+                                    dtype=f64))[0]
+    xs, xdot = z @ q.mT, rhs(z) @ q.mT
+    torch.cuda.reset_peak_memory_stats()
+    oi, sec = wall(lambda: port.OpInf(r).fit(xs, x_dot=xdot, key=seed))
+    del xdot
+    dt, n_roll = 0.01, SIZES["opinf_roll"]
+    zz = z[0]
+    truth = [zz]
+    for _ in range(n_roll):
+        k1 = rhs(zz[None])[0]
+        k2 = rhs((zz + 0.5 * dt * k1)[None])[0]
+        k3 = rhs((zz + 0.5 * dt * k2)[None])[0]
+        k4 = rhs((zz + dt * k3)[None])[0]
+        zz = zz + dt / 6.0 * (k1 + 2 * k2 + 2 * k3 + k4)
+        truth.append(zz)
+    truth = torch.stack(truth) @ q.mT
+    pred, p_sec = wall(lambda: oi.predict(xs[0], n_roll, dt))
+    done("opinf", rel_max(pred, truth),
+         f"OpInf {n_t}x{n_x} f64, r = {r}, quadratic: fit {sec:.4f} s, "
+         f"peak {peak_gib():.2f} GiB; RK4 forecast {n_roll} steps "
+         f"{p_sec:.4f} s ({p_sec / n_roll * 1e3:.4f} ms a step), err / max|x|")
+    del xs, z, q, pred, truth, oi
+
+    # SINDy on Lorenz-63: degree 5 (56 features) from exact and from
+    # finite-difference derivatives; the weak form at degree 2, windows of
+    # 800 samples (the JAX test's width); a long simulate
+    n, deg, n_sim = SIZES["sindy"]
+    dt = 0.002
+    traj, gen_s = wall(lambda: torch.as_tensor(lorenz_host(n, dt),
+                                               device=dev))
+    for label, kw, name in (
+            ("exact derivatives", dict(x_dot=lorenz_rhs(traj)),
+             "sindy_exact"),
+            ("finite differences", {}, "sindy_fd")):
+        model, sec = wall(lambda kw=kw: port.Sindy(degree=deg).fit(
+            traj, dt=dt, **kw))
+        err, clean = sindy_error(model)
+        check(clean, f"Sindy {label}: a spurious term survived")
+        done(name, err, f"Sindy Lorenz {n} samples (host RK4 {gen_s:.2f} s) "
+             f"degree {deg} ({len(model.feature_names_)} features), "
+             f"{label}: fit {sec:.4f} s, the true 7 coefficients, rel err")
+    n_win = n // 200
+    weak, sec = wall(lambda: port.Sindy(degree=2, threshold=0.5).fit(
+        traj, dt=dt, weak=True, n_windows=n_win, window_frac=800 / n))
+    err, clean = sindy_error(weak)
+    check(clean, "Sindy weak form: a spurious term survived")
+    done("sindy_weak", err, f"Sindy weak form degree 2, {n_win} windows of "
+         f"800 samples: fit {sec:.4f} s, rel err")
+    sim, sec = wall(lambda: model.simulate(traj[0], n_sim, dt=dt))
+    n_cmp = SIZES["sindy_track"]
+    check(bool(torch.isfinite(sim).all()) and sim.abs().max().item() < 100,
+          "Sindy simulate left the attractor")
+    done("sindy_sim", (sim[:n_cmp + 1] - traj[:n_cmp + 1]).abs().max().item(),
+         f"Sindy (finite differences) simulate {n_sim} steps {sec:.4f} s "
+         f"({sec / n_sim * 1e3:.4f} ms a step), bounded; first {n_cmp} "
+         "steps, max abs err")
+    del traj, model, weak, sim
+
+    # optimized DMD and BOP-DMD: 10 planted continuous eigenvalues
+    n_x, m, n_modes = SIZES["optdmd"]
+    x, alphas = optdmd_data(gen, dev)
+    od, sec = wall(lambda: port.OptDmd(x, n_modes, key=seed))
+    done("optdmd", planted_spectrum_error(od.alphas, alphas),
+         f"OptDmd {n_x}x{m} f64, {n_modes} modes: {sec:.4f} s, alphas to "
+         "the planted")
+    done("optdmd_predict", rel_max(od.predict(np.arange(m)), x),
+         "OptDmd predict at the samples, err / max|x|")
+    bop, sec = wall(lambda: port.bop_dmd(x, n_modes, key=seed))
+    done("bop_dmd", planted_spectrum_error(bop.alphas_mean, alphas),
+         f"bop_dmd {bop.alphas_all.shape[0]} members: {sec:.4f} s, mean "
+         f"alphas to the planted (std up to {bop.alphas_std.max():.1e})")
+    del x, od, bop
+
+    # bagged DMD of a lifted latent system, f32
+    n_x, m, n_mem, n_modes = SIZES["bagged"]
+    x, lam_lat = bagged_data(gen, dev)
+    eig_s = []
+    torch.cuda.reset_peak_memory_stats()
+    with timed_calls(bop_mod, "eig", eig_s):
+        bag, sec = wall(lambda: port.bagged_dmd(x, n_modes,
+                                                n_members=n_mem, key=seed))
+    done("bagged", planted_spectrum_error(bag.lambdas_mean, lam_lat),
+         f"bagged_dmd {n_mem} members of {n_x}x{m} f32, {n_modes} modes: "
+         f"{sec:.4f} s (the members' batched eig {sum(eig_s):.4f} s, "
+         f"{sum(eig_s) / sec:.1%}), peak {peak_gib():.2f} GiB; mean "
+         f"eigenvalues to the truth (std up to {bag.lambdas_std.max():.1e})")
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase 20: the sensitivity and UQ estimators
+
+def g_function(a):
+    """Sobol's G-function on [0, 1]^d and its exact first-order and total
+    indices."""
+    a_t = torch.as_tensor(a, dtype=torch.float64)
+    v = 1.0 / (3.0 * (1.0 + np.asarray(a, np.float64)) ** 2)
+    var = np.prod(1.0 + v) - 1.0
+    s1 = v / var
+    st = v * np.prod(1.0 + v) / (1.0 + v) / var
+
+    def g(x):
+        aa = a_t.to(x.device)
+        return torch.prod((torch.abs(4.0 * x - 2.0) + aa) / (1.0 + aa),
+                          dim=1)
+    return g, s1, st
+
+
+def phase_uq(port, dev, seed):
+    out = []
+    tol = {k: v[0] for k, v in UQ_TOL.items()}
+    f64 = torch.float64
+
+    def done(name, err, line):
+        check(err <= tol[name], f"{name}: {err:.3e} > {tol[name]} ({line})")
+        say(out, f"{line}: {err:.2e} (tol {tol[name]})")
+        torch.cuda.empty_cache()
+
+    # Smolyak level 5 in 8-D: exact for monomials of total degree <= 11
+    d, level = SIZES["smolyak"]
+    rule, sec = wall(lambda: port.smolyak_quadrature(d, level))
+    rng = np.random.default_rng(seed)
+    worst, i_sec = 0.0, 0.0
+    for _ in range(8):
+        # even powers of total degree 2 * level <= 2 * level + 1
+        p = 2 * rng.multinomial(level, np.ones(d) / d)
+        exact = float(np.prod([(1 - (-1) ** (k + 1)) / (k + 1) for k in p]))
+        pw = torch.as_tensor(p, dtype=f64, device=dev)
+        got, s_ = wall(lambda pw=pw: port.integrate(
+            lambda v: torch.prod(v ** pw), rule))
+        i_sec += s_
+        worst = max(worst, abs(got - exact))
+    done("smolyak", worst,
+         f"smolyak_quadrature({d}, {level}): {len(rule.weights)} nodes in "
+         f"{sec:.4f} s (host); 8 monomials of degree {2 * level} "
+         f"integrated in {i_sec:.4f} s, max abs err")
+    # a tensor Gauss-Legendre rule, exp(-|x|^2) on [-1, 1]^5
+    n_gl, d_gl = SIZES["tensor_gl"]
+    rule = port.tensor_quadrature([port.gauss_legendre(n_gl)] * d_gl)
+    got, sec = wall(lambda: port.integrate(lambda v: torch.exp(-(v * v).sum()),
+                                           rule))
+    exact = (math.sqrt(math.pi) * math.erf(1.0)) ** d_gl
+    done("tensor_gl", abs(got - exact) / exact,
+         f"tensor Gauss-Legendre {n_gl}^{d_gl} = {len(rule.weights)} nodes, "
+         f"exp(-|x|^2) under vmap: {sec:.4f} s, rel err")
+
+    # PCE of Ishigami, by quadrature and by regression, against the
+    # analytic Sobol' indices
+    bounds = [[-math.pi, math.pi]] * 3
+    s1_ref = np.array([0.3139, 0.4424, 0.0])
+    st_ref = np.array([0.5576, 0.4424, 0.2437])
+
+    def ishigami(x):
+        return (torch.sin(x[:, 0]) + 7.0 * torch.sin(x[:, 1]) ** 2
+                + 0.1 * x[:, 2] ** 4 * torch.sin(x[:, 0]))
+
+    order, level_q, n_reg = SIZES["pce_ishigami"]
+    pq, sec = wall(lambda: port.PolynomialChaos(order, bounds=bounds)
+                   .fit_quadrature(lambda v: ishigami(v[None])[0],
+                                   level=level_q))
+    ind = pq.sobol_indices()
+    done("pce_sobol", max(np.abs(ind["s1"].cpu().numpy() - s1_ref).max(),
+                          np.abs(ind["st"].cpu().numpy() - st_ref).max()),
+         f"PCE Ishigami order {order} by Smolyak level {level_q}: "
+         f"{sec:.4f} s, r2 {pq.r2:.6f}; Sobol' indices to the analytic")
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    x = (torch.rand(n_reg, 3, generator=gen, device=dev, dtype=f64) * 2 - 1) \
+        * math.pi
+    pr, sec = wall(lambda: port.PolynomialChaos(order, bounds=bounds).fit(
+        x, ishigami(x)))
+    ind = pr.sobol_indices()
+    done("pce_sobol", max(np.abs(ind["s1"].cpu().numpy() - s1_ref).max(),
+                          np.abs(ind["st"].cpu().numpy() - st_ref).max()),
+         f"PCE Ishigami order {order} by regression on {n_reg} samples: "
+         f"{sec:.4f} s, r2 {pr.r2:.6f}; Sobol' indices to the analytic")
+    # a total-degree-5 PCE in 8-D recovers a planted one exactly
+    d8, o8, n8 = SIZES["pce_8d"]
+    b8 = [[-1.0, 2.0]] * d8
+    from corrla_rs_tpu_torch.ops.pce import total_degree_multi_indices
+
+    planted = port.PolynomialChaos(o8, bounds=b8)
+    planted._alpha = total_degree_multi_indices(d8, o8)
+    n_terms = planted._alpha.shape[0]
+    coef = torch.randn(n_terms, generator=gen, device=dev, dtype=f64) \
+        / (1.0 + torch.as_tensor(planted._alpha.sum(axis=1), device=dev,
+                                 dtype=f64)) ** 2
+    planted.coeffs = coef
+    x = torch.rand(n8, d8, generator=gen, device=dev, dtype=f64) * 3 - 1
+    y = planted.predict(x)
+    torch.cuda.reset_peak_memory_stats()
+    fit, sec = wall(lambda: port.PolynomialChaos(o8, bounds=b8).fit(x, y))
+    done("pce_8d", rel_max(fit.coeffs, coef),
+         f"PCE total degree {o8} in {d8}-D ({n_terms} terms) on {n8} "
+         f"samples f64 (Psi {n8 * n_terms * 8 / 1e9:.2f} GB): fit "
+         f"{sec:.4f} s, peak {torch.cuda.max_memory_allocated() / 2**30:.2f}"
+         " GiB; coefficients to the planted, err / max")
+    del x, y, fit, planted
+
+    # Sobol' indices of the 8-D G-function, with a row bootstrap
+    a_g = SIZES["g_function_a"]
+    g, s1_g, st_g = g_function(a_g)
+    n_base, n_boot = SIZES["sobol"]
+    res, sec = wall(lambda: port.sobol_indices(
+        g, [[0.0, 1.0]] * len(a_g), n_base, key=seed, n_boot=n_boot,
+        boot_key=seed + 1))
+    z_worst = 0.0
+    for name, exact in (("s1", s1_g), ("st", st_g)):
+        est = res[name].cpu().numpy()
+        se = (res[f"{name}_hi"] - res[f"{name}_lo"]).cpu().numpy() / (
+            2 * 1.959964)
+        z_worst = max(z_worst, float(np.max(np.abs(est - exact)
+                                            / np.maximum(se, 1e-12))))
+    done("sobol", z_worst,
+         f"sobol_indices G-function a = {a_g}, n_base {n_base} "
+         f"({(len(a_g) + 2) * n_base} evaluations), {n_boot} bootstrap "
+         f"resamples: {sec:.4f} s; largest |index - exact| in bootstrap SE")
+
+    # Morris screening of a 20-D G-function: the four important inputs
+    # rank first, in order
+    d_m, n_traj = SIZES["morris"]
+    a_m = [0.0, 1.0, 4.5, 9.0] + [99.0] * (d_m - 4)
+    g_m, _, _ = g_function(a_m)
+    res, sec = wall(lambda: port.morris_screening(
+        g_m, [[0.0, 1.0]] * d_m, n_traj, key=seed))
+    rank = torch.argsort(res["mu_star"], descending=True).tolist()
+    check(rank[:4] == [0, 1, 2, 3],
+          f"morris ranked {rank[:6]} first, expected [0, 1, 2, 3]")
+    mu = res["mu_star"].cpu().numpy()
+    done("morris", float(mu[4:].max() / mu[3]),
+         f"morris_screening {d_m}-D G-function, {n_traj} trajectories "
+         f"({n_traj * (d_m + 1)} evaluations): {sec:.4f} s; inputs 0-3 "
+         "rank first; largest unimportant mu* over the 4th")
+
+    # Shapley effects of a correlated 8-D linear Gaussian model
+    d_s, n_out, n_in = SIZES["shapley"]
+    idx = np.arange(d_s)
+    sd = np.linspace(0.5, 2.0, d_s)
+    cov = 0.6 ** np.abs(idx[:, None] - idx[None, :]) * np.outer(sd, sd)
+    beta = np.linspace(1.0, -1.0, d_s) + 0.3
+    beta_t = torch.as_tensor(beta, device=dev)
+    sh, sec = wall(lambda: port.shapley_effects(
+        lambda v: v @ beta_t, np.zeros(d_s), cov, n_outer=n_out,
+        n_inner=n_in, key=seed))
+    done("shapley", float(np.abs(sh.cpu().numpy()
+                                 - port.shapley_effects_linear(beta, cov))
+                          .max()),
+         f"shapley_effects {d_s}-D correlated linear, {2 ** d_s} subsets of "
+         f"{n_out}x{n_in}: {sec:.4f} s; to shapley_effects_linear, max abs")
+
+    # MLMC: geometric Brownian motion by Euler-Maruyama, levels 0-6
+    s0, r_, sig, t_end = 1.0, 0.05, 0.2, 1.0
+    n_lv, base, se_want = SIZES["mlmc"]
+    n_fine = base * 2 ** (n_lv - 1)
+    dt_f = t_end / n_fine
+
+    def level(lv):
+        groups = 2 ** (n_lv - 1 - lv)
+
+        def euler(dw):
+            dw = dw.reshape(dw.shape[0], -1, groups).sum(dim=2)
+            dt_l = t_end / dw.shape[1]
+            return s0 * torch.prod(1.0 + r_ * dt_l + sig * dw, dim=1)
+        return euler
+
+    def sample(gen_l, n):
+        return math.sqrt(dt_f) * torch.randn(n, n_fine, generator=gen_l,
+                                             device=dev, dtype=f64)
+
+    costs = [2.0 ** lv for lv in range(n_lv)]
+    res, sec = wall(lambda: port.mlmc_estimate(
+        [level(lv) for lv in range(n_lv)], sample, costs, target_se=se_want,
+        key=seed, device=dev))
+    bias = abs(s0 * math.exp(r_ * t_end) - s0 * (1 + r_ * dt_f) ** n_fine)
+    done("mlmc", abs(res.mean - s0 * math.exp(r_ * t_end))
+         / (res.std_error + bias / 3.0),
+         f"mlmc_estimate GBM, levels 0-{n_lv - 1} ({base}-{n_fine} steps), "
+         f"target SE {se_want}: {sec:.4f} s, samples "
+         f"{res.n_per_level.tolist()}, mean {res.mean:.6f} +- "
+         f"{res.std_error:.2e}; |mean - S0 e^rT| in SE (the finest level's "
+         f"Euler bias {bias:.1e} added as 3 SE)")
+
+    # MFMC: three models with analytic correlations; the estimator's
+    # spread over replicates against plain MC's at the same budget
+    sigs = np.sqrt([2.0, 2.25, 2.28])
+    rhos = np.array([1.0, 2.0 / np.sqrt(2 * 2.25), 1.6 / np.sqrt(2 * 2.28)])
+    costs = np.array([1.0, 0.05, 0.001])
+    models = (lambda v: v[:, 0] ** 2, lambda v: v[:, 0] ** 2 + 0.5 * v[:, 0],
+              lambda v: 0.8 * v[:, 0] ** 2 + v[:, 0])
+    budget, n_rep = SIZES["mfmc"]
+    design = port.mfmc_design(sigs, rhos, costs, budget)
+
+    def draw(gen_m, n):
+        return torch.randn(n, 1, generator=gen_m, device=dev, dtype=f64)
+
+    def replicates():
+        return np.array([port.mfmc_estimate(models, draw, costs, budget,
+                                            key=seed + i, design=design,
+                                            device=dev).mean
+                         for i in range(n_rep)])
+
+    ests, sec = wall(replicates)
+    gen_mc = torch.Generator(device=dev).manual_seed(seed + 7)
+    n_mc = int(budget / costs[0])
+    mc = (torch.randn(n_rep, n_mc, generator=gen_mc, device=dev,
+                      dtype=f64) ** 2).mean(dim=1).cpu().numpy()
+    v_mf, v_mc = ests.var(ddof=1), mc.var(ddof=1)
+    check(abs(ests.mean() - 1.0) <= 3 * math.sqrt(v_mf / n_rep),
+          f"mfmc mean {ests.mean():.5f} off E[f1] = 1 by more than 3 SE")
+    done("mfmc", v_mf / v_mc,
+         f"mfmc_estimate 3 models, budget {budget}, {n_rep} replicates "
+         f"{sec:.4f} s: mean {ests.mean():.5f} (E = 1), variance "
+         f"{v_mf:.3e} against plain MC's {v_mc:.3e} (design predicted "
+         f"{design.variance:.3e} / {design.mc_variance:.3e}); ratio")
+    return out
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--seed", type=int, default=0,
@@ -2962,6 +3730,32 @@ def main(argv=None) -> int:
     print(f"[launches] ok  rom: {sixth}", flush=True)
     torch.cuda.empty_cache()
 
+    # 19. the Koopman/DMD-family models: Edmd's RBF lift launches the
+    # kernel matrix
+    rk.pairwise_kernel_matrix.launches = 0
+    rk.rbf_matvec.launches = 0
+    t0 = time.perf_counter()
+    report("koopman", t0, f"{len(phase_koopman(port, dev, args.seed + 12))} "
+           "checks, each printed above")
+    seventh = {"pairwise_kernel_matrix": rk.pairwise_kernel_matrix.launches,
+               "rbf_matvec": rk.rbf_matvec.launches}
+    check(seventh["pairwise_kernel_matrix"] > 0,
+          "pairwise_kernel_matrix was not launched by Edmd's RBF lift")
+    print(f"[launches] ok  koopman: {seventh}", flush=True)
+    torch.cuda.empty_cache()
+
+    # 20. the sensitivity and UQ estimators; they reach no kernel
+    rk.pairwise_kernel_matrix.launches = 0
+    rk.rbf_matvec.launches = 0
+    t0 = time.perf_counter()
+    report("uq", t0, f"{len(phase_uq(port, dev, args.seed + 13))} checks, "
+           "each printed above")
+    eighth = {"pairwise_kernel_matrix": rk.pairwise_kernel_matrix.launches,
+              "rbf_matvec": rk.rbf_matvec.launches}
+    check(not any(eighth.values()), f"uq launched a kernel: {eighth}")
+    print(f"[launches] ok  uq (no kernel on this path): {eighth}", flush=True)
+    torch.cuda.empty_cache()
+
     # timing details and the kNN against its plain version (not counted)
     t0 = time.perf_counter()
     fit_r = detail_rbf_fit(rk, dev, gen)
@@ -2990,7 +3784,7 @@ def main(argv=None) -> int:
              "dmdc/active_ss/samplers": second,
              "dream/factorize/mle": third,
              "inference/filters/evidence": fourth, "gp": fifth,
-             "rom": sixth}
+             "rom": sixth, "koopman": seventh, "uq": eighth}
     table = {"kernels": []}
     for name in ("pairwise_kernel_matrix", "rbf_matvec"):
         top = max((row for row in timings[name] if row["main_path"]),

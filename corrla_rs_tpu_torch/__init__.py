@@ -14,7 +14,10 @@ bridge-sampling and PSIS evidence estimators), Gaussian processes and
 Bayesian optimisation with the space-filling designs, Grassmann
 interpolation, the ROM models on the DMD core (Hankel, multi-resolution,
 physics-informed and online DMD, ERA/OKID, DEIM, gappy POD, sparsity-
-promoting DMD) and the checkpoints:
+promoting DMD, EDMD, kernel DMD, SPOD, operator inference, SINDy,
+optimized, BOP and bagged DMD), the checkpoints, and the
+sensitivity and UQ estimators (quadrature, polynomial chaos, Sobol',
+Morris, Shapley, multilevel and multi-fidelity Monte Carlo):
 
 - ``rsvd(a, n_rank, n_iters, n_oversamples)``  -> (U, S (r, 1), Vt)
 - ``rpca(a, n_rank, n_iters, n_oversamples)``  -> (S (r, 1), components)
@@ -44,6 +47,7 @@ from corrla_rs_tpu_torch.api import (
     rpca,
     rsvd,
 )
+from corrla_rs_tpu_torch.models.bop_dmd import BaggedDmd, bagged_dmd
 from corrla_rs_tpu_torch.models.active_subspaces import (
     ActiveSsRsvd,
     AdGradientEstimator,
@@ -56,13 +60,19 @@ from corrla_rs_tpu_torch.models.dmd import (
     dmdc_fit_ensemble,
     rollout_ensemble,
 )
+from corrla_rs_tpu_torch.models.edmd import Edmd
 from corrla_rs_tpu_torch.models.era import Era, era, era_okid, okid
 from corrla_rs_tpu_torch.models.hankel_dmd import HankelDmd, hankel_embed
+from corrla_rs_tpu_torch.models.kernel_dmd import KernelDmd
 from corrla_rs_tpu_torch.models.mrdmd import MrDmd, mrdmd
 from corrla_rs_tpu_torch.models.online_dmd import OnlineDmd
+from corrla_rs_tpu_torch.models.opinf import OpInf, kron2_compressed
+from corrla_rs_tpu_torch.models.optdmd import BopDmd, OptDmd, bop_dmd
 from corrla_rs_tpu_torch.models.pca import PcaRsvd
 from corrla_rs_tpu_torch.models.pidmd import PiDmd
 from corrla_rs_tpu_torch.models.pod import PodI
+from corrla_rs_tpu_torch.models.sindy import Sindy
+from corrla_rs_tpu_torch.models.spod import Spod, spod
 from corrla_rs_tpu_torch.ops.bayes_opt import BayesOpt, bayes_opt_minimize
 from corrla_rs_tpu_torch.ops.bridge import bridge_sampling_evidence
 from corrla_rs_tpu_torch.ops.cg import (
@@ -122,11 +132,30 @@ from corrla_rs_tpu_torch.ops.kalman import (
     kalman_smooth,
 )
 from corrla_rs_tpu_torch.ops.laplace import laplace_approx, laplace_sample
+from corrla_rs_tpu_torch.ops.mlmc import mlmc_estimate
+from corrla_rs_tpu_torch.ops.morris import (
+    morris_screening,
+    morris_trajectories,
+)
+from corrla_rs_tpu_torch.ops.multifidelity import (
+    control_variate_estimate,
+    mfmc_design,
+    mfmc_estimate,
+)
 from corrla_rs_tpu_torch.ops.nmf import nmf
 from corrla_rs_tpu_torch.ops.nuts import nuts_run
 from corrla_rs_tpu_torch.ops.nystrom import nystrom_approx, nystrom_eigh
 from corrla_rs_tpu_torch.ops.particle import particle_filter, ukf_filter
+from corrla_rs_tpu_torch.ops.pce import PolynomialChaos
 from corrla_rs_tpu_torch.ops.psis import importance_resample, psis
+from corrla_rs_tpu_torch.ops.quadrature import (
+    clenshaw_curtis,
+    gauss_hermite,
+    gauss_legendre,
+    integrate,
+    smolyak_quadrature,
+    tensor_quadrature,
+)
 from corrla_rs_tpu_torch.ops.random_svd import (
     block_krylov_svd,
     power_iter,
@@ -144,6 +173,11 @@ from corrla_rs_tpu_torch.ops.samplers import (
     DeMcSampler,
     constr_dirichlet_sample,
 )
+from corrla_rs_tpu_torch.ops.shapley import (
+    shapley_effects,
+    shapley_effects_linear,
+    shapley_effects_quadrature,
+)
 from corrla_rs_tpu_torch.ops.sketch_solve import sketched_lstsq
 from corrla_rs_tpu_torch.ops.slq import (
     lanczos_fn_apply,
@@ -152,6 +186,7 @@ from corrla_rs_tpu_torch.ops.slq import (
     slq_spectral_sum,
 )
 from corrla_rs_tpu_torch.ops.smc import smc_sample
+from corrla_rs_tpu_torch.ops.sobol import saltelli_plan, sobol_indices
 from corrla_rs_tpu_torch.ops.spdmd import spdmd
 from corrla_rs_tpu_torch.ops.trace_est import hutchinson_trace, hutchpp_trace
 from corrla_rs_tpu_torch.ops.tt import (
@@ -318,4 +353,34 @@ __all__ = [
     "spdmd",
     "save_model",
     "load_model",
+    "Edmd",
+    "KernelDmd",
+    "Spod",
+    "spod",
+    "OpInf",
+    "kron2_compressed",
+    "Sindy",
+    "OptDmd",
+    "BopDmd",
+    "bop_dmd",
+    "BaggedDmd",
+    "bagged_dmd",
+    "gauss_legendre",
+    "gauss_hermite",
+    "clenshaw_curtis",
+    "tensor_quadrature",
+    "smolyak_quadrature",
+    "integrate",
+    "PolynomialChaos",
+    "saltelli_plan",
+    "sobol_indices",
+    "morris_trajectories",
+    "morris_screening",
+    "shapley_effects",
+    "shapley_effects_linear",
+    "shapley_effects_quadrature",
+    "mlmc_estimate",
+    "mfmc_design",
+    "mfmc_estimate",
+    "control_variate_estimate",
 ]

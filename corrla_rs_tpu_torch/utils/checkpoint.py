@@ -40,9 +40,6 @@ _REGISTRY: dict[str, type] = {}
 # classes the JAX package checkpoints that the port does not have yet, and
 # the ROADMAP queue-1 item that ports each
 _NOT_PORTED = {
-    **{name: "queue 1 item 15" for name in (
-        "Edmd", "KernelDmd", "BaggedDmd", "OptDmd", "BopDmd", "Spod",
-        "Sindy", "OpInf")},
     **{name: "queue 1 item 16" for name in (
         "GaussianCopula", "BivariateCopula", "CVineCopula", "RVineCopula",
         "Cca", "PlsRegressor")},
@@ -64,14 +61,21 @@ def _builtin_registry():
     from corrla_rs_tpu_torch.models.active_subspaces import (
         FittedActiveSsRsvd,
     )
+    from corrla_rs_tpu_torch.models.bop_dmd import BaggedDmd
     from corrla_rs_tpu_torch.models.dmd import DMD, DMDc
+    from corrla_rs_tpu_torch.models.edmd import Edmd
     from corrla_rs_tpu_torch.models.era import Era
     from corrla_rs_tpu_torch.models.hankel_dmd import HankelDmd
+    from corrla_rs_tpu_torch.models.kernel_dmd import KernelDmd
     from corrla_rs_tpu_torch.models.mrdmd import MrDmd
     from corrla_rs_tpu_torch.models.online_dmd import OnlineDmd
+    from corrla_rs_tpu_torch.models.opinf import OpInf
+    from corrla_rs_tpu_torch.models.optdmd import BopDmd, OptDmd
     from corrla_rs_tpu_torch.models.pca import PcaRsvd
     from corrla_rs_tpu_torch.models.pidmd import PiDmd
     from corrla_rs_tpu_torch.models.pod import PodI
+    from corrla_rs_tpu_torch.models.sindy import Sindy
+    from corrla_rs_tpu_torch.models.spod import Spod
     from corrla_rs_tpu_torch.ops.gp import GpRegressor, SparseGpRegressor
     from corrla_rs_tpu_torch.ops.incremental import (
         IncrementalPca,
@@ -88,7 +92,8 @@ def _builtin_registry():
     for cls in (PcaRsvd, PodI, DMD, DMDc, PyDMDc, RbfInterp,
                 FittedActiveSsRsvd, NormalRv, BetaRv, ExponentialRv, KdeRv,
                 GpRegressor, SparseGpRegressor, OnlineDmd, IncrementalSvd,
-                IncrementalPca, HankelDmd, MrDmd, PiDmd, Era):
+                IncrementalPca, HankelDmd, MrDmd, PiDmd, Era, Edmd,
+                KernelDmd, Spod, OpInf, Sindy, OptDmd, BopDmd, BaggedDmd):
         _REGISTRY.setdefault(cls.__name__, cls)
 
 

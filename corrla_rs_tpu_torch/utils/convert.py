@@ -2,8 +2,10 @@
 
 A fitted ``PcaRsvd``, ``RbfInterp``, ``PodI``, ``DMDc`` (or ``PyDMDc``),
 ``DMD``, ``FittedActiveSsRsvd``, ``GpRegressor``, ``SparseGpRegressor``,
-``HankelDmd``, ``MrDmd``, ``PiDmd``, ``Era`` or ``OnlineDmd`` of
-``corrla_rs_tpu``, and the running state of an ``IncrementalSvd`` or
+``HankelDmd``, ``MrDmd``, ``PiDmd``, ``Era``, ``OnlineDmd``, ``Edmd``,
+``KernelDmd``, ``Spod``, ``OpInf``, ``Sindy``, ``OptDmd``, ``BopDmd``,
+``BaggedDmd`` or ``PolynomialChaos`` of ``corrla_rs_tpu``, and the running
+state of an ``IncrementalSvd`` or
 ``IncrementalPca``, is a flat bag of arrays, lists of arrays and scalars,
 and so is its port counterpart, attribute for attribute. A sampler's
 ``DreamState`` or ``EnsembleState`` (``state._asdict()``) crosses too, so a
@@ -24,9 +26,11 @@ factors)`` back). Two ways across, neither of which imports JAX:
 
 Both return the port's object, which predicts what the JAX object predicts.
 Real arrays go to ``device`` (default: ``utils.device.default_device()``)
-with their dtype; complex arrays (DMD's ``lambdas`` and ``amplitudes``)
-stay host numpy arrays, as the port keeps them; the JAX-only ``_mesh``
-attribute is dropped.
+with their dtype; complex arrays (DMD's ``lambdas`` and ``amplitudes``), and
+the real ones a class keeps on the host (``_HOST_ARRAYS``: SPOD's
+frequencies, the bagged fits' member statistics, a PCE's standardisation,
+multi-indices and recurrences), stay host numpy arrays, as the port keeps
+them; the JAX-only ``_mesh`` attribute is dropped.
 """
 from __future__ import annotations
 
@@ -37,20 +41,28 @@ import torch
 
 from corrla_rs_tpu_torch import PyDMDc
 from corrla_rs_tpu_torch.models.active_subspaces import FittedActiveSsRsvd
+from corrla_rs_tpu_torch.models.bop_dmd import BaggedDmd
 from corrla_rs_tpu_torch.models.dmd import DMD, DMDc
+from corrla_rs_tpu_torch.models.edmd import Edmd
 from corrla_rs_tpu_torch.models.era import Era
 from corrla_rs_tpu_torch.models.hankel_dmd import HankelDmd
+from corrla_rs_tpu_torch.models.kernel_dmd import KernelDmd
 from corrla_rs_tpu_torch.models.mrdmd import MrDmd
 from corrla_rs_tpu_torch.models.online_dmd import OnlineDmd
+from corrla_rs_tpu_torch.models.opinf import OpInf
+from corrla_rs_tpu_torch.models.optdmd import BopDmd, OptDmd
 from corrla_rs_tpu_torch.models.pca import PcaRsvd
 from corrla_rs_tpu_torch.models.pidmd import PiDmd
 from corrla_rs_tpu_torch.models.pod import PodI
+from corrla_rs_tpu_torch.models.sindy import Sindy
+from corrla_rs_tpu_torch.models.spod import Spod
 from corrla_rs_tpu_torch.ops.dream import DreamState
 from corrla_rs_tpu_torch.ops.ensemble_mcmc import EnsembleState
 from corrla_rs_tpu_torch.ops.gp import GpRegressor, SparseGpRegressor
 from corrla_rs_tpu_torch.ops.incremental import IncrementalPca, IncrementalSvd
 from corrla_rs_tpu_torch.ops.interp import RbfInterp
 from corrla_rs_tpu_torch.ops.laplace import LaplaceResult
+from corrla_rs_tpu_torch.ops.pce import PolynomialChaos
 from corrla_rs_tpu_torch.utils.device import default_device
 
 __all__ = ["from_jax_state", "load_jax_checkpoint"]
@@ -62,7 +74,10 @@ _CLASSES = {"PcaRsvd": PcaRsvd, "RbfInterp": RbfInterp, "PodI": PodI,
             "IncrementalPca": IncrementalPca, "GpRegressor": GpRegressor,
             "SparseGpRegressor": SparseGpRegressor, "HankelDmd": HankelDmd,
             "MrDmd": MrDmd, "PiDmd": PiDmd, "Era": Era,
-            "OnlineDmd": OnlineDmd}
+            "OnlineDmd": OnlineDmd, "Edmd": Edmd, "KernelDmd": KernelDmd,
+            "Spod": Spod, "OpInf": OpInf, "Sindy": Sindy, "OptDmd": OptDmd,
+            "BopDmd": BopDmd, "BaggedDmd": BaggedDmd,
+            "PolynomialChaos": PolynomialChaos}
 _DMDC_STATE = ("n_x", "n_u", "_A", "_B", "_u_hat", "lambdas", "modes_re",
                "modes_im", "_w_re", "_w_im")
 _DMD_STATE = ("n_x", "n_t", "_A", "_u_r", "lambdas", "amplitudes",
@@ -93,6 +108,30 @@ _REQUIRED = {
             "lambdas"),
     "OnlineDmd": ("n_state", "n_ctrl", "forgetting", "ridge", "_ab", "_p",
                   "n_seen"),
+    "Edmd": ("n_state", "include_const", "_dict_kind", "koopman", "lambdas",
+             "_w", "modes"),
+    "KernelDmd": ("n_state", "kernel", "length_scale", "degree", "coef0",
+                  "_x_train", "lambdas", "_qsv", "modes"),
+    "Spod": ("n_blocks", "freqs", "energies", "modes_re", "modes_im"),
+    "OpInf": ("n_modes", "n_control", "basis_", "c_", "a_", "h_", "b_"),
+    "Sindy": ("discrete", "trig_freqs", "n_control", "coefficients_",
+              "_exponents"),
+    "OptDmd": ("alphas", "amplitudes", "modes_re", "modes_im"),
+    "BopDmd": ("n_state", "alphas_all", "amps_all", "phis_all"),
+    "BaggedDmd": ("n_state", "n_members", "lambdas_all", "modes_all_re",
+                  "modes_all_im"),
+    "PolynomialChaos": ("order", "dist", "_alpha", "coeffs"),
+}
+# real arrays that a class keeps as host numpy arrays (the rest go to the
+# device)
+_HOST_ARRAYS = {
+    "Spod": ("freqs",),
+    "OptDmd": ("amplitudes",),
+    "BopDmd": ("amplitudes", "amps_all", "alphas_std"),
+    "BaggedDmd": ("modes_all_re", "modes_all_im", "lambdas_std",
+                  "modes_std"),
+    "PolynomialChaos": ("bounds", "_mean", "_std", "_alpha", "_rec_a",
+                        "_rec_sb"),
 }
 _DREAM_FLOAT = ("heads", "head_lnp", "p_cr", "jump_dist", "n_id")
 _DREAM_COUNT = ("n_accept", "t")
@@ -129,8 +168,10 @@ def from_jax_state(class_name: str, state: dict, device=None):
 def _restore(cls, state: dict, device=None):
     """An object of ``cls`` holding ``state``, without ``__init__``: real
     arrays (and lists of them) become tensors on ``device`` (default
-    ``utils.device.default_device()``), complex arrays stay host numpy."""
+    ``utils.device.default_device()``), complex arrays and the class's
+    ``_HOST_ARRAYS`` stay host numpy."""
     dev = torch.device(device) if device is not None else default_device()
+    host = _HOST_ARRAYS.get(cls.__name__, ())
 
     def carry(val):
         val = np.array(val)
@@ -141,7 +182,9 @@ def _restore(cls, state: dict, device=None):
     for name, val in state.items():
         if name == _JAX_ONLY:
             continue
-        if _is_array(val):
+        if name in host and val is not None:
+            val = np.array(val)
+        elif _is_array(val):
             val = carry(val)
         elif isinstance(val, list) and val and all(map(_is_array, val)):
             val = [carry(v) for v in val]

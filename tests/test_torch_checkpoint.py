@@ -185,7 +185,7 @@ def test_port_saved_file_loads_into_jax(same_sketch, tmp_path, case):
 
 def test_unported_and_unknown_classes_raise_value_errors(tmp_path):
     path = str(tmp_path / "m.npz")
-    for name, item in (("Cca", "item 16"), ("OptDmd", "item 15"),
+    for name, item in (("Cca", "item 16"), ("PlsRegressor", "item 16"),
                        ("GaussianCopula", "item 16")):
         np.savez(path, __class__=np.asarray(name),
                  __scalars__=np.asarray("{}"))

@@ -44,15 +44,9 @@ NOT_PORTED = {
     "ops.eig_device": "queue 1 item 7 (only on a measured H100 need)",
     # queue 1 item 12: the port's bench and its tracing
     "utils.tracing": "queue 1 item 12",
-    # queue 1 item 15: the rest of the ROM models
-    **{f"models.{m}": "queue 1 item 15" for m in (
-        "edmd", "kernel_dmd", "optdmd", "bop_dmd", "spod", "opinf",
-        "sindy")},
     # queue 1 item 16: the rest of UQ / statistics
     **{f"ops.{m}": "queue 1 item 16" for m in (
-        "pce", "quadrature", "sobol", "morris", "shapley", "mlmc",
-        "multifidelity", "copula", "vine", "rvine", "gmm", "cma", "cca",
-        "pls")},
+        "copula", "vine", "rvine", "gmm", "cma", "cca", "pls")},
     # queue 1 items 17-19
     "ops.streaming": "queue 1 item 17",
     "parallel.mesh": "queue 1 item 18",
@@ -156,12 +150,17 @@ def test_this_slice_is_ported():
         assert _port_module(rel) is not None, rel
 
 
-# the slice of Gaussian processes and Bayesian optimisation, Grassmann
-# interpolation, the ROM models on the DMD core and the checkpoints
+# the slices of Gaussian processes and Bayesian optimisation, Grassmann
+# interpolation, the ROM models on the DMD core and the checkpoints; then
+# the Koopman/DMD-family ROM models and the sensitivity/UQ estimators
 SLICE_MODULES = (
     "ops.gp", "ops.design", "ops.bayes_opt", "ops.grassmann", "ops.deim",
     "ops.gappy", "ops.spdmd", "models.hankel_dmd", "models.mrdmd",
     "models.pidmd", "models.era", "models.online_dmd", "utils.checkpoint",
+    "models.edmd", "models.kernel_dmd", "models.spod", "models.opinf",
+    "models.sindy", "models.optdmd", "models.bop_dmd", "ops.quadrature",
+    "ops.pce", "ops.sobol", "ops.morris", "ops.shapley", "ops.mlmc",
+    "ops.multifidelity",
 )
 SLICE_NAMES = (
     "GpRegressor", "SparseGpRegressor", "latin_hypercube", "sobol_sample",
@@ -171,6 +170,15 @@ SLICE_NAMES = (
     "PiDmd", "Era", "era", "okid", "era_okid", "OnlineDmd", "deim_points",
     "deim_reconstruct", "gappy_reconstruct", "gappy_pod_fill",
     "oversample_points", "spdmd", "save_model", "load_model",
+    "Edmd", "KernelDmd", "Spod", "spod", "OpInf", "kron2_compressed",
+    "Sindy", "OptDmd", "BopDmd", "bop_dmd", "BaggedDmd", "bagged_dmd",
+    "gauss_legendre", "gauss_hermite", "clenshaw_curtis",
+    "tensor_quadrature", "smolyak_quadrature", "integrate",
+    "PolynomialChaos", "saltelli_plan", "sobol_indices",
+    "morris_trajectories", "morris_screening", "shapley_effects",
+    "shapley_effects_linear", "shapley_effects_quadrature",
+    "mlmc_estimate", "mfmc_design", "mfmc_estimate",
+    "control_variate_estimate",
 )
 # a matmul precision is XLA's to choose; here TF32 is off once, for all
 JAX_ONLY_PARAMS = {"precision", "power_precision"}
@@ -262,9 +270,13 @@ def test_slice_signatures_equal_the_jax_package(rel):
         if (rel, name) in OWN_SIGNATURES:
             continue
         n_checked += 1
-        want = [(p, OWN_DEFAULTS.get((rel, name, p), default))
-                for p, default in _params(jfn) if p not in JAX_ONLY_PARAMS]
         got = _params(pfn)
+        # a matmul precision is dropped; a parameter of that name the port
+        # has too (Sindy.equations' print precision) is compared
+        kept = {p for p, _ in got}
+        want = [(p, OWN_DEFAULTS.get((rel, name, p), default))
+                for p, default in _params(jfn)
+                if p not in JAX_ONLY_PARAMS or p in kept]
         if len(got) == len(want) + 1 and got[-1][0] == PORT_ONLY_TRAILING:
             got = got[:-1]
         assert [p for p, _ in got] == [p for p, _ in want], f"{rel}.{name}"

@@ -1268,3 +1268,115 @@ def test_slice_gp_rom_entry_points_put_numpy_on_the_card(dev):
     assert isinstance(markov, np.ndarray) and markov.shape == (5, 1, 1)
     sp = port.spdmd(port.DMD(field, 2), field, [0.0, 1.0])
     assert sp["nnz"].shape == (2,)
+
+
+def test_slice_edmd_rbf_lift_launches_the_kernel_matrix(dev):
+    # Edmd's RBF dictionary is the kernel matrix (gaussian, eps =
+    # sqrt(gamma)) written into its rows of the lifted matrix; the fit on
+    # the card equals the CPU fit in f64
+    import numpy as np
+
+    from corrla_rs_tpu_torch.models import edmd
+
+    rng = np.random.default_rng(12)
+    x = rng.uniform(-1, 1, (2, 3000))
+    y = np.stack([0.9 * x[0], 0.8 * x[1] + 0.2 * x[0] ** 2])
+    # 12 centres, gamma 2: a Gram of condition ~1e6, so the two fits' K
+    # agree to 1e-8 (40 centres at gamma 3 reach 7e9)
+    centers = rng.uniform(-1, 1, (12, 2))
+    kw = dict(dictionary="rbf", centers=centers, gamma=2.0, y_data=y)
+    before = rk.pairwise_kernel_matrix.launches
+    card = edmd.Edmd(x, device=dev, **kw)
+    assert rk.pairwise_kernel_matrix.launches == before + 2
+    cpu = edmd.Edmd(x, device="cpu", **kw)
+    lc, lp = card.lift(x[:, :100]), cpu.lift(x[:, :100])
+    assert lc.is_cuda and float((lc.cpu() - lp).abs().max()) <= 1e-13
+    assert float((card.koopman.cpu() - cpu.koopman).abs().max()) <= 1e-8 \
+        * float(cpu.koopman.abs().max())
+    out = torch.empty(12, 3000, dtype=torch.float64, device=dev)
+    xt = torch.as_tensor(x, device=dev)
+    ct = torch.as_tensor(centers, device=dev)
+    edmd._rbf_features_into(out, xt, ct, 2.0)
+    gram = edmd._rbf_features_gram(xt, ct, 2.0)
+    assert float((out - gram).abs().max()) <= 1e-13
+
+
+def test_slice_koopman_uq_entry_points_put_numpy_on_the_card(dev):
+    # numpy in, tensors on the card out; what the JAX package returns as
+    # host numpy (KernelDmd's and the bagged fits' forecasts, the
+    # quadrature rules, the closed-form Shapley effects, the Monte-Carlo
+    # estimators' floats) stays host numpy here
+    import numpy as np
+
+    import corrla_rs_tpu_torch as port
+
+    rng = np.random.default_rng(13)
+    traj = np.cumsum(rng.standard_normal((3, 80)), axis=1) * 0.1
+    lor = np.stack([np.sin(0.05 * np.arange(400)),
+                    np.cos(0.07 * np.arange(400)),
+                    np.sin(0.03 * np.arange(400))], axis=1)
+    snaps = rng.standard_normal((30, 3)) @ rng.standard_normal((3, 60))
+    bounds = [[0.0, 1.0]] * 3
+
+    def f(v):
+        return v[:, 0] + v[:, 1] * v[:, 2]
+
+    ed = port.Edmd(traj, degree=2)
+    kd = port.KernelDmd(traj, 4)
+    sp = port.spod(snaps, n_fft=16)
+    oi = port.OpInf(2).fit(snaps.T[:, :20], dt=0.1)
+    sy = port.Sindy(degree=2, threshold=0.01).fit(lor, dt=0.1)
+    od = port.OptDmd(snaps, 3)
+    pce = port.PolynomialChaos(2, bounds=bounds).fit(
+        rng.uniform(0, 1, (40, 3)), rng.standard_normal(40))
+    results = {
+        "Edmd": [ed.koopman, ed.predict(traj[:, 0], 3), ed.lift(traj)],
+        "KernelDmd": [kd._x_train],
+        "spod": [sp.energies, sp.modes_re, sp.modes_im],
+        "OpInf": [oi.basis_, oi.predict(snaps.T[0, :20], 3, 0.1)],
+        "kron2_compressed": port.kron2_compressed(np.ones(3)),
+        "Sindy": [sy.coefficients_, sy.predict(lor[:3]),
+                  sy.simulate(lor[0], 3, 0.1)],
+        "OptDmd": [od.modes_re, od.predict(np.arange(4.0))],
+        "bop_dmd": port.bop_dmd(snaps, 3, n_members=2).modes_re,
+        "bagged_dmd": port.bagged_dmd(snaps, 3, n_members=2).modes_ref_re,
+        "PolynomialChaos": [pce.coeffs, pce.predict(np.ones((2, 3)))]
+        + list(pce.sobol_indices().values()),
+        "saltelli_plan": list(port.saltelli_plan(bounds, 8)),
+        "sobol_indices": list(port.sobol_indices(f, bounds, 64,
+                                                 n_boot=4).values()),
+        "morris_trajectories": list(port.morris_trajectories(bounds, 4)),
+        "morris_screening": list(port.morris_screening(f, bounds,
+                                                       8).values()),
+        "shapley_effects": port.shapley_effects(
+            lambda v: v.sum(dim=1), np.zeros(2), np.eye(2), n_outer=8,
+            n_inner=4),
+    }
+    for name, res in results.items():
+        tensors = res if isinstance(res, list) else [res]
+        assert tensors and all(isinstance(t, torch.Tensor) and t.is_cuda
+                               for t in tensors), name
+    assert isinstance(kd.predict(traj[:, 0], 3), np.ndarray)
+    rule = port.smolyak_quadrature(2, 2)
+    assert isinstance(rule.nodes, np.ndarray)
+    assert abs(port.integrate(lambda v: v.sum() ** 2, rule)
+               - 8.0 / 3.0) < 1e-12
+    assert isinstance(port.shapley_effects_linear([1.0, 2.0], np.eye(2)),
+                      np.ndarray)
+    q = port.shapley_effects_quadrature(lambda v: v[:, 0] * v[:, 1],
+                                        mean=np.zeros(2), std=np.ones(2))
+    assert isinstance(q["shapley"], np.ndarray)
+
+    def draw(g, n):
+        assert g.device.type == "cuda"
+        return torch.randn(n, 1, generator=g, device=dev,
+                           dtype=torch.float64)
+
+    ml = port.mlmc_estimate([lambda v: v[:, 0] ** 2] * 2, draw, [1.0, 2.0],
+                            n_pilot=16, n_max=256)
+    mf = port.mfmc_estimate([lambda v: v[:, 0] ** 2,
+                             lambda v: v[:, 0] ** 2 + 0.5 * v[:, 0]],
+                            draw, [1.0, 0.01], 50.0, n_pilot=20)
+    assert np.isfinite(ml.mean) and np.isfinite(mf.mean)
+    assert np.isfinite(port.control_variate_estimate(
+        np.arange(5.0), np.arange(5.0) ** 1.5, 2.0)[0])

@@ -42,7 +42,8 @@ def test_port_never_imports_jax():
     loaded = set(proc.stdout.split("LOADED")[1].split())
     assert len(loaded) >= 50
     # the modules of the inference layer and the tensor factorizations,
-    # and those of the GPs, Grassmann interpolation and the ROM models
+    # those of the GPs, Grassmann interpolation and the ROM models, and
+    # those of the Koopman/DMD-family models and the UQ estimators
     for name in ("ops.tt", "ops.cp", "ops.nmf", "ops.completion",
                  "ops.ensemble_mcmc", "ops.hmc", "ops.nuts", "ops.smc",
                  "ops.kalman", "ops.enkf", "ops.particle", "ops.laplace",
@@ -50,7 +51,11 @@ def test_port_never_imports_jax():
                  "ops.bayes_opt", "ops.grassmann", "ops.deim", "ops.gappy",
                  "ops.spdmd", "models.hankel_dmd", "models.mrdmd",
                  "models.pidmd", "models.era", "models.online_dmd",
-                 "utils.checkpoint"):
+                 "utils.checkpoint", "models.edmd", "models.kernel_dmd",
+                 "models.spod", "models.opinf", "models.sindy",
+                 "models.optdmd", "models.bop_dmd", "ops.quadrature",
+                 "ops.pce", "ops.sobol", "ops.morris", "ops.shapley",
+                 "ops.mlmc", "ops.multifidelity"):
         assert f"corrla_rs_tpu_torch.{name}" in loaded, name
 
 
