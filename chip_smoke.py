@@ -121,9 +121,28 @@ time, and any failure raises (exit code != 0):
     G-function at n_base 2^20 with 200 bootstrap resamples; Morris
     screening of a 20-D G-function; Shapley effects of a correlated 8-D
     linear model; MLMC of a geometric Brownian motion; MFMC over
-    replicates against plain MC (UQ_TOL).
+    replicates against plain MC (UQ_TOL);
+21. streaming: from host numpy arrays in pageable memory, through pinned
+    double buffers: streamed_random_svd (the Gram and the power method),
+    streamed_pca and streamed_single_pass_svd on rsvd's matrix (4.0 GB),
+    the Gram method again under a device-memory cap below the source's
+    size; streamed_gram/cov/pearson_corr of 4,000,000 x 256 f32 against
+    f64 products; streamed_hosvd of a 262,144 x 32 x 32 tensor of
+    multilinear rank 16; streamed_pod of 2,000 x 1,000,000 f32 (8.0 GB,
+    20 modes, predicted at 512 queries: its fit launches the kernel matrix,
+    its predict the matvec); streamed_dmdc of 1,000,000 x 1,001 f32. Each
+    prints its wall, peak device memory and, per pass, the GB/s and the
+    split into filling the pinned buffer, the copies and the compute
+    (STREAM_TOL);
+22. stats: gmm_fit (full and diagonal) of 1,048,576 points from 32 planted
+    components in 16-D, gmm_select, gmm_sample; cma_es on a rotated 64-D
+    ellipsoid and 16-D Rosenbrock; cca with 8 planted canonical pairs;
+    pls_fit against least squares; GaussianCopula on skewed marginals;
+    BivariateCopula on each family; kendall_tau's two routes; C-vines
+    (6-D, and 4-D refined) and an R-vine of a Markov chain, with 1,048,576
+    draws from each (STATS_TOL).
 
-After phase 20 come the timing details of phases 7 and 9-10 (RbfInterp's
+After phase 22 come the timing details of phases 7 and 9-10 (RbfInterp's
 fit with its saddle matrix built by concatenation, as before the kernel
 matrix wrote K in place, and built in place; the kNN and grads steps of
 active_ss; a DEMC generation) and the kNN against its plain version. The
@@ -131,10 +150,10 @@ build phase prints ptxas's registers and spills for both kernels'
 instances and fails if any spills. The kernels' launch counts
 are set to 0 before phase 4 and read after phase 7, again before phase 8
 and after phase 10, again before phase 11 and after phase 13, again
-before phase 14 and after phase 16, and around each of phases 17 to 20;
-every kernel of a path must have launched on it (phases 11-16 and 20
+before phase 14 and after phase 16, and around each of phases 17 to 22;
+every kernel of a path must have launched on it (phases 11-16, 20 and 22
 reach no kernel, and the run fails if their counts say otherwise; phases
-17 and 19 must launch the kernel matrix, phase 18 both kernels). The last lines are the kernel table as JSON (every timed shape of each kernel,
+17 and 19 must launch the kernel matrix, phases 18 and 21 both kernels). The last lines are the kernel table as JSON (every timed shape of each kernel,
 with its bound and, where one exists, a one-call PyTorch equivalent's
 time), the nvidia-smi line, and the result JSON. Nothing of JAX is
 imported. Without a CUDA device it exits with code 2 and prints no result.
@@ -144,6 +163,7 @@ from __future__ import annotations
 import argparse
 import contextlib
 import json
+import logging
 import math
 import re
 import statistics
@@ -233,6 +253,28 @@ SIZES = {
     "shapley": (8, 4096, 256),                    # dims, outer, inner draws
     "mlmc": (7, 4, 5e-4),                         # levels, coarsest steps, target SE
     "mfmc": (1000.0, 200),                        # budget, replicates
+    "stream_gram": (4_000_000, 256),              # rows, columns (f32)
+    # the long axis first: the mode-0 co-Gram is prod(other dims)^2
+    "stream_hosvd": ((262_144, 32, 32), 16),      # shape (f32), rank a mode
+    "stream_pod": (2000, 1_000_000, 20, 512),     # snapshots, points, modes, queries
+    "stream_dmdc": (1_000_000, 1001, 10),         # states, snapshots, modes
+    "stream_cap_gb": 3.0,                         # the capped fit's device memory
+    "gmm": (1 << 20, 16, 32),                     # points, dims, planted components
+    "gmm_select": (1 << 18, (16, 32, 48)),        # points, mixture sizes
+    "cma_ellipsoid": (64, 256, 1800, 1e6),        # dims, population, generations, cond
+    # population 32: at the default 12 one key in 20 ends in the local
+    # minimum near (-1, 1, ..., 1), f = 3.99 (keys 3-22 on the CPU); at 32
+    # none of 30 did, each below 1e-8 within 717 generations
+    "cma_rosenbrock": (16, 32, 1200),             # dims, population, generations
+    "cca": (1 << 20, 256, 128, 8),                # rows, p, q, planted pairs
+    "pls": (1 << 20, 512, 16, 16),                # rows, p, responses, components
+    "gauss_copula": (1 << 20, 16),                # samples, dims
+    "bivariate": 65_536,                          # planted pairs a family
+    "tau": (8192, 32_768, 131_072),               # sizes both routes are timed at
+    "cvine": (6, 65_536),                         # dims, samples (refine=False)
+    "cvine_refine": (4, 16_384),                  # dims, samples (refine=True)
+    "rvine": (6, 65_536),                         # dims, samples
+    "vine_samples": 1 << 20,                      # draws from each fitted vine
 }
 # tolerance of each factorize check, and the JAX package's test it is from
 FACTORIZE_TOL = {
@@ -389,6 +431,63 @@ UQ_TOL = {
     "mfmc": (1.0, "test_multifidelity.py::test_unbiased_and_variance_"
                   "reduction (the MFMC variance below plain MC's at the "
                   "same budget)"),
+}
+# tolerance of each streaming check, and where it comes from: the JAX test
+# of the algorithm where the algorithm meets it at this size, else the
+# limit f32 over millions of rows allows, with its reason
+STREAM_TOL = {
+    "rsvd": (1e-3, "the rsvd phase's sigma tolerance (bench.py's check)"),
+    "single_pass": ((5e-2, 0.25), "the single_pass phase's limits at 10 "
+                                  "oversamples: the leading 50 sigma, all "
+                                  "100"),
+    "orth": (1e-4, "|U^T U - I|, as the single_pass phase holds it"),
+    "gram": (1e-4, "f32 sums over 4,000,000 rows against f64 products of "
+                   "the same data: a sequential f32 sum of k terms drifts "
+                   "~eps_f32 sqrt(k/3) = 2.4e-5 of the sum at the 500,000-"
+                   "row blocks; of the largest entry"),
+    "pearson": (1e-4, "the Gram's limit, on correlations (abs)"),
+    "hosvd": (1e-4, "test_hosvd.py::test_exact_recovery_low_multilinear_rank "
+                    "(1e-9 in f64; here f32, as FACTORIZE_TOL['hosvd']): "
+                    "relative error of the reconstruction; factors' "
+                    "|F^T F - I|"),
+    "pod": (1e-3, "PodI's check against its family (the PodI phase)"),
+    "pod_orth": (1e-4, "|Phi^T Phi - I| of the modes with sigma >= 1e-2 "
+                       "sigma_1: the f32 snapshot Gram resolves sigma only "
+                       "down to ~sqrt(eps_f32) sigma_1 = 3.4e-4 sigma_1, and "
+                       "pod_family's fall to 6.4e-5 sigma_1 at the 6th mode "
+                       "(both packages; measured 1e-6 at 2,000 x 50,000 on "
+                       "the CPU)"),
+    "dmdc": (1e-3, "the DMDc phase's rollout tolerance, err / max|x|"),
+}
+# tolerance of each statistics check against its planted truth
+STATS_TOL = {
+    "gmm_mean": (5.0, "standard errors sqrt(Sigma_ii / n_k) of a matched "
+                      "component mean, over all 512 coordinates"),
+    "gmm_ll": (0.01, "nats a point between the fit's log-likelihood and the "
+                     "planted parameters' (the MLE lies above them by "
+                     "~n_params / 2n = 0.002)"),
+    "gmm_moments": (4.0, "standard errors of the sample's mean and "
+                         "covariance entries against the fit's mixture "
+                         "moments"),
+    "cma": (1e-8, "test_cma.py (f_best; the sphere's 1e-10, Rosenbrock's "
+                  "and the ellipsoid's 1e-8 in the JAX tests)"),
+    "cca": (3.0, "standard errors (1 - rho^2) / sqrt(n) of a canonical "
+                 "correlation"),
+    "pls_ols": (1e-8, "test_cca_pls.py::test_pls_full_rank_recovers_ols "
+                      "(rtol 1e-8, atol 1e-10)"),
+    "pls_score": (1e-3, "the held-out R^2 of 16 components below that of "
+                        "least squares on all 512 columns"),
+    "copula_corr": (4.0, "standard errors (1 - r^2) / sqrt(n) of the "
+                         "latent correlations"),
+    "copula_tau": (5e-3, "Kendall tau of 1,048,576 draws against the planted "
+                         "(2/pi) arcsin(r): ~7 standard errors"),
+    "theta": (3.0, "standard errors of theta = g(tau-hat): |g'(tau)| "
+                   "sqrt(2(2n+5) / (9n(n-1))), the null variance of tau-hat, "
+                   "which bounds a dependent pair's"),
+    "tau_routes": (1e-12, "the device's sign products against Knight's "
+                          "algorithm on tie-free data"),
+    "vine_tau": (0.01, "each Kendall tau of 1,048,576 draws from a fitted "
+                       "vine against the tau of the data it was fitted to"),
 }
 # Branin's box (its global minimum is 0.397887), the keys of the Bayesian
 # optimisation runs on it, and how near the minimum one of them must get
@@ -3496,6 +3595,662 @@ def phase_uq(port, dev, seed):
     return out
 
 
+class StreamPasses(logging.Handler):
+    """Collects the ``stream_pass`` statistics ``ops.streaming`` logs at
+    INFO for each pass over a source."""
+
+    def __init__(self):
+        super().__init__(logging.INFO)
+        self.passes = []
+
+    def emit(self, record):
+        if hasattr(record, "stream_pass"):
+            self.passes.append(record.stream_pass)
+
+
+@contextlib.contextmanager
+def stream_passes():
+    logger = logging.getLogger("corrla_rs_tpu_torch")
+    handler, level = StreamPasses(), logger.level
+    logger.addHandler(handler)
+    logger.setLevel(logging.INFO)
+    try:
+        yield handler
+    finally:
+        logger.removeHandler(handler)
+        logger.setLevel(level)
+
+
+def streamed_fit(log, fn):
+    """(result, wall s, peak device bytes, pass summary) of one streamed
+    fit: the peak is torch.cuda.max_memory_allocated over the fit, the
+    summary each pass's GB/s and its split into filling the pinned buffer,
+    the copies and the compute."""
+    log.passes.clear()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    out, sec = wall(fn)
+    peak = torch.cuda.max_memory_allocated()
+    gb = sum(p["bytes"] for p in log.passes) / 1e9
+    summary = f"{len(log.passes)} passes, {gb:.2f} GB: " + ", ".join(
+        f"{p['pass']} {p['gb_s']:.2f} GB/s (fill {p['fill_s']:.3f} s, copy "
+        f"{p['copy_ms'] / 1e3:.3f} s, compute {p['compute_ms'] / 1e3:.3f} s)"
+        if p["copy_ms"] is not None else
+        f"{p['pass']} {p['gb_s']:.2f} GB/s (fill {p['fill_s']:.3f} s)"
+        for p in log.passes)
+    return out, sec, peak, summary
+
+
+def to_host(t):
+    """A tensor's numpy copy in pageable host memory, as users hold data."""
+    return t.cpu().numpy()
+
+
+def stream_matrix(dev, gen):
+    """rsvd_matrix's A = U diag(s) V^T, s, and the leading sigma of
+    A - 1 mean^T: those of (U - 1 mean(U)^T) diag(s), exactly, from the QR
+    of the centered U in f64 (V has orthonormal columns)."""
+    n, m, rank, _, _, n_sig = SIZES["rsvd"]
+    s_true = torch.logspace(0, -3, n_sig, dtype=torch.float64, device=dev)
+    u0 = orthonormal(n, n_sig, gen, dev)
+    v0 = orthonormal(m, n_sig, gen, dev)
+    uc = u0.double() - u0.double().mean(dim=0, keepdim=True)
+    r = torch.linalg.qr(uc).R
+    s_cent = torch.linalg.svdvals(r * s_true[None, :])[:rank]
+    return (u0 * s_true.float()) @ v0.mT, s_true, s_cent
+
+
+def phase_streaming(port, dev, gen, seed):
+    """Out-of-core streaming from pageable host numpy arrays."""
+    from corrla_rs_tpu_torch.ops import streaming as st
+    from corrla_rs_tpu_torch.ops.hosvd import tucker_reconstruct
+
+    out = []
+    tol = {k: v[0] for k, v in STREAM_TOL.items()}
+    n, m, rank, n_iter, n_os, _ = SIZES["rsvd"]
+    a_dev, s_true, s_cent = stream_matrix(dev, gen)
+    a = to_host(a_dev)
+    del a_dev
+    torch.cuda.empty_cache()
+    with stream_passes() as log:
+        # rsvd's matrix, 4.0 GB: the Gram path (3 passes), the power path
+        # (n_iter + 2), PCA (centered Gram path) and the single pass
+        for method in ("gram", "power"):
+            (u, s, vt), sec, peak, passes = streamed_fit(
+                log, lambda: st.streamed_random_svd(a, rank, n_iter, n_os,
+                                                    key=1, method=method))
+            err = ((s.double() - s_true[:rank]).abs()
+                   / s_true[:rank]).max().item()
+            orth = (u.mT @ u - torch.eye(rank, device=dev)).abs().max().item()
+            check(err <= tol["rsvd"] and orth <= tol["orth"],
+                  f"streamed_random_svd({method}) sigma {err:.3e}, |U^T U - "
+                  f"I| {orth:.3e}")
+            say(out, f"streamed_random_svd {n}x{m} f32 ({a.nbytes / 1e9:.2f}"
+                     f" GB host) method={method}: sigma rel err {err:.3e} "
+                     f"(tol {tol['rsvd']}), |U^T U - I| {orth:.1e}; "
+                     f"{sec:.4f} s, peak {peak / 2 ** 30:.3f} GiB; {passes}")
+        (s, comps), sec, peak, passes = streamed_fit(
+            log, lambda: st.streamed_pca(a, rank, n_iter, n_os, key=1))
+        err = ((s[:, 0].double() - s_cent).abs() / s_cent).max().item()
+        check(err <= tol["rsvd"], f"streamed_pca sigma {err:.3e}")
+        say(out, f"streamed_pca (center=True) rank {rank}: sigma rel err vs "
+                 f"the centered matrix's {err:.3e} (tol {tol['rsvd']}); "
+                 f"{sec:.4f} s, peak {peak / 2 ** 30:.3f} GiB; {passes}")
+        (u, s, vt), sec, peak, passes = streamed_fit(
+            log, lambda: st.streamed_single_pass_svd(a, rank, n_os, key=1))
+        rel = (s.double() - s_true[:rank]).abs() / s_true[:rank]
+        lead, whole = tol["single_pass"]
+        orth = (u.mT @ u - torch.eye(rank, device=dev)).abs().max().item()
+        check(rel[:rank // 2].max().item() <= lead
+              and rel.max().item() <= whole and orth <= tol["orth"],
+              f"streamed_single_pass_svd sigma {rel.max().item():.3e}")
+        held = rel[:rank // 2].max().item()
+        say(out, f"streamed_single_pass_svd {n_os} oversamples: leading "
+                 f"{rank // 2} sigma rel err {held:.3e} (tol {lead}), all "
+                 f"{rel.max().item():.3e} (tol {whole}), "
+                 f"|U^T U - I| {orth:.1e}; {sec:.4f} s, peak "
+                 f"{peak / 2 ** 30:.3f} GiB; {passes}")
+        del u, s, vt, comps
+        # the out-of-core property: the Gram path under a memory cap below
+        # the source's size
+        cap = SIZES["stream_cap_gb"] * 1e9
+        total = torch.cuda.get_device_properties(dev).total_memory
+        torch.cuda.empty_cache()
+        torch.cuda.set_per_process_memory_fraction(cap / total, dev)
+        try:
+            (u, s, vt), sec, peak, passes = streamed_fit(
+                log, lambda: st.streamed_random_svd(a, rank, n_iter, n_os,
+                                                    key=1))
+        finally:
+            torch.cuda.set_per_process_memory_fraction(1.0, dev)
+        err = ((s.double() - s_true[:rank]).abs()
+               / s_true[:rank]).max().item()
+        check(err <= tol["rsvd"] and peak < a.nbytes,
+              f"capped streamed fit: sigma {err:.3e}, peak {peak} B")
+        say(out, f"streamed_random_svd under a {cap / 1e9:.1f} GB cap "
+                 f"({cap / total:.4f} of the card): sigma rel err {err:.3e}, "
+                 f"peak {peak / 2 ** 30:.3f} GiB < the source's "
+                 f"{a.nbytes / 2 ** 30:.3f} GiB; {sec:.4f} s")
+        del a, u, s, vt, s_true, s_cent
+        torch.cuda.empty_cache()
+
+        # Gram, covariance, Pearson of 4,000,000 x 256 f32, against f64
+        # products of the same data formed as it was made
+        n_g, m_g = SIZES["stream_gram"]
+        mix = torch.randn(m_g, m_g, generator=gen, device=dev) / math.sqrt(m_g)
+        shift = torch.rand(m_g, generator=gen, device=dev)
+        host = np.empty((n_g, m_g), np.float32)
+        g64 = torch.zeros(m_g, m_g, dtype=torch.float64, device=dev)
+        s64 = torch.zeros(m_g, dtype=torch.float64, device=dev)
+        for lo in range(0, n_g, 1 << 19):
+            blk = torch.randn(min(1 << 19, n_g - lo), m_g, generator=gen,
+                              device=dev) @ mix + shift
+            b64 = blk.double()
+            g64 += b64.mT @ b64
+            s64 += b64.sum(dim=0)
+            host[lo:lo + blk.shape[0]] = to_host(blk)
+        cov64 = (g64 - torch.outer(s64, s64) / n_g) / (n_g - 1.0)
+        d64 = torch.sqrt(torch.diagonal(cov64))
+        corr64 = cov64 / torch.outer(d64, d64)
+        for name, fn, want, key in (
+                ("streamed_gram", lambda: st.streamed_gram(host)[0], g64,
+                 "gram"),
+                ("streamed_cov", lambda: st.streamed_cov(host), cov64,
+                 "gram"),
+                ("streamed_pearson_corr",
+                 lambda: st.streamed_pearson_corr(host), corr64, "pearson")):
+            got, sec, peak, passes = streamed_fit(log, fn)
+            err = ((got.double() - want).abs().max()
+                   / (want.abs().max() if key == "gram" else 1.0)).item()
+            check(err <= tol[key], f"{name}: {err:.3e} > {tol[key]}")
+            say(out, f"{name} {n_g}x{m_g} f32 ({host.nbytes / 1e9:.2f} GB): "
+                     f"err vs f64 {err:.3e} (tol {tol[key]}); {sec:.4f} s, "
+                     f"peak {peak / 2 ** 30:.3f} GiB; {passes}")
+        del host, g64, cov64, corr64
+        torch.cuda.empty_cache()
+
+        # HOSVD of an exactly multilinear-rank (16, 16, 16) tensor, 1.07 GB
+        shape, r_h = SIZES["stream_hosvd"]
+        core = torch.randn(r_h, r_h, r_h, generator=gen, device=dev)
+        facs = [orthonormal(k, r_h, gen, dev) for k in shape]
+        truth = tucker_reconstruct(core, facs)
+        t_host = to_host(truth)
+        (core_s, facs_s), sec, peak, passes = streamed_fit(
+            log, lambda: st.streamed_hosvd(t_host, (r_h,) * 3))
+        rec = tucker_reconstruct(core_s, facs_s)
+        err = (torch.linalg.vector_norm(rec - truth)
+               / torch.linalg.vector_norm(truth)).item()
+        orth = max((f.mT @ f - torch.eye(r_h, device=dev)).abs().max().item()
+                   for f in facs_s)
+        check(err <= tol["hosvd"] and orth <= tol["hosvd"],
+              f"streamed_hosvd: reconstruction {err:.3e}, |F^T F - I| "
+              f"{orth:.3e}")
+        say(out, f"streamed_hosvd {'x'.join(map(str, shape))} f32 "
+                 f"({t_host.nbytes / 1e9:.2f} GB) at ranks ({r_h},) * 3: "
+                 f"reconstruction rel err {err:.3e}, |F^T F - I| {orth:.1e} "
+                 f"(tol {tol['hosvd']}); {sec:.4f} s, peak "
+                 f"{peak / 2 ** 30:.3f} GiB; {passes}")
+        del truth, t_host, rec, core_s, facs_s
+        torch.cuda.empty_cache()
+
+        # POD of 2,000 snapshots x 1,000,000 points f32 (8.0 GB): the fit
+        # writes K into its saddle matrix, the predict runs the matvec
+        n_snap, n_pts, n_modes, n_q = SIZES["stream_pod"]
+        t = torch.linspace(0, 1, n_snap, device=dev)[:, None]
+        x_host = np.empty((n_snap, n_pts), np.float32)
+        for lo in range(0, n_pts, 1 << 17):
+            s_blk = torch.linspace(0, 1, n_pts, device=dev)[lo:lo + (1 << 17)]
+            x_host[:, lo:lo + s_blk.shape[0]] = to_host(
+                pod_family(t, s_blk[None, :]))
+        pod, sec, peak, passes = streamed_fit(
+            log, lambda: st.streamed_pod(x_host, to_host(t), n_modes))
+        tq = torch.rand(n_q, 1, generator=gen, device=dev).sort(dim=0).values
+        y, pred_s = wall(lambda: pod.predict(tq))
+        truth = pod_family(tq, torch.linspace(0, 1, n_pts, device=dev)[None])
+        err = (torch.linalg.matrix_norm(y - truth.mT)
+               / torch.linalg.matrix_norm(truth)).item()
+        sig = pod.mode_weights.norm(dim=0)
+        held = int((sig >= 1e-2 * sig[0]).sum())
+        phi = pod.modes[:, :held].double()
+        orth = (phi.mT @ phi - torch.eye(held, dtype=torch.float64,
+                                         device=dev)).abs().max().item()
+        check(err <= tol["pod"] and orth <= tol["pod_orth"],
+              f"streamed_pod: predictions {err:.3e}, modes {orth:.3e}")
+        say(out, f"streamed_pod {n_snap}x{n_pts} f32 ({x_host.nbytes / 1e9:.2f}"
+                 f" GB), {n_modes} modes: {n_q} predictions vs the family "
+                 f"{err:.3e} (tol {tol['pod']}), |Phi^T Phi - I| of the "
+                 f"{held} modes with sigma >= 1e-2 sigma_1 {orth:.1e} (tol "
+                 f"{tol['pod_orth']}); fit {sec:.4f} s, predict {pred_s:.4f} "
+                 f"s, peak {peak / 2 ** 30:.3f} GiB; {passes}")
+        del x_host, pod, y, truth, phi
+        torch.cuda.empty_cache()
+
+        # DMDc of 1,000,000 states x 1,001 snapshots f32 (4.0 GB)
+        n_x, n_t, n_modes = SIZES["stream_dmdc"]
+        z, u = latent_system(n_t, seed)
+        x = lifted(z, n_x, gen, dev)
+        x_host = to_host(x)
+        del x
+        torch.cuda.empty_cache()
+        model, sec, peak, passes = streamed_fit(
+            log, lambda: st.streamed_dmdc(x_host, u.float().numpy(),
+                                          n_modes))
+        x = torch.from_numpy(x_host).to(dev)
+        u = u.float().to(dev)
+        errs = []
+        for method in ("modes", "reduced"):
+            pred, r_sec = wall(lambda: model.predict_multiple(
+                x[:, :1], u[:, :n_t - 1], method))
+            errs.append((method, traj_err(pred, x), r_sec))
+            del pred
+        check(all(e <= tol["dmdc"] for _, e, _ in errs),
+              f"streamed_dmdc rollouts {errs}")
+        say(out, f"streamed_dmdc {n_x}x{n_t} f32 ({x_host.nbytes / 1e9:.2f} "
+                 f"GB), 2 controls, {n_modes} modes: fit {sec:.4f} s, peak "
+                 f"{peak / 2 ** 30:.3f} GiB; " + ", ".join(
+                     f"{meth} rollout err / max|x| {e:.3e} in {r:.4f} s"
+                     for meth, e, r in errs)
+                 + f" (tol {tol['dmdc']}); {passes}")
+        del x, x_host, model
+    torch.cuda.empty_cache()
+    return out
+
+
+def tau_matrix(x):
+    """Kendall's tau of every pair of columns of a host array, Knight's
+    algorithm in the C++ runtime on the host's cores (a thread a pair)."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from corrla_rs_tpu_torch import native
+
+    cols = [np.ascontiguousarray(x[:, j], dtype=np.float64)
+            for j in range(x.shape[1])]
+    pairs = [(i, j) for i in range(len(cols)) for j in range(i + 1,
+                                                               len(cols))]
+    with ThreadPoolExecutor(8) as pool:
+        taus = list(pool.map(lambda ij: native.kendall_tau_host(
+            cols[ij[0]], cols[ij[1]]), pairs))
+    out = np.eye(len(cols))
+    for (i, j), t in zip(pairs, taus):
+        out[i, j] = out[j, i] = t
+    return out
+
+
+def tau_se(n):
+    return math.sqrt(2.0 * (2 * n + 5) / (9.0 * n * (n - 1.0)))
+
+
+def theta_se(vine, fam, tau, n):
+    """Standard error of theta = g(tau-hat) by the delta method, g' by a
+    central difference of the tau inversion."""
+    h = 1e-5
+    slope = (vine._theta_from_tau(fam, tau + h)
+             - vine._theta_from_tau(fam, tau - h)) / (2 * h)
+    return abs(slope) * tau_se(n)
+
+
+def planted_pair(vine, fam, n, gen, dev, tau=0.5):
+    """(n, 2) uniforms of the pair copula ``fam`` at Kendall tau ``tau``
+    (-tau for the 90/270 rotations) and its theta: through the inverse
+    h-function, and for the t families as z / sqrt(chi2_nu / nu) through
+    the t CDF."""
+    f64 = torch.float64
+    _base, rot = vine._split_rotation(fam)
+    tau = -tau if rot in (90, 270) else tau
+    th = vine._theta_from_tau(fam, tau)
+    if fam in vine._T_NU:
+        nu = vine._T_NU[fam]
+        z = torch.randn(n, 2, generator=gen, device=dev, dtype=f64)
+        z[:, 1] = th * z[:, 0] + math.sqrt(1 - th * th) * z[:, 1]
+        chi2 = (torch.randn(n, int(nu), generator=gen, device=dev,
+                            dtype=f64) ** 2).sum(dim=1, keepdim=True)
+        return vine._t_cdf(z / torch.sqrt(chi2 / nu), nu), th
+    w = torch.rand(n, 2, generator=gen, device=dev, dtype=f64)
+    w = w.clamp(1e-6, 1 - 1e-6)
+    if fam == "independent":
+        return w, th
+    return torch.stack([vine._HINV[fam](w[:, 1], w[:, 0], th), w[:, 0]],
+                       dim=1), th
+
+
+# the planted C-vine (root 0): pairs[t] pairs root t with every later
+# variable given roots 0..t-1
+CVINE_PAIRS = (
+    (("gaussian", 0.7), ("clayton", 2.0), ("gumbel180", 1.6),
+     ("frank", 6.0), ("clayton90", 1.5)),
+    (("gaussian", 0.4), ("independent", 0.0), ("frank", 3.0),
+     ("independent", 0.0)),
+    (("independent", 0.0), ("gumbel", 1.3), ("independent", 0.0)),
+    (("independent", 0.0), ("independent", 0.0)),
+    (("independent", 0.0),),
+)
+MARKOV_RHO = (0.9, 0.85, 0.8, 0.75, 0.7)
+
+
+def planted_cvine(port, d, dev):
+    """A C-vine with CVINE_PAIRS cut to d variables, to sample from."""
+    vine = port.CVineCopula()
+    vine.d, vine.n = d, 1
+    vine.var_order = list(range(d))
+    vine.pairs = [list(row[:d - 1 - t]) for t, row in
+                  enumerate(CVINE_PAIRS[:d - 1])]
+    vine._marginals = torch.zeros(1, d, dtype=torch.float64, device=dev)
+    return vine
+
+
+def held_vine(vine_mod, out, name, fit, data, tol, samples):
+    """A fitted vine's draws against its training data's Kendall taus."""
+    (draws, sec) = wall(lambda: fit.sample(samples, key=5))
+    check(bool(torch.isfinite(draws).all()), f"{name}: non-finite draws")
+    t0 = time.perf_counter()
+    err = np.abs(tau_matrix(to_host(draws)) - tau_matrix(data)).max()
+    tau_s = time.perf_counter() - t0
+    check(err <= tol, f"{name}: draws' tau off the data's by {err:.3e}")
+    say(out, f"{name}: {samples} draws in {sec:.4f} s, Kendall tau matrix "
+             f"within {err:.2e} of the data's (tol {tol}; taus "
+             f"{tau_s:.2f} s on the host)")
+
+
+def phase_stats(port, dev, gen, seed):
+    """Gaussian mixtures, CMA-ES, CCA, PLS, copulas and vines at full size
+    against planted truths."""
+    from corrla_rs_tpu_torch.ops import vine as vine_mod
+
+    out = []
+    tol = {k: v[0] for k, v in STATS_TOL.items()}
+    f64 = torch.float64
+
+    # Gaussian mixtures: 32 planted components in 16-D, well separated
+    # (means 300 apart on each axis's scale, covariances of eigenvalues
+    # 0.5-2), full and diagonal
+    n, d, k = SIZES["gmm"]
+    means = 300.0 * torch.randn(k, d, generator=gen, device=dev, dtype=f64)
+    w = torch.rand(k, generator=gen, device=dev, dtype=f64) + 0.5
+    w = w / w.sum()
+    comp = torch.multinomial(w, n, replacement=True, generator=gen)
+    counts = torch.bincount(comp, minlength=k).to(f64)
+    for cov_type in ("full", "diag"):
+        lam = 0.5 + 1.5 * torch.rand(k, d, generator=gen, device=dev,
+                                     dtype=f64)
+        q = torch.linalg.qr(torch.randn(k, d, d, generator=gen, device=dev,
+                                        dtype=f64)).Q
+        if cov_type == "diag":
+            q = torch.eye(d, dtype=f64, device=dev).expand(k, d, d)
+        covs = q @ torch.diag_embed(lam) @ q.mT
+        z = torch.randn(n, d, generator=gen, device=dev, dtype=f64)
+        x = means[comp] + (torch.linalg.cholesky(covs)[comp]
+                           @ z[:, :, None])[:, :, 0]
+        del z
+        fit, sec = wall(lambda: port.gmm_fit(x, k, key=seed,
+                                             cov_type=cov_type))
+        match = torch.cdist(means, fit.means).argmin(dim=1)
+        check(len(set(match.tolist())) == k,
+              f"gmm {cov_type}: planted means not matched one to one")
+        se = torch.sqrt(torch.diagonal(covs, dim1=-2, dim2=-1)
+                        / counts[:, None])
+        zmax = ((fit.means[match] - means).abs() / se).max().item()
+        planted = port.GmmFit(w, means, covs, fit.log_likelihood,
+                              fit.n_iter, fit.responsibilities, cov_type)
+        ll_fit = float(fit.log_likelihood) / n
+        ll_true = float(port.gmm_logpdf(planted, x).sum()) / n
+        gap = ll_fit - ll_true
+        check(zmax <= tol["gmm_mean"] and -1e-6 <= gap <= tol["gmm_ll"],
+              f"gmm {cov_type}: means {zmax:.2f} SE, ll gap {gap:.3e}")
+        say(out, f"gmm_fit {n}x{d} f64, {k} planted components, "
+                 f"cov_type={cov_type}: {int(fit.n_iter)} EM iterations in "
+                 f"{sec:.4f} s; means within {zmax:.2f} SE (tol "
+                 f"{tol['gmm_mean']}); log-likelihood a point {ll_fit:.6f} "
+                 f"vs planted {ll_true:.6f} (gap {gap:.2e}, tol "
+                 f"{tol['gmm_ll']})")
+        if cov_type == "full":
+            n_sel, ks = SIZES["gmm_select"]
+            (best, best_k, scores), sel_s = wall(
+                lambda: port.gmm_select(x[:n_sel], ks, key=seed))
+            check(best_k == k, f"gmm_select picked {best_k}: {scores}")
+            listed = ", ".join(f"{kk}: {v:.6e}" for kk, v in scores.items())
+            say(out, f"gmm_select over k in {ks} at {n_sel} points: BIC "
+                     f"picks {best_k} ({listed}); {sel_s:.4f} s")
+            draws, smp_s = wall(lambda: port.gmm_sample(fit, seed, n))
+            mean_mix = fit.weights @ fit.means
+            dm = fit.means - mean_mix
+            cov_mix = (fit.weights[:, None, None]
+                       * (fit.covs + dm[:, :, None] * dm[:, None, :])).sum(0)
+            c = draws - mean_mix
+            z_mean = ((c.mean(0)) / torch.sqrt(torch.diagonal(cov_mix) / n))
+            prods = c[:, :, None] * c[:, None, :]
+            z_cov = ((prods.mean(0) - cov_mix)
+                     / (prods.std(0) / math.sqrt(n)))
+            zm = max(z_mean.abs().max().item(), z_cov.abs().max().item())
+            check(zm <= tol["gmm_moments"], f"gmm_sample moments {zm:.2f} SE")
+            say(out, f"gmm_sample {n}: mean and covariance within {zm:.2f} "
+                     f"SE of the fit's mixture (tol {tol['gmm_moments']}); "
+                     f"{smp_s:.4f} s")
+            del draws, c, prods
+        del x, fit
+        torch.cuda.empty_cache()
+
+    # CMA-ES: a rotated ellipsoid of condition 1e6 in 64-D at population
+    # 256, and Rosenbrock in 16-D, each objective written for one point
+    d_e, pop, gens_e, cond = SIZES["cma_ellipsoid"]
+    rot = torch.linalg.qr(torch.randn(d_e, d_e, generator=gen, device=dev,
+                                      dtype=f64)).Q
+    scales = cond ** (torch.arange(d_e, dtype=f64, device=dev) / (d_e - 1))
+
+    def ellipsoid(v):
+        y = rot.mT @ v
+        return torch.sum(scales * y * y)
+
+    def rosenbrock(v):
+        return torch.sum(100.0 * (v[1:] - v[:-1] ** 2) ** 2
+                         + (1.0 - v[:-1]) ** 2)
+
+    d_r, pop_r, gens_r = SIZES["cma_rosenbrock"]
+    for name, fn, x0, pop_n, gens in (
+            (f"rotated ellipsoid {d_e}-D (cond {cond:.0e}, population "
+             f"{pop})", ellipsoid, np.ones(d_e), pop, gens_e),
+            (f"Rosenbrock {d_r}-D (population {pop_r})", rosenbrock,
+             np.zeros(d_r), pop_r, gens_r)):
+        res, sec = wall(lambda: port.cma_es(fn, x0, sigma0=0.5, n_gens=gens,
+                                            pop_size=pop_n, key=seed,
+                                            device=dev))
+        check(res.f_best <= tol["cma"], f"cma_es {name}: {res.f_best:.3e}")
+        say(out, f"cma_es {name}, {gens} generations: f_best "
+                 f"{res.f_best:.3e} (tol {tol['cma']}); {sec:.4f} s, "
+                 f"{sec / gens * 1e3:.4f} ms a generation")
+
+    # CCA: 8 planted canonical pairs hidden by mixing
+    n_c, p, q_dim, k_c = SIZES["cca"]
+    rho = torch.linspace(0.9, 0.2, k_c, dtype=f64, device=dev)
+    zx = torch.randn(n_c, k_c, generator=gen, device=dev, dtype=f64)
+    zy = rho * zx + torch.sqrt(1 - rho ** 2) * torch.randn(
+        n_c, k_c, generator=gen, device=dev, dtype=f64)
+    x = torch.cat([zx, torch.randn(n_c, p - k_c, generator=gen, device=dev,
+                                   dtype=f64)], 1) @ torch.randn(
+        p, p, generator=gen, device=dev, dtype=f64)
+    y = torch.cat([zy, torch.randn(n_c, q_dim - k_c, generator=gen,
+                                   device=dev, dtype=f64)], 1) @ torch.randn(
+        q_dim, q_dim, generator=gen, device=dev, dtype=f64)
+    del zx, zy
+    fit, sec = wall(lambda: port.cca(x, y, n_components=k_c))
+    se = ((1 - rho ** 2) / math.sqrt(n_c)).cpu().numpy()
+    zc = np.abs(fit.corrs - rho.cpu().numpy()) / se
+    check(zc.max() <= tol["cca"], f"cca: {zc.max():.2f} SE")
+    say(out, f"cca {n_c}x({p}, {q_dim}) f64, {k_c} planted pairs: "
+             f"canonical correlations within {zc.max():.2f} SE (tol "
+             f"{tol['cca']}); {sec:.4f} s")
+    del x, y, fit
+    torch.cuda.empty_cache()
+
+    # PLS: k_p latent directions in 512 noisy columns, 16 responses
+    n_p, p_p, q_p, k_p = SIZES["pls"]
+    lat = torch.randn(n_p, k_p, generator=gen, device=dev, dtype=f64)
+    x = lat @ torch.randn(k_p, p_p, generator=gen, device=dev, dtype=f64) \
+        + 0.3 * torch.randn(n_p, p_p, generator=gen, device=dev, dtype=f64)
+    y = lat @ torch.randn(k_p, q_p, generator=gen, device=dev, dtype=f64) \
+        + 0.5 * torch.randn(n_p, q_p, generator=gen, device=dev, dtype=f64)
+    del lat
+    full, sec = wall(lambda: port.pls_fit(x, y, p_p))
+    ols = torch.linalg.lstsq(x - x.mean(0), y - y.mean(0)).solution
+    ok = ((full.coef - ols).abs() <= 1e-10 + tol["pls_ols"] * ols.abs())
+    dev_ols = ((full.coef - ols).abs() / ols.abs().max()).max().item()
+    check(bool(ok.all()), f"pls_fit({p_p}) off least squares: {dev_ols:.3e}")
+    n_tr = 3 * n_p // 4
+    part, sec16 = wall(lambda: port.pls_fit(x[:n_tr], y[:n_tr], k_p))
+    score = part.score(x[n_tr:], y[n_tr:])
+    xm, ym = x[:n_tr].mean(0), y[:n_tr].mean(0)
+    b = torch.linalg.lstsq(x[:n_tr] - xm, y[:n_tr] - ym).solution
+    resid = (y[n_tr:] - ym - (x[n_tr:] - xm) @ b).cpu().numpy()
+    yt = y[n_tr:].cpu().numpy()
+    score_ols = float(np.mean(1 - (resid ** 2).sum(0)
+                              / ((yt - yt.mean(0)) ** 2).sum(0)))
+    check(score >= score_ols - tol["pls_score"],
+          f"pls_fit({k_p}) held-out R^2 {score:.6f} vs {score_ols:.6f}")
+    say(out, f"pls_fit {n_p}x{p_p} -> {q_p} f64: {p_p} components equal "
+             f"least squares (max dev {dev_ols:.2e} of the largest, rtol "
+             f"{tol['pls_ols']}) in {sec:.4f} s; {k_p} components on "
+             f"{n_tr} rows: held-out R^2 {score:.6f} vs least squares' "
+             f"{score_ols:.6f} (tol {tol['pls_score']}) in {sec16:.4f} s")
+    del x, y, full, part, ols
+    torch.cuda.empty_cache()
+
+    # Gaussian copula on skewed marginals
+    n_g, d_g = SIZES["gauss_copula"]
+    a_c = torch.randn(d_g, d_g, generator=gen, device=dev, dtype=f64)
+    cov = a_c @ a_c.mT + d_g * torch.eye(d_g, dtype=f64, device=dev) * 0.2
+    dd = torch.sqrt(torch.diagonal(cov))
+    r_true = cov / torch.outer(dd, dd)
+    z = torch.randn(n_g, d_g, generator=gen, device=dev, dtype=f64) \
+        @ torch.linalg.cholesky(r_true).mT
+    skewed = torch.where(torch.arange(d_g, device=dev) % 2 == 0,
+                         torch.exp(z), z ** 3)
+    gc, sec = wall(lambda: port.GaussianCopula().fit(skewed))
+    zc = ((gc.corr - r_true).abs()
+          / ((1 - r_true ** 2) / math.sqrt(n_g)).clamp_min(1e-12))
+    zc.fill_diagonal_(0.0)
+    draws, smp_s = wall(lambda: gc.sample(n_g, key=seed))
+    tau_true = (2 / math.pi) * torch.arcsin(r_true).cpu().numpy()
+    d_host = to_host(draws)
+    tau_err = max(abs(float(vine_mod.kendall_tau(d_host[:, 0], d_host[:, j],
+                                                 method="host"))
+                      - tau_true[0, j]) for j in range(1, d_g))
+    check(zc.max().item() <= tol["copula_corr"]
+          and tau_err <= tol["copula_tau"],
+          f"GaussianCopula: corr {zc.max().item():.2f} SE, tau {tau_err:.3e}")
+    say(out, f"GaussianCopula {n_g}x{d_g} skewed marginals: latent "
+             f"correlations within {zc.max().item():.2f} SE (tol "
+             f"{tol['copula_corr']}), fit {sec:.4f} s; {n_g} draws in "
+             f"{smp_s:.4f} s, Kendall tau (column 0 with each) within "
+             f"{tau_err:.2e} of the planted (tol {tol['copula_tau']})")
+    del z, skewed, draws, d_host
+    torch.cuda.empty_cache()
+
+    # BivariateCopula: each family planted at tau 0.5 (-0.5 rotated)
+    n_b = SIZES["bivariate"]
+    worst, picked, fit_s = 0.0, [], 0.0
+    for fam in vine_mod.FAMILIES:
+        uv, th = planted_pair(vine_mod, fam, n_b, gen, dev)
+        fixed, sec = wall(lambda: port.BivariateCopula(fam).fit(uv))
+        fit_s += sec
+        se = theta_se(vine_mod, fam, fixed.tau, n_b) if fam != \
+            "independent" else tau_se(n_b)
+        zt = abs((fixed.tau if fam == "independent" else fixed.theta) - th) \
+            / se
+        worst = max(worst, zt)
+        check(zt <= tol["theta"], f"BivariateCopula({fam}): theta "
+              f"{fixed.theta:.4f} vs {th:.4f} ({zt:.2f} SE)")
+        if vine_mod._split_rotation(fam)[0] in ("clayton", "gumbel"):
+            auto, sec = wall(lambda: port.BivariateCopula().fit(uv))
+            fit_s += sec
+            check(auto.fitted_family == fam,
+                  f"BivariateCopula('auto') on {fam} data picked "
+                  f"{auto.fitted_family}")
+            picked.append(fam)
+    say(out, f"BivariateCopula on the {len(vine_mod.FAMILIES)} families at "
+             f"{n_b} planted pairs: theta within {worst:.2f} SE (tol "
+             f"{tol['theta']}); 'auto' picks the planted family for all "
+             f"{len(picked)} of {', '.join(picked)}; {fit_s:.4f} s of fits")
+
+    # Kendall tau: both routes on tie-free data, timed at three sizes
+    rows = []
+    for n_t in SIZES["tau"]:
+        xt = torch.randn(n_t, generator=gen, device=dev, dtype=f64)
+        yt = 0.5 * xt + torch.randn(n_t, generator=gen, device=dev, dtype=f64)
+        t_dev, dev_s = wall(lambda: float(vine_mod.kendall_tau(
+            xt, yt, method="device")))
+        t_host, host_s = wall(lambda: vine_mod.kendall_tau(xt, yt,
+                                                            method="host"))
+        if n_t == SIZES["tau"][0]:
+            check(abs(t_dev - t_host) <= tol["tau_routes"],
+                  f"kendall_tau routes differ by {abs(t_dev - t_host):.3e}")
+        rows.append(f"{n_t}: device {dev_s * 1e3:.3f} ms, host "
+                    f"{host_s * 1e3:.3f} ms")
+    say(out, f"kendall_tau routes equal at {SIZES['tau'][0]} (tol "
+             f"{tol['tau_routes']}); " + "; ".join(rows) + " (auto takes the "
+             f"device up to {vine_mod._TAU_DEVICE_MAX_N})")
+
+    # C-vines from the planted vine: 6-D by tau inversion, 4-D refined
+    n_draws = SIZES["vine_samples"]
+    for (d_v, n_v), refine in ((SIZES["cvine"], False),
+                               (SIZES["cvine_refine"], True)):
+        planted = planted_cvine(port, d_v, dev)
+        u_data = planted.sample_uniform(n_v, key=seed)
+        data = to_host(u_data)
+        fit, sec = wall(lambda: port.CVineCopula(refine=refine).fit(u_data))
+        check(fit.var_order[0] == 0, f"CVine root {fit.var_order[0]}")
+        zmax = 0.0
+        for j, (fam, th) in enumerate(fit.pairs[0]):
+            want_fam, want_th = CVINE_PAIRS[0][fit.var_order[j + 1] - 1]
+            check(fam == want_fam, f"CVine tree 0 pair {j}: {fam} where "
+                  f"{want_fam} was planted")
+            zt = abs(th - want_th) / theta_se(
+                vine_mod, fam, float(vine_mod.kendall_tau(
+                    data[:, 0], data[:, fit.var_order[j + 1]])), n_v)
+            zmax = max(zmax, zt)
+        check(zmax <= tol["theta"], f"CVine tree 0 theta {zmax:.2f} SE")
+        deep = [f for row in fit.pairs[1:] for f, _t in row]
+        say(out, f"CVineCopula {d_v}-D at {n_v} samples (refine={refine}): "
+                 f"fit {sec:.4f} s; root and tree-0 families as planted, "
+                 f"theta within {zmax:.2f} SE (tol {tol['theta']}); deeper "
+                 f"pairs {deep}")
+        held_vine(vine_mod, out, f"CVineCopula {d_v}-D", fit, data,
+                  tol["vine_tau"], n_draws)
+        torch.cuda.empty_cache()
+
+    # R-vine of a Markov chain (a D-vine): tree 1 is the chain
+    d_r, n_r = SIZES["rvine"]
+    zs = torch.randn(n_r, d_r, generator=gen, device=dev, dtype=f64)
+    cols = [zs[:, 0]]
+    for j, r in enumerate(MARKOV_RHO[:d_r - 1]):
+        cols.append(r * cols[-1] + math.sqrt(1 - r * r) * zs[:, j + 1])
+    chain = torch.stack(cols, dim=1)
+    data = to_host(chain)
+    fit, sec = wall(lambda: port.RVineCopula().fit(chain))
+    tree1 = {frozenset((a_, b_)) for (a_, b_, _c, _f, _t) in fit.trees[0]}
+    check(tree1 == {frozenset((j, j + 1)) for j in range(d_r - 1)},
+          f"RVine tree 1 {sorted(map(sorted, tree1))}")
+    fams = [f for (_a, _b, _c, f, _t) in fit.trees[0]]
+    check(all(f in ("gaussian", "t8", "t15") for f in fams),
+          f"RVine tree 1 families {fams}")
+    deep = [f for lvl in fit.trees[1:] for (_a, _b, _c, f, _t) in lvl]
+    trunc, t_sec = wall(lambda: port.RVineCopula(truncate_level=1).fit(
+        chain))
+    check(all(f == "independent" and t == 0.0 for lvl in trunc.trees[1:]
+              for (_a, _b, _c, f, t) in lvl)
+          and bool(torch.isfinite(trunc.sample(1000, key=3)).all()),
+          "RVine truncation")
+    say(out, f"RVineCopula {d_r}-D Markov chain at {n_r} samples: fit "
+             f"{sec:.4f} s; tree 1 is the chain, families {fams}; "
+             f"{deep.count('independent')} of {len(deep)} deeper pairs "
+             f"independent (each gate passes noise 5% of the time); "
+             f"truncated at 1 tree: deeper pairs independent, fit "
+             f"{t_sec:.4f} s")
+    held_vine(vine_mod, out, f"RVineCopula {d_r}-D", fit, data,
+              tol["vine_tau"], n_draws)
+    torch.cuda.empty_cache()
+    return out
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--seed", type=int, default=0,
@@ -3756,6 +4511,33 @@ def main(argv=None) -> int:
     print(f"[launches] ok  uq (no kernel on this path): {eighth}", flush=True)
     torch.cuda.empty_cache()
 
+    # 21. out-of-core streaming from host arrays: the streamed POD's fit
+    # launches the kernel matrix, its predict the matvec
+    rk.pairwise_kernel_matrix.launches = 0
+    rk.rbf_matvec.launches = 0
+    t0 = time.perf_counter()
+    n_checks = len(phase_streaming(port, dev, gen, args.seed + 14))
+    report("streaming", t0, f"{n_checks} checks, each printed above")
+    ninth = {"pairwise_kernel_matrix": rk.pairwise_kernel_matrix.launches,
+             "rbf_matvec": rk.rbf_matvec.launches}
+    for name, count in ninth.items():
+        check(count > 0, f"{name} was not launched by the streaming phase")
+    print(f"[launches] ok  streaming: {ninth}", flush=True)
+    torch.cuda.empty_cache()
+
+    # 22. the statistics layer; it reaches no kernel
+    rk.pairwise_kernel_matrix.launches = 0
+    rk.rbf_matvec.launches = 0
+    t0 = time.perf_counter()
+    report("stats", t0, f"{len(phase_stats(port, dev, gen, args.seed + 15))} "
+           "checks, each printed above")
+    tenth = {"pairwise_kernel_matrix": rk.pairwise_kernel_matrix.launches,
+             "rbf_matvec": rk.rbf_matvec.launches}
+    check(not any(tenth.values()), f"stats launched a kernel: {tenth}")
+    print(f"[launches] ok  stats (no kernel on this path): {tenth}",
+          flush=True)
+    torch.cuda.empty_cache()
+
     # timing details and the kNN against its plain version (not counted)
     t0 = time.perf_counter()
     fit_r = detail_rbf_fit(rk, dev, gen)
@@ -3784,7 +4566,8 @@ def main(argv=None) -> int:
              "dmdc/active_ss/samplers": second,
              "dream/factorize/mle": third,
              "inference/filters/evidence": fourth, "gp": fifth,
-             "rom": sixth, "koopman": seventh, "uq": eighth}
+             "rom": sixth, "koopman": seventh, "uq": eighth,
+             "streaming": ninth, "stats": tenth}
     table = {"kernels": []}
     for name in ("pairwise_kernel_matrix", "rbf_matvec"):
         top = max((row for row in timings[name] if row["main_path"]),

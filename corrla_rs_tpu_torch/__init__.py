@@ -75,12 +75,15 @@ from corrla_rs_tpu_torch.models.sindy import Sindy
 from corrla_rs_tpu_torch.models.spod import Spod, spod
 from corrla_rs_tpu_torch.ops.bayes_opt import BayesOpt, bayes_opt_minimize
 from corrla_rs_tpu_torch.ops.bridge import bridge_sampling_evidence
+from corrla_rs_tpu_torch.ops.cca import Cca, cca
 from corrla_rs_tpu_torch.ops.cg import (
     cg_solve,
     jacobi_preconditioner,
     nystrom_preconditioner,
 )
+from corrla_rs_tpu_torch.ops.cma import CmaResult, cma_es
 from corrla_rs_tpu_torch.ops.completion import matrix_complete
+from corrla_rs_tpu_torch.ops.copula import BivariateCopula, GaussianCopula
 from corrla_rs_tpu_torch.ops.cp import cp_als, cp_reconstruct
 from corrla_rs_tpu_torch.ops.deim import deim_points, deim_reconstruct
 from corrla_rs_tpu_torch.ops.design import (
@@ -106,6 +109,13 @@ from corrla_rs_tpu_torch.ops.gappy import (
     gappy_pod_fill,
     gappy_reconstruct,
     oversample_points,
+)
+from corrla_rs_tpu_torch.ops.gmm import (
+    GmmFit,
+    gmm_fit,
+    gmm_logpdf,
+    gmm_sample,
+    gmm_select,
 )
 from corrla_rs_tpu_torch.ops.gp import GpRegressor, SparseGpRegressor
 from corrla_rs_tpu_torch.ops.grassmann import (
@@ -147,6 +157,7 @@ from corrla_rs_tpu_torch.ops.nuts import nuts_run
 from corrla_rs_tpu_torch.ops.nystrom import nystrom_approx, nystrom_eigh
 from corrla_rs_tpu_torch.ops.particle import particle_filter, ukf_filter
 from corrla_rs_tpu_torch.ops.pce import PolynomialChaos
+from corrla_rs_tpu_torch.ops.pls import PlsRegressor, pls_fit
 from corrla_rs_tpu_torch.ops.psis import importance_resample, psis
 from corrla_rs_tpu_torch.ops.quadrature import (
     clenshaw_curtis,
@@ -169,6 +180,7 @@ from corrla_rs_tpu_torch.ops.rank_select import (
     svht_threshold,
 )
 from corrla_rs_tpu_torch.ops.robust_pca import robust_pca
+from corrla_rs_tpu_torch.ops.rvine import RVineCopula
 from corrla_rs_tpu_torch.ops.samplers import (
     DeMcSampler,
     constr_dirichlet_sample,
@@ -188,6 +200,17 @@ from corrla_rs_tpu_torch.ops.slq import (
 from corrla_rs_tpu_torch.ops.smc import smc_sample
 from corrla_rs_tpu_torch.ops.sobol import saltelli_plan, sobol_indices
 from corrla_rs_tpu_torch.ops.spdmd import spdmd
+from corrla_rs_tpu_torch.ops.streaming import (
+    RowBlockSource,
+    streamed_cov,
+    streamed_dmdc,
+    streamed_hosvd,
+    streamed_pca,
+    streamed_pearson_corr,
+    streamed_pod,
+    streamed_random_svd,
+    streamed_single_pass_svd,
+)
 from corrla_rs_tpu_torch.ops.trace_est import hutchinson_trace, hutchpp_trace
 from corrla_rs_tpu_torch.ops.tt import (
     tt_dot,
@@ -196,6 +219,7 @@ from corrla_rs_tpu_torch.ops.tt import (
     tt_round,
     tt_svd,
 )
+from corrla_rs_tpu_torch.ops.vine import CVineCopula
 from corrla_rs_tpu_torch.ops.univariate_rv import (
     BetaRv,
     ExponentialRv,
@@ -383,4 +407,27 @@ __all__ = [
     "mfmc_design",
     "mfmc_estimate",
     "control_variate_estimate",
+    "RowBlockSource",
+    "streamed_random_svd",
+    "streamed_single_pass_svd",
+    "streamed_pca",
+    "streamed_pod",
+    "streamed_dmdc",
+    "streamed_cov",
+    "streamed_pearson_corr",
+    "streamed_hosvd",
+    "GmmFit",
+    "gmm_fit",
+    "gmm_logpdf",
+    "gmm_sample",
+    "gmm_select",
+    "cma_es",
+    "Cca",
+    "cca",
+    "PlsRegressor",
+    "pls_fit",
+    "GaussianCopula",
+    "BivariateCopula",
+    "CVineCopula",
+    "RVineCopula",
 ]

@@ -10,10 +10,9 @@ attribute) and ``lst_<name>_<i>`` with ``__len_<name>`` (lists of arrays):
 
 Tensors are written as numpy arrays, so a file saved here loads into the
 JAX package, and a file the JAX package saved for a class the port has
-loads here (``utils.convert`` reads both). The registry holds the port's
-classes only: a class the JAX package has and the port does not yet is
-refused with a ``ValueError`` that names it and the ROADMAP item that
-ports it. ``torch.device`` attributes are machine-specific and are saved
+loads here (``utils.convert`` reads both). The registry holds every class
+the JAX package registers; an unknown class is refused with a
+``ValueError`` that names it. ``torch.device`` attributes are machine-specific and are saved
 as None (loaded objects put numpy inputs on the default device).
 
 A DREAM run resumes from its ``DreamState``: ``save_dream_state`` writes
@@ -36,14 +35,6 @@ __all__ = [
 ]
 
 _REGISTRY: dict[str, type] = {}
-
-# classes the JAX package checkpoints that the port does not have yet, and
-# the ROADMAP queue-1 item that ports each
-_NOT_PORTED = {
-    **{name: "queue 1 item 16" for name in (
-        "GaussianCopula", "BivariateCopula", "CVineCopula", "RVineCopula",
-        "Cca", "PlsRegressor")},
-}
 
 _DREAM_ARRAYS = ("heads", "head_lnp", "p_cr", "jump_dist", "n_id",
                  "n_accept", "t")
@@ -76,39 +67,42 @@ def _builtin_registry():
     from corrla_rs_tpu_torch.models.pod import PodI
     from corrla_rs_tpu_torch.models.sindy import Sindy
     from corrla_rs_tpu_torch.models.spod import Spod
+    from corrla_rs_tpu_torch.ops.cca import Cca
+    from corrla_rs_tpu_torch.ops.copula import BivariateCopula, GaussianCopula
     from corrla_rs_tpu_torch.ops.gp import GpRegressor, SparseGpRegressor
     from corrla_rs_tpu_torch.ops.incremental import (
         IncrementalPca,
         IncrementalSvd,
     )
     from corrla_rs_tpu_torch.ops.interp import RbfInterp
+    from corrla_rs_tpu_torch.ops.pls import PlsRegressor
+    from corrla_rs_tpu_torch.ops.rvine import RVineCopula
     from corrla_rs_tpu_torch.ops.univariate_rv import (
         BetaRv,
         ExponentialRv,
         KdeRv,
         NormalRv,
     )
+    from corrla_rs_tpu_torch.ops.vine import CVineCopula
 
     for cls in (PcaRsvd, PodI, DMD, DMDc, PyDMDc, RbfInterp,
                 FittedActiveSsRsvd, NormalRv, BetaRv, ExponentialRv, KdeRv,
                 GpRegressor, SparseGpRegressor, OnlineDmd, IncrementalSvd,
                 IncrementalPca, HankelDmd, MrDmd, PiDmd, Era, Edmd,
-                KernelDmd, Spod, OpInf, Sindy, OptDmd, BopDmd, BaggedDmd):
+                KernelDmd, Spod, OpInf, Sindy, OptDmd, BopDmd, BaggedDmd,
+                Cca, PlsRegressor, GaussianCopula, BivariateCopula,
+                CVineCopula, RVineCopula):
         _REGISTRY.setdefault(cls.__name__, cls)
 
 
 def _model_class(name: str) -> type:
     """The port's registered class of that name; a ``ValueError`` that
-    names the class (and, for one the port lacks, its ROADMAP item)
-    otherwise."""
+    names the class otherwise."""
     _builtin_registry()
     cls = _REGISTRY.get(name)
-    if cls is not None:
-        return cls
-    if name in _NOT_PORTED:
-        raise ValueError(f"model class {name!r} is not ported yet "
-                         f"(ROADMAP {_NOT_PORTED[name]})")
-    raise ValueError(f"unknown model class {name!r}; register it first")
+    if cls is None:
+        raise ValueError(f"unknown model class {name!r}; register it first")
+    return cls
 
 
 def _is_array(val) -> bool:

@@ -4,7 +4,9 @@ A fitted ``PcaRsvd``, ``RbfInterp``, ``PodI``, ``DMDc`` (or ``PyDMDc``),
 ``DMD``, ``FittedActiveSsRsvd``, ``GpRegressor``, ``SparseGpRegressor``,
 ``HankelDmd``, ``MrDmd``, ``PiDmd``, ``Era``, ``OnlineDmd``, ``Edmd``,
 ``KernelDmd``, ``Spod``, ``OpInf``, ``Sindy``, ``OptDmd``, ``BopDmd``,
-``BaggedDmd`` or ``PolynomialChaos`` of ``corrla_rs_tpu``, and the running
+``BaggedDmd``, ``PolynomialChaos``, ``Cca``, ``PlsRegressor``,
+``GaussianCopula``, ``BivariateCopula``, ``CVineCopula`` or ``RVineCopula``
+of ``corrla_rs_tpu``, and the running
 state of an ``IncrementalSvd`` or
 ``IncrementalPca``, is a flat bag of arrays, lists of arrays and scalars,
 and so is its port counterpart, attribute for attribute. A sampler's
@@ -29,7 +31,8 @@ Real arrays go to ``device`` (default: ``utils.device.default_device()``)
 with their dtype; complex arrays (DMD's ``lambdas`` and ``amplitudes``), and
 the real ones a class keeps on the host (``_HOST_ARRAYS``: SPOD's
 frequencies, the bagged fits' member statistics, a PCE's standardisation,
-multi-indices and recurrences), stay host numpy arrays, as the port keeps
+multi-indices and recurrences, CCA's canonical correlations), stay host
+numpy arrays, as the port keeps
 them; the JAX-only ``_mesh`` attribute is dropped.
 """
 from __future__ import annotations
@@ -56,13 +59,19 @@ from corrla_rs_tpu_torch.models.pidmd import PiDmd
 from corrla_rs_tpu_torch.models.pod import PodI
 from corrla_rs_tpu_torch.models.sindy import Sindy
 from corrla_rs_tpu_torch.models.spod import Spod
+from corrla_rs_tpu_torch.ops.cca import Cca
+from corrla_rs_tpu_torch.ops.copula import BivariateCopula, GaussianCopula
 from corrla_rs_tpu_torch.ops.dream import DreamState
 from corrla_rs_tpu_torch.ops.ensemble_mcmc import EnsembleState
+from corrla_rs_tpu_torch.ops.gmm import GmmFit
 from corrla_rs_tpu_torch.ops.gp import GpRegressor, SparseGpRegressor
 from corrla_rs_tpu_torch.ops.incremental import IncrementalPca, IncrementalSvd
 from corrla_rs_tpu_torch.ops.interp import RbfInterp
 from corrla_rs_tpu_torch.ops.laplace import LaplaceResult
 from corrla_rs_tpu_torch.ops.pce import PolynomialChaos
+from corrla_rs_tpu_torch.ops.pls import PlsRegressor
+from corrla_rs_tpu_torch.ops.rvine import RVineCopula
+from corrla_rs_tpu_torch.ops.vine import CVineCopula
 from corrla_rs_tpu_torch.utils.device import default_device
 
 __all__ = ["from_jax_state", "load_jax_checkpoint"]
@@ -77,7 +86,10 @@ _CLASSES = {"PcaRsvd": PcaRsvd, "RbfInterp": RbfInterp, "PodI": PodI,
             "OnlineDmd": OnlineDmd, "Edmd": Edmd, "KernelDmd": KernelDmd,
             "Spod": Spod, "OpInf": OpInf, "Sindy": Sindy, "OptDmd": OptDmd,
             "BopDmd": BopDmd, "BaggedDmd": BaggedDmd,
-            "PolynomialChaos": PolynomialChaos}
+            "PolynomialChaos": PolynomialChaos, "Cca": Cca,
+            "PlsRegressor": PlsRegressor, "GaussianCopula": GaussianCopula,
+            "BivariateCopula": BivariateCopula, "CVineCopula": CVineCopula,
+            "RVineCopula": RVineCopula}
 _DMDC_STATE = ("n_x", "n_u", "_A", "_B", "_u_hat", "lambdas", "modes_re",
                "modes_im", "_w_re", "_w_im")
 _DMD_STATE = ("n_x", "n_t", "_A", "_u_r", "lambdas", "amplitudes",
@@ -121,6 +133,14 @@ _REQUIRED = {
     "BaggedDmd": ("n_state", "n_members", "lambdas_all", "modes_all_re",
                   "modes_all_im"),
     "PolynomialChaos": ("order", "dist", "_alpha", "coeffs"),
+    "Cca": ("n_components", "corrs", "x_weights", "y_weights", "x_mean",
+            "y_mean"),
+    "PlsRegressor": ("n_components", "coef", "x_mean", "y_mean",
+                     "x_weights"),
+    "GaussianCopula": ("corr", "_marginals", "n", "d"),
+    "BivariateCopula": ("fitted_family", "theta", "_marginals", "n"),
+    "CVineCopula": ("var_order", "pairs", "_marginals", "n", "d"),
+    "RVineCopula": ("levels_spec", "_marginals", "n", "d"),
 }
 # real arrays that a class keeps as host numpy arrays (the rest go to the
 # device)
@@ -132,6 +152,7 @@ _HOST_ARRAYS = {
                   "modes_std"),
     "PolynomialChaos": ("bounds", "_mean", "_std", "_alpha", "_rec_a",
                         "_rec_sb"),
+    "Cca": ("corrs",),
 }
 _DREAM_FLOAT = ("heads", "head_lnp", "p_cr", "jump_dist", "n_id")
 _DREAM_COUNT = ("n_accept", "t")
@@ -140,9 +161,11 @@ _ENSEMBLE_COUNT = ("n_accept", "n_reject")
 _LAPLACE_ARRAYS = ("x_map", "cov", "chol_cov", "x_map_all")
 _LAPLACE_SCALARS = (("log_evidence", float), ("ln_post_map", float),
                     ("converged", bool))
+_GMM_ARRAYS = ("weights", "means", "covs", "log_likelihood",
+               "responsibilities")
 # states that are no class of fitted attributes, each made by its own function
 _OTHER_STATES = ("DreamState", "EnsembleState", "LaplaceResult", "tt_cores",
-                 "cp_factors")
+                 "cp_factors", "GmmFit")
 _JAX_ONLY = "_mesh"   # a jax.sharding.Mesh, or None
 
 
@@ -241,6 +264,14 @@ def _cp_factors(state: dict, dev):
             [_tensor(f, dev) for f in state["factors"]])
 
 
+def _gmm_fit(state: dict, dev) -> GmmFit:
+    _require("GmmFit", state, _GMM_ARRAYS + ("n_iter",))
+    fields = {k: _tensor(state[k], dev) for k in _GMM_ARRAYS}
+    return GmmFit(n_iter=torch.as_tensor(int(np.array(state["n_iter"])),
+                                         device=dev),
+                  cov_type=str(state.get("cov_type", "full")), **fields)
+
+
 _MAKERS = {
     "DreamState": _sampler_state(DreamState, _DREAM_FLOAT, _DREAM_COUNT),
     "EnsembleState": _sampler_state(EnsembleState, _ENSEMBLE_FLOAT,
@@ -248,6 +279,7 @@ _MAKERS = {
     "LaplaceResult": _laplace_result,
     "tt_cores": _tt_cores,
     "cp_factors": _cp_factors,
+    "GmmFit": _gmm_fit,
 }
 
 

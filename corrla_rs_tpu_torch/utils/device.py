@@ -49,7 +49,9 @@ def as_tensor(x, device=None, dtype=None) -> torch.Tensor:
     if isinstance(x, torch.Tensor):
         return x.to(device=device or x.device, dtype=dtype or x.dtype)
     arr = np.asarray(x)
-    if not arr.flags.writeable:   # e.g. a read-only view of a JAX array
+    # a read-only view (e.g. of a JAX array) or one with a negative stride
+    # (a reversed slice), which torch cannot wrap, is copied
+    if not arr.flags.writeable or any(s < 0 for s in arr.strides):
         arr = arr.copy()
     return torch.as_tensor(arr, device=device or _DEFAULT_DEVICE, dtype=dtype)
 

@@ -2,10 +2,11 @@
 counterpart in corrla_rs_tpu_torch or sits in NOT_PORTED with the ROADMAP
 queue item (or the ROADMAP "Leave out" entry) that covers it.
 
-Public names are ``corrla_rs_tpu.__all__`` plus each module's ``__all__``.
-A counterpart is the same name in the port's module of the same path (or
-in the port's top level, for a top-level name), or the entry of
-COUNTERPARTS. A NOT_PORTED key is a module path, which covers all of its
+Public names are ``corrla_rs_tpu.__all__`` plus each module's ``__all__``;
+a module without ``__all__`` contributes the public functions and classes
+it defines itself (no leading underscore). A counterpart is the same name
+in the port's module of the same path (or in the port's top level, for a
+top-level name), or the entry of COUNTERPARTS. A NOT_PORTED key is a module path, which covers all of its
 names, or ``module.name``; a top-level name is covered by the key of the
 module that defines it. No key may name something the port has.
 """
@@ -30,6 +31,9 @@ COUNTERPARTS = {
     "ops.pallas_kernels.pairwise_kernel_matrix":
         "ops.rbf_kernels.pairwise_kernel_matrix",
     "ops.pallas_kernels.rbf_matvec_streaming": "ops.rbf_kernels.rbf_matvec",
+    # a JAX key becomes a torch.Generator
+    "utils.prng.as_key": "utils.prng.as_generator",
+    "utils.prng.split_key": "utils.prng.split_seed",
 }
 
 _LEAVE_OUT = "ROADMAP Leave out"
@@ -44,15 +48,12 @@ NOT_PORTED = {
     "ops.eig_device": "queue 1 item 7 (only on a measured H100 need)",
     # queue 1 item 12: the port's bench and its tracing
     "utils.tracing": "queue 1 item 12",
-    # queue 1 item 16: the rest of UQ / statistics
-    **{f"ops.{m}": "queue 1 item 16" for m in (
-        "copula", "vine", "rvine", "gmm", "cma", "cca", "pls")},
-    # queue 1 items 17-19
-    "ops.streaming": "queue 1 item 17",
+    # queue 1 items 18-19
     "parallel.mesh": "queue 1 item 18",
     "parallel.sharded_rsvd": "queue 1 item 18",
     "parallel.sharded_hosvd": "queue 1 item 18",
     "parallel.sharded_samplers": "queue 1 item 18",
+    "utils.config.MeshConfig": "queue 1 item 18",
     "utils.export": "queue 1 item 19",
     # what only the TPU needed
     "utils.cache": _LEAVE_OUT,
@@ -90,7 +91,7 @@ def _public_names():
     """(module path, name) of every public JAX name; "" is the top level."""
     names = [("", n) for n in crt.__all__]
     for rel, mod in _jax_modules():
-        names += [(rel, n) for n in getattr(mod, "__all__", ())]
+        names += [(rel, n) for n in _public(mod)]
     return names
 
 
@@ -117,7 +118,7 @@ def test_not_ported_names_nothing_the_port_has():
             assert _port_module(key) is None, f"{key} is listed but ported"
             continue
         rel, _, name = key.rpartition(".")
-        assert name in getattr(jax_modules[rel], "__all__", ()), key
+        assert name in _public(jax_modules[rel]), key
         assert not _ported(rel, name), f"{key} is listed but ported"
 
 
@@ -152,7 +153,9 @@ def test_this_slice_is_ported():
 
 # the slices of Gaussian processes and Bayesian optimisation, Grassmann
 # interpolation, the ROM models on the DMD core and the checkpoints; then
-# the Koopman/DMD-family ROM models and the sensitivity/UQ estimators
+# the Koopman/DMD-family ROM models and the sensitivity/UQ estimators;
+# then out-of-core streaming, the rest of the statistics layer and the
+# test helpers
 SLICE_MODULES = (
     "ops.gp", "ops.design", "ops.bayes_opt", "ops.grassmann", "ops.deim",
     "ops.gappy", "ops.spdmd", "models.hankel_dmd", "models.mrdmd",
@@ -160,7 +163,8 @@ SLICE_MODULES = (
     "models.edmd", "models.kernel_dmd", "models.spod", "models.opinf",
     "models.sindy", "models.optdmd", "models.bop_dmd", "ops.quadrature",
     "ops.pce", "ops.sobol", "ops.morris", "ops.shapley", "ops.mlmc",
-    "ops.multifidelity",
+    "ops.multifidelity", "ops.streaming", "ops.gmm", "ops.cma", "ops.cca",
+    "ops.pls", "ops.copula", "ops.vine", "ops.rvine", "utils.testing",
 )
 SLICE_NAMES = (
     "GpRegressor", "SparseGpRegressor", "latin_hypercube", "sobol_sample",
@@ -179,6 +183,12 @@ SLICE_NAMES = (
     "shapley_effects_linear", "shapley_effects_quadrature",
     "mlmc_estimate", "mfmc_design", "mfmc_estimate",
     "control_variate_estimate",
+    "RowBlockSource", "streamed_random_svd", "streamed_single_pass_svd",
+    "streamed_pca", "streamed_pod", "streamed_dmdc", "streamed_cov",
+    "streamed_pearson_corr", "streamed_hosvd", "GmmFit", "gmm_fit",
+    "gmm_logpdf", "gmm_sample", "gmm_select", "cma_es", "Cca", "cca",
+    "PlsRegressor", "pls_fit", "GaussianCopula", "BivariateCopula",
+    "CVineCopula", "RVineCopula",
 )
 # a matmul precision is XLA's to choose; here TF32 is off once, for all
 JAX_ONLY_PARAMS = {"precision", "power_precision"}

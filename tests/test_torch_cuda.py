@@ -1380,3 +1380,283 @@ def test_slice_koopman_uq_entry_points_put_numpy_on_the_card(dev):
     assert np.isfinite(ml.mean) and np.isfinite(mf.mean)
     assert np.isfinite(port.control_variate_estimate(
         np.arange(5.0), np.arange(5.0) ** 1.5, 2.0)[0])
+
+
+# ---------------------------------------------------------------------------
+# out-of-core streaming and the statistics layer
+# ---------------------------------------------------------------------------
+
+
+@pytest.fixture
+def stats_cpu_draws(cpu_draws, monkeypatch):
+    """The statistics layer's seams drawn by a CPU generator of the key's
+    seed and moved to the device, as ``cpu_draws`` does for the sketch."""
+    from corrla_rs_tpu_torch.ops import cma, gmm, vine
+
+    def moved(real, n_lead):
+        def draw(key, *args):
+            lead, dev = args[:n_lead], args[n_lead]
+            out = real(_seed_of(key), *lead, "cpu", *args[n_lead + 1:])
+            if isinstance(out, tuple):
+                return tuple(t.to(dev) for t in out)
+            return out.to(dev)
+        return draw
+
+    monkeypatch.setattr(gmm, "_draw_kmeanspp", moved(gmm._draw_kmeanspp, 3))
+    monkeypatch.setattr(gmm, "_draw_sample", moved(gmm._draw_sample, 4))
+    monkeypatch.setattr(cma, "_draw_normals", moved(cma._draw_normals, 4))
+    monkeypatch.setattr(vine, "_draw_uniform", moved(vine._draw_uniform, 2))
+
+
+def _stream_source(n=3001, m=24):
+    import numpy as np
+
+    rng = _np_rng()
+    u, _ = np.linalg.qr(rng.standard_normal((n, m)))
+    v, _ = np.linalg.qr(rng.standard_normal((m, m)))
+    return (u * np.arange(1.0, m + 1) ** -2.0) @ v.T + 0.1
+
+
+def _case_streaming(d):
+    import numpy as np
+
+    from corrla_rs_tpu_torch.ops import streaming as st
+
+    a = _stream_source()
+    out = [st.streamed_cov(a, block_rows=512, devices=d),
+           st.streamed_pearson_corr(a, block_rows=512, devices=d)]
+    for method, center in (("gram", False), ("gram", True),
+                           ("power", False)):
+        u, s, vt = st.streamed_random_svd(
+            a, 6, 4, 6, key=3, block_rows=512, method=method, center=center,
+            devices=d if method == "gram" else None)
+        out += [s, _proj(u), _proj(vt.mT)]
+    rng = _np_rng()
+    t = np.einsum("abc,ia,jb,kc->ijk", rng.standard_normal((3, 2, 2)),
+                  np.linalg.qr(rng.standard_normal((700, 3)))[0],
+                  np.linalg.qr(rng.standard_normal((6, 2)))[0],
+                  np.linalg.qr(rng.standard_normal((5, 2)))[0])
+    core, factors = st.streamed_hosvd(t, (3, 2, 2), block_slabs=128,
+                                      device=d)
+    out += [core.abs()] + [_proj(f) for f in factors]
+    xg = np.linspace(0, 10, 5000)
+    tg = np.linspace(1, 9, 24)[:, None]
+    pod = st.streamed_pod((0.5 * tg) * np.exp(-(xg[None] - tg) ** 2 / 4.0),
+                          tg, 4, block_cols=1500, device=d)
+    out += [_proj(pod.modes), pod.predict(np.array([[2.5], [7.7]]))]
+    x = np.sin(np.linspace(0, 10, 3000)[:, None]
+               + 0.2 * np.linspace(0, 10, 30)[None, :])
+    dmdc = st.streamed_dmdc(x, np.exp(0.02 * np.arange(30.0))[None, :], 6,
+                            block_rows=700, device=d)
+    out += [dmdc.predict_multiple(x[:, :1], np.ones((1, 10)),
+                                  method="modes")]
+    return out
+
+
+def _case_stats(d):
+    import numpy as np
+
+    import corrla_rs_tpu_torch as port
+
+    rng = _np_rng()
+    x = np.concatenate([rng.normal(m, 0.5, (200, 3)) for m in (-3, 0, 3)])
+    fit = port.gmm_fit(x, 3, key=1, device=d)
+    out = [fit.means, fit.covs, fit.log_likelihood,
+           port.gmm_logpdf(fit, x[:20]), port.gmm_sample(fit, 2, 50)]
+    xa = rng.standard_normal((400, 4))
+    ya = xa[:, :2] @ rng.standard_normal((2, 3)) + rng.standard_normal(
+        (400, 3))
+    cc = port.cca(xa, ya, device=d)
+    out += [torch.as_tensor(cc.corrs, device=d),
+            cc.x_weights.abs(), cc.y_weights.abs()]
+    pls = port.pls_fit(xa, ya, 3, device=d)
+    out += [pls.coef, pls.predict(xa[:10])]
+    z = rng.standard_normal((600, 3)) @ np.linalg.cholesky(
+        np.array([[1, .6, .3], [.6, 1, .4], [.3, .4, 1]])).T
+    gc = port.GaussianCopula().fit(z, device=d)
+    out += [gc.corr, gc.sample(100, key=2)]
+    bc = port.BivariateCopula().fit(z[:, :2], device=d)
+    cv = port.CVineCopula().fit(z, device=d)
+    rv = port.RVineCopula().fit(z, device=d)
+    out += [torch.tensor([bc.theta] + [th for row in cv.pairs
+                                       for _f, th in row]).to(d),
+            cv.sample(100, key=3), rv.logpdf_uniform(rng.uniform(
+                0.05, 0.95, (50, 3)))]
+    return out
+
+
+def _with_default(device, fn):
+    """fn(device) with numpy inputs going to ``device`` (the streamed
+    power method takes no device argument, as in the JAX package)."""
+    from corrla_rs_tpu_torch.utils.device import (default_device,
+                                                  set_default_device)
+
+    prev = default_device()
+    set_default_device(device)
+    try:
+        return fn(device)
+    finally:
+        set_default_device(prev)
+
+
+@pytest.mark.parametrize("case", ["streaming", "stats"])
+def test_slice_stream_stats_on_cuda_match_cpu_f64(dev, stats_cpu_draws,
+                                                  case):
+    # f64 on both, 1e-8 of each result's largest entry (cuBLAS/cuSOLVER
+    # against LAPACK; the EM loop carries its rounding along). CMA-ES is
+    # not compared: its candidates follow the signs of the covariance's
+    # eigenvectors, which cuSOLVER and LAPACK choose apart
+    fn = _case_streaming if case == "streaming" else _case_stats
+    on_card = _with_default(dev, fn)
+    on_cpu = _with_default(torch.device("cpu"), fn)
+    assert len(on_card) == len(on_cpu)
+    for i, (got, want) in enumerate(zip(on_card, on_cpu)):
+        assert got.device.type == "cuda" and want.device.type == "cpu", i
+        scale = max(float(want.abs().max()), 1e-30)
+        err = float((got.cpu() - want).abs().max())
+        assert err <= 1e-8 * scale, (case, i, err, scale)
+
+
+def test_slice_streamed_single_pass_on_the_card(dev):
+    # not compared with the CPU run: a block's Psi key folds from a child
+    # generator on the data's device, whose draws differ from the CPU's
+    import numpy as np
+
+    from corrla_rs_tpu_torch.ops import streaming as st
+
+    rng = _np_rng()
+    low = rng.standard_normal((3001, 5)) @ rng.standard_normal((5, 24))
+    u, s, vt = st.streamed_single_pass_svd(low, 5, 6, key=2, block_rows=512,
+                                           device=dev)
+    rec = (u * s) @ vt
+    assert rec.is_cuda
+    assert float(torch.linalg.matrix_norm(rec.cpu() - torch.as_tensor(low))
+                 / np.linalg.norm(low)) < 1e-9
+
+
+def test_slice_streamed_pod_launches_both_kernels(dev):
+    # the streamed POD's weight fit writes K into its saddle matrix, its
+    # predict goes through the matvec
+    import numpy as np
+
+    from corrla_rs_tpu_torch.ops import streaming as st
+
+    xg = np.linspace(0, 10, 4000, dtype=np.float32)
+    tg = np.linspace(1, 9, 30, dtype=np.float32)[:, None]
+    snaps = (0.5 * tg) * np.exp(-(xg[None] - tg) ** 2 / 4.0)
+    k0, m0 = rk.pairwise_kernel_matrix.launches, rk.rbf_matvec.launches
+    pod = st.streamed_pod(snaps, tg, 5, block_cols=1000)
+    assert rk.pairwise_kernel_matrix.launches == k0 + 1
+    pred = pod.predict(np.array([[2.5], [7.7]], np.float32))
+    assert rk.rbf_matvec.launches == m0 + 1
+    assert pred.is_cuda and pred.shape == (4000, 2)
+
+
+def test_slice_streamed_fit_peak_memory_stays_below_the_source(dev):
+    # 65,536 x 1,024 f32 (268 MB) streamed in 8 MB blocks: the device never
+    # holds the source
+    import numpy as np
+
+    from corrla_rs_tpu_torch.ops import streaming as st
+
+    a = np.random.default_rng(0).standard_normal((65536, 1024)).astype(
+        np.float32)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    base = torch.cuda.memory_allocated(dev)
+    u, s, vt = st.streamed_random_svd(a, 10, 2, 10, block_rows=2048,
+                                      devices=dev)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated(dev) - base
+    assert u.is_cuda and s.shape == (10,)
+    assert peak < a.nbytes / 4, (peak, a.nbytes)
+    assert bool(torch.isfinite(s).all())
+
+
+def test_slice_stream_stats_entry_points_put_numpy_on_the_card(dev):
+    # numpy in, tensors on the card out, for every new entry point
+    import numpy as np
+
+    import corrla_rs_tpu_torch as port
+    from corrla_rs_tpu_torch.ops import streaming, vine
+
+    rng = np.random.default_rng(14)
+    a = rng.standard_normal((700, 12)).astype(np.float32)
+    z = rng.standard_normal((400, 3)) @ np.array(
+        [[1.0, 0.5, 0.2], [0, 1.0, 0.4], [0, 0, 1.0]])
+    src = port.RowBlockSource(lambda lo, hi: a[lo:hi], a.shape)
+    snaps = rng.standard_normal((20, 900)).astype(np.float32)
+    x = rng.standard_normal((300, 12))
+    fit = port.gmm_fit(x[:, :2], 2, n_iter=5)
+    cc = port.cca(x[:, :4], x[:, 4:8] + x[:, :4])
+    pls = port.pls_fit(x, x[:, 0] + 0.1 * x[:, 1], 2)
+    gc = port.GaussianCopula().fit(z)
+    bc = port.BivariateCopula().fit(z[:, :2])
+    cv = port.CVineCopula().fit(z)
+    rv = port.RVineCopula().fit(z)
+    results = {
+        "streamed_gram": list(streaming.streamed_gram(src, 128)[:2]),
+        "streamed_cov": port.streamed_cov(a, 128),
+        "streamed_pearson_corr": port.streamed_pearson_corr(a, 128),
+        "streamed_random_svd": list(port.streamed_random_svd(a, 3, 2)),
+        "streamed_single_pass_svd": list(port.streamed_single_pass_svd(a,
+                                                                       3)),
+        "streamed_pca": list(port.streamed_pca(a, 3)),
+        "streamed_hosvd": [port.streamed_hosvd(
+            a.reshape(700, 3, 4), (2, 2, 2))[0]],
+        "streamed_pod": [port.streamed_pod(snaps, np.arange(20.0)[:, None],
+                                           3).modes],
+        "streamed_dmdc": [port.streamed_dmdc(snaps.T, np.ones((1, 20)),
+                                             3)._A],
+        "gmm_fit": [fit.means, fit.n_iter],
+        "gmm_logpdf": port.gmm_logpdf(fit, x[:5, :2]),
+        "gmm_sample": port.gmm_sample(fit, 0, 5),
+        "gmm_select": [port.gmm_select(x[:, :2], [1, 2], n_iter=5)[0].means],
+        "cma_es": [port.cma_es(lambda v: (v ** 2).sum(), np.ones(3),
+                               n_gens=5).x_best],
+        "cca": [cc.x_weights, cc.transform(x[:3, :4])[0]],
+        "pls_fit": [pls.coef, pls.predict(x[:3]), pls.transform(x[:3])],
+        "GaussianCopula": [gc.corr, gc.sample(5)],
+        "BivariateCopula": [bc.sample(5), bc.logpdf_uniform(
+            np.array([0.3]), np.array([0.6]))],
+        "CVineCopula": [cv.sample(5), cv.sample_uniform(5)],
+        "RVineCopula": [rv.sample(5), rv.logpdf_uniform(
+            rng.uniform(0.1, 0.9, (4, 3)))],
+        "kendall_tau": vine.kendall_tau(z[:, 0], z[:, 1]),
+    }
+    for name, res in results.items():
+        tensors = res if isinstance(res, list) else [res]
+        assert tensors and all(isinstance(t, torch.Tensor) and t.is_cuda
+                               for t in tensors), name
+    assert isinstance(cc.corrs, np.ndarray)
+
+
+def test_slice_gmm_logpdf_at_a_million_points_matches_the_cpu(dev):
+    # 1,048,576 points x 32 components in 16-D f64: the triangular solves
+    # go 65,536 points at a time (one solve of every point came back wrong
+    # on the card)
+    from corrla_rs_tpu_torch.ops import gmm
+
+    gen = torch.Generator().manual_seed(3)
+    f64 = torch.float64
+    x = 30.0 * torch.randn(1 << 20, 16, generator=gen, dtype=f64)
+    means = 30.0 * torch.randn(32, 16, generator=gen, dtype=f64)
+    a = torch.randn(32, 16, 16, generator=gen, dtype=f64)
+    chols = torch.linalg.cholesky(a @ a.mT + 16 * torch.eye(16, dtype=f64))
+    want = gmm._component_logpdf(x, means, chols)
+    got = gmm._component_logpdf(x.to(dev), means.to(dev), chols.to(dev))
+    assert float((got.cpu() - want).abs().max()) <= 1e-10 * float(
+        want.abs().max())
+
+
+def test_slice_cma_es_converges_on_the_card(dev):
+    import numpy as np
+
+    import corrla_rs_tpu_torch as port
+
+    res = port.cma_es(lambda v: torch.sum((v - 1.5) ** 2), np.zeros(6),
+                      sigma0=0.5, n_gens=250, key=0, device=dev)
+    assert res.x_best.is_cuda and res.history.is_cuda
+    assert res.f_best < 1e-10
+    assert float((res.x_best - 1.5).abs().max()) < 1e-5

@@ -29,6 +29,7 @@ def _run(code_or_args, cwd=ROOT):
 def test_port_never_imports_jax():
     proc = _run(
         "import sys, pkgutil, importlib, corrla_rs_tpu_torch as p\n"
+        "import corrla_rs_torch\n"
         "for m in pkgutil.walk_packages(p.__path__, 'corrla_rs_tpu_torch.'):\n"
         "    importlib.import_module(m.name)\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or "
@@ -42,8 +43,10 @@ def test_port_never_imports_jax():
     loaded = set(proc.stdout.split("LOADED")[1].split())
     assert len(loaded) >= 50
     # the modules of the inference layer and the tensor factorizations,
-    # those of the GPs, Grassmann interpolation and the ROM models, and
-    # those of the Koopman/DMD-family models and the UQ estimators
+    # those of the GPs, Grassmann interpolation and the ROM models, those
+    # of the Koopman/DMD-family models and the UQ estimators, and those of
+    # out-of-core streaming, the statistics layer and the test helpers (the
+    # drop-in shim corrla_rs_torch is imported above)
     for name in ("ops.tt", "ops.cp", "ops.nmf", "ops.completion",
                  "ops.ensemble_mcmc", "ops.hmc", "ops.nuts", "ops.smc",
                  "ops.kalman", "ops.enkf", "ops.particle", "ops.laplace",
@@ -55,7 +58,9 @@ def test_port_never_imports_jax():
                  "models.spod", "models.opinf", "models.sindy",
                  "models.optdmd", "models.bop_dmd", "ops.quadrature",
                  "ops.pce", "ops.sobol", "ops.morris", "ops.shapley",
-                 "ops.mlmc", "ops.multifidelity"):
+                 "ops.mlmc", "ops.multifidelity", "ops.streaming",
+                 "ops.gmm", "ops.cma", "ops.cca", "ops.pls", "ops.copula",
+                 "ops.vine", "ops.rvine", "utils.testing"):
         assert f"corrla_rs_tpu_torch.{name}" in loaded, name
 
 
@@ -64,7 +69,8 @@ def test_no_source_of_the_port_names_jax():
     # chip_smoke.py names jax or the JAX package, inside a function either
     pattern = re.compile(
         r"^\s*(?:import|from)\s+(?:jax|jaxlib|corrla_rs_tpu)(?![\w])", re.M)
-    sources = [os.path.join(ROOT, "chip_smoke.py")]
+    sources = [os.path.join(ROOT, "chip_smoke.py"),
+               os.path.join(ROOT, "corrla_rs_torch.py")]
     for folder, _, files in os.walk(os.path.join(ROOT, "corrla_rs_tpu_torch")):
         sources += [os.path.join(folder, f) for f in files
                     if f.endswith(".py")]

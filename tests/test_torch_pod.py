@@ -116,7 +116,7 @@ def test_load_jax_checkpoint_predicts_what_jax_predicts(rng, tmp_path, name):
 
 
 def test_from_jax_state_rejects_unknown(rng):
-    with pytest.raises(ValueError, match="no port of 'GaussianCopula'"):
-        from_jax_state("GaussianCopula", {}, device="cpu")
+    with pytest.raises(ValueError, match="no port of 'NoSuchModel'"):
+        from_jax_state("NoSuchModel", {}, device="cpu")
     with pytest.raises(ValueError, match="lacks"):
         from_jax_state("PodI", {"modes": np.zeros((3, 1))}, device="cpu")
