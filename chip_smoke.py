@@ -142,7 +142,30 @@ time, and any failure raises (exit code != 0):
     (6-D, and 4-D refined) and an R-vine of a Markov chain, with 1,048,576
     draws from each (STATS_TOL).
 
-After phase 22 come the timing details of phases 7 and 9-10 (RbfInterp's
+23. parallel: the multi-device layer in spawned processes (the script's
+    own process keeps no process group). A world of one rank under NCCL on
+    card 0 runs, at the full shapes above, sharded_random_svd on rsvd's
+    matrix (sigma against the known spectrum and against random_svd on the
+    same sketch), PcaRsvd(mesh=) on rpca's data, PodI(mesh=) on PodI's
+    family (its fit launches the kernel matrix, its predict the matvec),
+    DMDc(mesh=) on dmdc's system ('modes' and 'reduced' rollouts),
+    ActiveSsRsvd.fit(mesh=) on active_ss's samples (the kNN launches the
+    kernel matrix), sharded_hosvd of a 262,144 x 32 x 32
+    tensor of multilinear rank 16, and demc/dream/stretch_run_sharded at
+    dream's 8,192 chains x 3 dims x 500 generations (held to the dream
+    phase's limits and to the single-device run on the same draws); each
+    path counts its launches from 0; the samplers' time a generation,
+    sharded and single-device, alternated. Then a world of 2 gloo ranks on
+    the same card (NCCL refuses two ranks on one device; its processes
+    start while the NCCL world works) runs the reduced shapes of
+    PARALLEL_SMALL, held to the world of one (PARALLEL_2RANK_TOL);
+24. export: PcaRsvd.apply_tr and the DMDc reduced rollout exported on the
+    card in f32 and f64 with utils.export, served from one fresh process
+    that imports only torch (1e-6 / 1e-12 relative; its import, load and
+    run times printed), and PodI.predict's export refused by name (its RBF
+    step is a CUDA kernel).
+
+After phase 24 come the timing details of phases 7 and 9-10 (RbfInterp's
 fit with its saddle matrix built by concatenation, as before the kernel
 matrix wrote K in place, and built in place; the kNN and grads steps of
 active_ss; a DEMC generation) and the kNN against its plain version. The
@@ -150,7 +173,8 @@ build phase prints ptxas's registers and spills for both kernels'
 instances and fails if any spills. The kernels' launch counts
 are set to 0 before phase 4 and read after phase 7, again before phase 8
 and after phase 10, again before phase 11 and after phase 13, again
-before phase 14 and after phase 16, and around each of phases 17 to 22;
+before phase 14 and after phase 16, and around each of phases 17 to 22 and 24 (phase 23 counts in its world
+of one, a path at a time);
 every kernel of a path must have launched on it (phases 11-16, 20 and 22
 reach no kernel, and the run fails if their counts say otherwise; phases
 17 and 19 must launch the kernel matrix, phases 18 and 21 both kernels). The last lines are the kernel table as JSON (every timed shape of each kernel,
@@ -4251,6 +4275,579 @@ def phase_stats(port, dev, gen, seed):
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 23: the multi-device layer, in spawned worlds of their own
+
+# the shapes of the 2-rank gloo world, which the world-size-1 run repeats
+PARALLEL_SMALL = {
+    "rsvd": (20_000, 2000, 50, 6, 10),            # n, m, rank, iters, os
+    "podi": (500, 20_000, 10, 64),                # snapshots, points, modes, queries
+    "demc": (1024, 3, 200, 100),                  # chains, dims, generations, held
+}
+# how far a 2-rank gloo world on one card may sit from the world of one:
+# the same arithmetic but for the order of the sums
+PARALLEL_2RANK_TOL = {
+    "sigma": (1e-5, "sigma rel, as the rsvd check holds sharded to "
+                    "single-device on one sketch"),
+    "podi": (1e-4, "PodI prediction rel, the PodI phase's plain-path limit"),
+    "demc": (1e-5, "DEMC heads abs over the first 100 generations on the "
+                   "same draws (a last-bit difference grows about tenfold "
+                   "every ten generations after)"),
+}
+SAMPLER_GAUSS_COV = [[1.0, 0.6, 0.3], [0.6, 1.0, 0.5], [0.3, 0.5, 1.0]]
+
+
+def gauss3(dev):
+    """The dream phase's correlated 3-D Gaussian: (ln_prob, cov f64)."""
+    cov = torch.tensor(SAMPLER_GAUSS_COV, dtype=torch.float64, device=dev)
+    prec = torch.linalg.inv(cov).float()
+
+    def ln_prob(x):
+        return -0.5 * (x @ prec @ x)
+
+    return ln_prob, cov
+
+
+def held_to_gauss(port, name, hist, cov, burn, rhat_held):
+    """The dream phase's limits on a sampler's history past ``burn``:
+    pooled mean within 0.05 sigma, covariance within 0.10, and (where
+    ``rhat_held``) the rank-normalized R-hat below 1.05."""
+    d = hist.shape[-1]
+    tail = hist[burn:].double()
+    pooled = tail.reshape(-1, d)
+    sd = torch.sqrt(torch.diagonal(cov))
+    mean_err = (pooled.mean(0).abs() / sd).max().item()
+    cov_err = ((torch.cov(pooled.T) - cov).abs().max()
+               / cov.abs().max()).item()
+    rhat = port.rank_normalized_rhat(tail).max().item()
+    check(mean_err <= 0.05, f"{name} pooled mean {mean_err:.3e} sigma off")
+    check(cov_err <= 0.10, f"{name} covariance {cov_err:.3e} off")
+    if rhat_held:
+        check(rhat < 1.05, f"{name} rank-normalized R-hat {rhat:.4f}")
+    return mean_err, cov_err, rhat
+
+
+def par_small(port, pm, dev, seed):
+    """The reduced shapes both worlds run: (sigma, PodI prediction, DEMC
+    history), gathered whole."""
+    from corrla_rs_tpu_torch.parallel.sharded_rsvd import sharded_random_svd
+    from corrla_rs_tpu_torch.parallel.sharded_samplers import \
+        demc_run_sharded
+
+    mesh = pm.make_mesh()
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    n, m, rank, n_iter, n_os = PARALLEL_SMALL["rsvd"]
+    s_true = torch.logspace(0, -3, 2 * rank, dtype=torch.float64,
+                            device=dev)
+    a = ((orthonormal(n, 2 * rank, gen, dev) * s_true.float())
+         @ orthonormal(m, 2 * rank, gen, dev).mT)
+    _, s, _ = sharded_random_svd(a, rank, n_iter, n_os, key=seed, mesh=mesh)
+    del a
+    n_snap, n_pts, n_modes, n_q = PARALLEL_SMALL["podi"]
+    t = torch.linspace(0, 1, n_snap, device=dev)[:, None]
+    x = pod_family(t, torch.linspace(0, 1, n_pts, device=dev)[None, :])
+    pod = port.PodI(x, t, n_modes, key=seed, mesh=mesh)
+    tq = torch.linspace(0.01, 0.99, n_q, device=dev)[:, None]
+    pred = pm._full(pod.predict(tq))
+    chains, d, gens, _ = PARALLEL_SMALL["demc"]
+    ln_prob, _ = gauss3(dev)
+    heads = torch.randn(chains, d, generator=gen, device=dev) * 3.0
+    hist, _, ar = demc_run_sharded(heads, ln_prob, gens, 0.8, 1e-6,
+                                   key=seed,
+                                   mesh=pm.make_mesh(axis_name="chains"))
+    # numpy, not tensors: a tensor put on a queue is shared through a file
+    # descriptor that dies with the rank's process
+    return {"sigma": s.cpu().numpy(), "pred": pred.cpu().numpy(),
+            "demc": pm._full(hist).cpu().numpy(), "demc_ar": ar}
+
+
+def par_full(port, pm, rk, dev, seed):
+    """Every sharded path at the full shapes, world size 1. Returns the
+    result lines and the launch counts of each kernel a path."""
+    from corrla_rs_tpu_torch.models.active_subspaces import (
+        ActiveSsRsvd,
+        PolyGradientEstimator,
+    )
+    from corrla_rs_tpu_torch.ops.dream import dream_run
+    from corrla_rs_tpu_torch.ops.ensemble_mcmc import stretch_run
+    from corrla_rs_tpu_torch.ops.hosvd import tucker_reconstruct
+    from corrla_rs_tpu_torch.ops.samplers import demc_run
+    from corrla_rs_tpu_torch.parallel import sharded_samplers as ss
+    from corrla_rs_tpu_torch.parallel.sharded_hosvd import sharded_hosvd
+    from corrla_rs_tpu_torch.parallel.sharded_rsvd import sharded_random_svd
+
+    out, counts = [], {}
+    mesh = pm.make_mesh()
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    names = ("pairwise_kernel_matrix", "rbf_matvec")
+
+    def window(path, fn):
+        rk.pairwise_kernel_matrix.launches = 0
+        rk.rbf_matvec.launches = 0
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        counts[path] = {k: getattr(rk, k).launches for k in names}
+        out.append(f"  ({time.perf_counter() - t0:.2f} s, launches "
+                   f"{counts[path]})")
+        torch.cuda.empty_cache()
+
+    def rsvd():
+        n, m, rank, n_iter, n_os, _ = SIZES["rsvd"]
+        a, s_true = rsvd_matrix(dev, gen)
+
+        def sharded():
+            return sharded_random_svd(a, rank, n_iter, n_os, key=1,
+                                      mesh=mesh)
+
+        def single():
+            return port.random_svd(a, rank, n_iter, n_os, key=1,
+                                   stabilize="always")
+
+        # the first call pays NCCL's communicator set-up; then alternate
+        _, cold = wall(sharded)
+        warm = {"sharded": [], "single": []}
+        for _ in range(3):
+            for name, fn in (("sharded", sharded), ("single", single)):
+                res, sec = wall(fn)
+                warm[name].append(sec)
+                if name == "sharded":
+                    u, s, vt = res
+                else:
+                    s1 = res[1]
+        check(tuple(u.shape) == (n, rank) and u.placements[0].is_shard(0)
+              and tuple(u.to_local().shape) == (n, rank), "sharded U")
+        rel = ((s.double() - s_true[:rank]).abs() / s_true[:rank]).max()
+        same = ((s - s1).abs() / s1).max().item()
+        check(rel.item() <= 1e-3, f"sharded rsvd sigma rel err {rel:.3e}")
+        check(same <= 1e-5, f"sharded vs random_svd sigma {same:.3e}")
+        med = {k: statistics.median(v) for k, v in warm.items()}
+        out.append(f"sharded_random_svd {n}x{m} f32 rank {rank}: sigma rel "
+                   f"err {rel.item():.3e} (tol 1e-3), against random_svd on "
+                   f"the same sketch {same:.3e} (tol 1e-5); cold "
+                   f"{cold:.4f} s, warm median {med['sharded']:.4f} s "
+                   f"against random_svd's {med['single']:.4f} s "
+                   f"(alternated, 3 each)")
+
+    def pca():
+        n, m, rank, n_sig = SIZES["rpca"]
+        s_true = torch.logspace(3, 1, n_sig, dtype=torch.float64, device=dev)
+        v0 = orthonormal(m, n_sig, gen, dev)
+        x = (torch.randn(1, m, generator=gen, device=dev)
+             + (orthonormal(n, n_sig, gen, dev, center=True)
+                * s_true.float()) @ v0.mT)
+        p, sec = wall(lambda: port.PcaRsvd(x, rank, key=2, mesh=mesh))
+        rel = ((p.singular_values.double() - s_true[:rank]).abs()
+               / s_true[:rank]).max().item()
+        gap = 1 - (p.components.double() * v0[:, :rank].mT.double()).sum(
+            1).abs().min().item()
+        check(rel <= 1e-3 and gap <= 1e-3,
+              f"PcaRsvd(mesh=) sigma {rel:.3e}, components {gap:.3e}")
+        out.append(f"PcaRsvd(mesh=) {n}x{m} f32 rank {rank}: sigma rel err "
+                   f"{rel:.3e}, component gap {gap:.3e} (tol 1e-3); "
+                   f"{sec:.4f} s")
+
+    def podi():
+        n_snap, n_pts, n_modes, n_q = SIZES["podi"]
+        t = torch.linspace(0, 1, n_snap, device=dev)[:, None]
+        s_ax = torch.linspace(0, 1, n_pts, device=dev)[None, :]
+        x = pod_family(t, s_ax)
+        pod, fit_s = wall(lambda: port.PodI(x, t, n_modes, key=3,
+                                            mesh=mesh))
+        del x
+        tq = torch.rand(n_q, 1, generator=gen, device=dev).sort(dim=0).values
+        y, pred_s = wall(lambda: pod.predict(tq))
+        check(y.placements[0].is_shard(0), "PodI(mesh=) predict not sharded")
+        y = pm._full(y)
+        truth = pod_family(tq, s_ax).mT
+        rel = (torch.linalg.matrix_norm(y - truth)
+               / torch.linalg.matrix_norm(truth)).item()
+        c = pod._rbf_coeffs.double()
+        n = pod.t_abscissa.shape[0]
+        tq64, t64 = tq.double(), pod.t_abscissa.double()
+        w_ref = (rk.rbf_matvec_ref(tq64, t64, c[:n], "linear", 1.0)
+                 + torch.cat([tq64, torch.ones_like(tq64)], 1) @ c[n:])
+        y_ref = pm._full(pod.modes).double() @ w_ref.mT
+        plain = (torch.linalg.matrix_norm(y.double() - y_ref)
+                 / torch.linalg.matrix_norm(y_ref)).item()
+        check(rel <= 1e-3 and plain <= 1e-4,
+              f"PodI(mesh=) vs family {rel:.3e}, vs plain path {plain:.3e}")
+        out.append(f"PodI(mesh=) {n_snap}x{n_pts} f32, {n_modes} modes, "
+                   f"{n_q} queries: rel err vs family {rel:.3e} (tol 1e-3), "
+                   f"vs plain RBF path {plain:.3e} (tol 1e-4); fit "
+                   f"{fit_s:.4f} s, predict {pred_s:.4f} s")
+
+    def dmdc():
+        n_x, n_t, n_modes, n_iters = SIZES["dmdc"]
+        z, u = latent_system(n_t, seed + 2)
+        u = u.float().to(dev)
+        x = lifted(z, n_x, gen, dev)
+        model, fit_s = wall(lambda: port.DMDc(x, u, n_modes, n_iters,
+                                              key=seed, mesh=mesh))
+        parts = []
+        for method in ("modes", "reduced"):
+            pred, sec = wall(lambda: model.predict_multiple(
+                x[:, :1], u[:, :n_t - 1], method))
+            check(pred.placements[0].is_shard(0), "DMDc rollout not sharded")
+            err = traj_err(pm._full(pred), x)
+            check(err <= 1e-3, f"DMDc(mesh=) {method} rollout err {err:.3e}")
+            parts.append(f"{method} {err:.3e} in {sec:.4f} s")
+        out.append(f"DMDc(mesh=) {n_x}x{n_t} f32, {n_modes} modes: fit "
+                   f"{fit_s:.4f} s; {n_t - 1}-step rollouts, err / max|x| "
+                   f"(tol 1e-3): {', '.join(parts)}")
+
+    def active():
+        n, k, n_nbr, n_comps, _ = SIZES["active_ss"]
+        x = torch.rand(n, k, generator=gen, device=dev) * 2 - 1
+        a = torch.randn(k, generator=gen, device=dev)
+        a /= torch.linalg.vector_norm(a)
+        y = torch.exp(0.3 * (x @ a))
+        est = ActiveSsRsvd(PolyGradientEstimator(x, y, 2, n_nbr), n_comps)
+        # fit (the EVD path, as api.active_ss); fit_svd and fit_bootstrap
+        # with mesh= are held to the JAX package by the CPU tests
+        f, sec = wall(lambda: est.fit(x, mesh=mesh))
+        gap = 1.0 - abs(float(f.components[:, 0].double() @ a.double()))
+        check(gap <= 1e-3, f"active_ss fit(mesh=): 1-|cos| {gap:.3e}")
+        out.append(f"ActiveSsRsvd.fit(mesh=) {n} samples {k}-D, order 2, "
+                   f"{n_nbr} nbrs: 1-|cos(w1, a)| {gap:.3e} (tol 1e-3) in "
+                   f"{sec:.4f} s")
+
+    def hosvd():
+        shape, r_h = SIZES["stream_hosvd"]
+        tol = FACTORIZE_TOL["hosvd"][0]
+        core = torch.randn(r_h, r_h, r_h, generator=gen, device=dev)
+        truth = tucker_reconstruct(
+            core, [orthonormal(k, r_h, gen, dev) for k in shape])
+        (core_s, facs), sec = wall(lambda: sharded_hosvd(
+            truth, (r_h,) * 3, key=5, mesh=mesh))
+        facs = [pm._full(facs[0])] + facs[1:]
+        err = (torch.linalg.vector_norm(tucker_reconstruct(core_s, facs)
+                                        - truth)
+               / torch.linalg.vector_norm(truth)).item()
+        orth = max((f.mT @ f - torch.eye(r_h, device=dev)).abs().max().item()
+                   for f in facs)
+        check(err <= tol and orth <= tol,
+              f"sharded_hosvd: reconstruction {err:.3e}, |F^T F - I| "
+              f"{orth:.3e}")
+        out.append(f"sharded_hosvd {'x'.join(map(str, shape))} f32 at ranks "
+                   f"({r_h},) * 3: reconstruction rel err {err:.3e}, "
+                   f"|F^T F - I| {orth:.1e} (tol {tol}); {sec:.4f} s")
+
+    def samplers():
+        chains, d, gens, burn = SIZES["dream"]
+        ln_prob, cov = gauss3(dev)
+        heads = torch.randn(chains, d, generator=gen, device=dev) * 3.0
+        chain_mesh = pm.make_mesh(axis_name="chains")
+        # (name, sharded run of n generations, single-device run of n,
+        # acceptance range, R-hat held)
+        runs = (
+            ("demc", lambda n: ss.demc_run_sharded(
+                heads, ln_prob, n, 0.8, 1e-6, key=seed, mesh=chain_mesh),
+             lambda n: demc_run(heads, ln_prob, n, 0.8, 1e-6, seed)[0],
+             (0.1, 0.7), True),
+            ("dream", lambda n: ss.dream_run_sharded(
+                heads, ln_prob, n, key=seed, n_adapt=burn,
+                mesh=chain_mesh),
+             lambda n: dream_run(heads, ln_prob, n, key=seed,
+                                 n_adapt=burn)[0],
+             (0.15, 0.6), True),
+            # 500 generations hold the stretch move's mean and covariance;
+            # its R-hat needs the inference phase's 7,000
+            ("stretch", lambda n: ss.stretch_run_sharded(
+                heads, ln_prob, n, key=seed, mesh=chain_mesh),
+             lambda n: stretch_run(heads, ln_prob, n, key=seed)[0],
+             (0.2, 0.9), False))
+        # what a generation adds: the host time of one all-gather of the
+        # heads (the device's share is microseconds)
+        gather_us = host_us(lambda: pm._all_gather(heads, chain_mesh,
+                                                   "chains"), calls=2000)
+        out.append(f"an all-gather of the ({chains}, {d}) heads: "
+                   f"{gather_us:.1f} us of host time a call")
+        for name, sharded, single, (lo, hi), rhat_held in runs:
+            hist, final, ar = sharded(gens)
+            check(hist.placements[0].is_shard(1), f"{name} history sharding")
+            hist = pm._full(hist)
+            check(hist.shape == (gens, chains, d)
+                  and bool(torch.isfinite(hist).all()), f"{name} history")
+            check(lo <= ar <= hi, f"{name} acceptance {ar:.3f}")
+            mean_err, cov_err, rhat = held_to_gauss(port, name, hist, cov,
+                                                    burn, rhat_held)
+            ref = single(gens)
+            diff = (hist[:100] - ref[:100]).abs().max().item()
+            check(diff <= 1e-5, f"{name}: sharded vs single-device on the "
+                  f"same draws {diff:.3e} over the first 100 generations")
+            out.append(
+                f"{name}_run_sharded {chains} chains x {d} dims x {gens} "
+                f"generations f32: acceptance {ar:.4f} ({lo}-{hi}), pooled mean "
+                f"{mean_err:.3e} sigma off (tol 0.05), covariance "
+                f"{cov_err:.3e} (tol 0.10), R-hat {rhat:.4f} "
+                f"({'< 1.05' if rhat_held else 'not held'}); against the "
+                f"single-device run on the same draws, first 100 "
+                f"generations {diff:.1e} (tol 1e-5)")
+        # a generation's time, sharded against single-device: 100
+        # generations of each, alternated three times, medians
+        ms = {}
+        for _ in range(3):
+            for name, sharded, single, _, _ in runs:
+                for side, fn in (("sharded", sharded), ("single", single)):
+                    ms.setdefault((name, side), []).append(
+                        wall(lambda: fn(100))[1] * 10.0)
+        out.append("ms a generation, sharded / single-device (medians of 3 "
+                   "alternated runs): " + ", ".join(
+                       f"{name} {statistics.median(ms[(name, 'sharded')]):.4f}"
+                       f" / {statistics.median(ms[(name, 'single')]):.4f}"
+                       for name, *_ in runs))
+
+    for path, fn in (("rsvd", rsvd), ("pca", pca), ("PodI", podi),
+                     ("dmdc", dmdc), ("active_ss", active),
+                     ("hosvd", hosvd), ("samplers", samplers)):
+        window(path, fn)
+    check(all(counts["PodI"][k] > 0 for k in names),
+          f"PodI(mesh=) did not launch both kernels: {counts['PodI']}")
+    check(counts["active_ss"]["pairwise_kernel_matrix"] > 0,
+          "the active subspaces' kNN did not launch the kernel matrix")
+    return out, counts
+
+
+def parallel_child(rank, world, backend, store, seed, full, go, queue):
+    """One rank of a parallel-phase world (a spawned process): the port
+    imported and the kernels loaded on card 0; then, once ``go`` is set
+    (None: at once), its own process group and the full shapes (``full``)
+    and the reduced ones. Puts (rank, "ok", result) or (rank, "error",
+    traceback) on ``queue``."""
+    import datetime
+    import traceback
+
+    try:
+        import torch.distributed as dist
+
+        import corrla_rs_tpu_torch as port
+        from corrla_rs_tpu_torch.ops import _build
+        from corrla_rs_tpu_torch.ops import rbf_kernels as rk
+        from corrla_rs_tpu_torch.parallel import mesh as pm
+
+        dev = torch.device("cuda", 0)
+        torch.cuda.set_device(dev)
+        _build.load_library()
+        if go is not None:
+            go.wait()
+        # a collective that hangs raises after 5 minutes instead of 30
+        pm.init_distributed(backend=backend, rank=rank, world_size=world,
+                            store=dist.FileStore(store, world),
+                            timeout=datetime.timedelta(seconds=300))
+        res = {}
+        if full:
+            res["lines"], res["counts"] = par_full(port, pm, rk, dev, seed)
+        res["small"] = par_small(port, pm, dev, seed)
+        dist.destroy_process_group()
+        queue.put((rank, "ok", res))
+    except BaseException:
+        queue.put((rank, "error", traceback.format_exc()))
+        raise
+
+
+def start_world(ctx, folder, backend, world, seed, full, go=None):
+    """Spawn a world of ``world`` ranks on card 0 (they start their work
+    when ``go`` is set); returns what ``collect_world`` takes."""
+    import os
+
+    results = ctx.Queue()
+    store = os.path.join(folder, f"{backend}{world}")
+    procs = [ctx.Process(target=parallel_child, daemon=True, args=(
+        r, world, backend, store, seed, full, go, results))
+        for r in range(world)]
+    for p in procs:
+        p.start()
+    return backend, world, procs, results
+
+
+def collect_world(started, timeout_s=600):
+    """Rank 0's result of a world from ``start_world``, and the wall from
+    this call to its last result; every rank ends."""
+    import queue as queue_mod
+
+    backend, world, procs, results = started
+    t0 = time.perf_counter()
+    got = {}
+    try:
+        while len(got) < world:
+            left = timeout_s - (time.perf_counter() - t0)
+            try:
+                rank, status, payload = results.get(timeout=max(left, 1))
+            except queue_mod.Empty:
+                raise SmokeFailure(f"{backend} world of {world}: no answer "
+                                   f"in {timeout_s} s") from None
+            check(status == "ok", f"{backend} world of {world}, rank "
+                  f"{rank}:\n{payload}")
+            got[rank] = payload
+        for p in procs:
+            p.join(60)
+            check(p.exitcode == 0, f"{backend} world rank exit {p.exitcode}")
+    finally:
+        for p in procs:
+            if p.is_alive():
+                p.terminate()
+                p.join(10)
+    return got[0], time.perf_counter() - t0
+
+
+def phase_parallel(seed):
+    """World size 1 under NCCL at the full shapes, then 2 gloo ranks on the
+    same card at the reduced ones, held to the world of one. The gloo ranks
+    start (import, CUDA, the kernels) while the NCCL world works, and begin
+    their own work when it has ended."""
+    import multiprocessing as mp
+    import os
+    import shutil
+
+    ctx = mp.get_context("spawn")
+    folder = os.path.join("build", "chip_smoke_dist")
+    shutil.rmtree(folder, ignore_errors=True)
+    os.makedirs(folder)
+    go = ctx.Event()
+    t0 = time.perf_counter()
+    nccl = start_world(ctx, folder, "nccl", 1, seed, full=True)
+    gloo = start_world(ctx, folder, "gloo", 2, seed, full=False, go=go)
+    one, _ = collect_world(nccl)
+    wall1 = time.perf_counter() - t0
+    for line in one["lines"]:
+        print(f"    {line}", flush=True)
+    go.set()
+    two, wall2 = collect_world(gloo)
+    a, b = one["small"], two["small"]
+    sig = float(np.max(np.abs(b["sigma"] - a["sigma"]) / a["sigma"]))
+    pod = float(np.max(np.abs(b["pred"] - a["pred"]))
+                / np.max(np.abs(a["pred"])))
+    demc = float(np.max(np.abs(b["demc"][:100] - a["demc"][:100])))
+    check(sig <= PARALLEL_2RANK_TOL["sigma"][0], f"2 gloo ranks sigma {sig}")
+    check(pod <= PARALLEL_2RANK_TOL["podi"][0], f"2 gloo ranks PodI {pod}")
+    check(demc <= PARALLEL_2RANK_TOL["demc"][0], f"2 gloo ranks DEMC {demc}")
+    n, m, rank, _, _ = PARALLEL_SMALL["rsvd"]
+    n_snap, n_pts, n_modes, n_q = PARALLEL_SMALL["podi"]
+    chains, d, gens, held = PARALLEL_SMALL["demc"]
+    line = (f"2 gloo ranks on one card against the world of one (NCCL): "
+            f"sharded_random_svd {n}x{m} rank {rank} sigma {sig:.3e} (tol "
+            f"{PARALLEL_2RANK_TOL['sigma'][0]}), PodI {n_snap}x{n_pts} "
+            f"{n_modes} modes at {n_q} queries {pod:.3e} (tol "
+            f"{PARALLEL_2RANK_TOL['podi'][0]}), demc_run_sharded {chains} "
+            f"chains x {d} x {gens} first {held} generations {demc:.1e} "
+            f"(tol {PARALLEL_2RANK_TOL['demc'][0]}), acceptance "
+            f"{b['demc_ar']:.4f} / {a['demc_ar']:.4f}")
+    print(f"    {line}", flush=True)
+    print(f"    walls: NCCL world of 1 {wall1:.2f} s (from spawn to its last "
+          f"result), gloo world of 2 {wall2:.2f} s (from its go, its start "
+          f"overlapped with the NCCL world's work)", flush=True)
+    return one["counts"], wall1, wall2
+
+
+# ---------------------------------------------------------------------------
+# phase 24: export and serve from a fresh process
+
+EXPORT_RTOL = {torch.float32: 1e-6, torch.float64: 1e-12}
+EXPORT_SIZES = {
+    "pca": (20_000, 512, 20, 4096),               # rows, columns, rank, served rows
+    "dmdc": (20_000, 201, 10, 50),                # states, snapshots, modes, steps
+}
+SERVE_SCRIPT = (
+    "import sys\n"
+    "import time\n"
+    "t0 = time.perf_counter()\n"
+    "import torch\n"
+    "t1 = time.perf_counter()\n"
+    "args = torch.load(sys.argv[1])\n"
+    "t2 = time.perf_counter()\n"
+    "calls = {k: torch.export.load(p).module() for k, (p, _) in args.items()}\n"
+    "t3 = time.perf_counter()\n"
+    "outs = {k: calls[k](*x) for k, (_, x) in args.items()}\n"
+    "if torch.cuda.is_available():\n"
+    "    torch.cuda.synchronize()\n"
+    "t4 = time.perf_counter()\n"
+    "torch.save(outs, sys.argv[2])\n"
+    "assert not any(m.startswith('corrla') for m in sys.modules)\n"
+    "print('SERVED', len(outs), f'(import torch {t1 - t0:.2f} s, inputs '\n"
+    "      f'onto the card {t2 - t1:.2f} s, load {t3 - t2:.2f} s, run '\n"
+    "      f'{t4 - t3:.2f} s)')\n"
+)
+
+
+def phase_export(port, dev, seed):
+    """Export PcaRsvd.apply_tr and the DMDc reduced rollout on the card in
+    f32 and f64, serve all four from one fresh process that imports only
+    torch, and check the refusal for PodI.predict (its RBF step is a CUDA
+    kernel)."""
+    import os
+    import shutil
+
+    from corrla_rs_tpu_torch.utils.export import export_fn, export_model_call
+
+    folder = os.path.abspath(os.path.join("build", "chip_smoke_export"))
+    shutil.rmtree(folder, ignore_errors=True)
+    os.makedirs(folder)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    out, jobs, refs = [], {}, {}
+    n, m, rank, n_serve = EXPORT_SIZES["pca"]
+    n_x, n_t, n_modes, n_steps = EXPORT_SIZES["dmdc"]
+    z, u = latent_system(n_t, seed)
+    for dtype in (torch.float32, torch.float64):
+        tag = "f32" if dtype == torch.float32 else "f64"
+        x = torch.randn(n, m, generator=gen, device=dev, dtype=dtype)
+        pca = port.PcaRsvd(x, rank, key=seed)
+        xq = torch.randn(n_serve, m, generator=gen, device=dev, dtype=dtype)
+        path = os.path.join(folder, f"pca_{tag}.pt2")
+        _, sec = wall(lambda: export_model_call(pca, "apply_tr", (xq,), path))
+        jobs[f"pca_{tag}"] = (path, (xq,))
+        refs[f"pca_{tag}"] = (pca.apply_tr(xq), sec, dtype)
+        xd = lifted(z, n_x, gen, dev, dtype=dtype)
+        ud = u.to(dev, dtype)
+        model = port.DMDc(xd, ud, n_modes, 10, key=seed)
+        x0, u_seq = xd[:, :1].contiguous(), ud[:, :n_steps].contiguous()
+        path = os.path.join(folder, f"dmdc_{tag}.pt2")
+        _, sec = wall(lambda: export_fn(
+            lambda a, b: model.predict_multiple(a, b, method="reduced"),
+            (x0, u_seq), path))
+        jobs[f"dmdc_{tag}"] = (path, (x0, u_seq))
+        refs[f"dmdc_{tag}"] = (model.predict_multiple(x0, u_seq, "reduced"),
+                               sec, dtype)
+    args = os.path.join(folder, "args.pt")
+    served = os.path.join(folder, "served.pt")
+    torch.save(jobs, args)
+    t0 = time.perf_counter()
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    proc = subprocess.run([sys.executable, "-c", SERVE_SCRIPT, args, served],
+                          capture_output=True, text=True, timeout=300,
+                          env=env, cwd=folder)
+    serve_s = time.perf_counter() - t0
+    check(proc.returncode == 0 and "SERVED" in proc.stdout,
+          f"serving process failed: {proc.stderr[-2000:]}")
+    got = torch.load(served)
+    for name, (want, sec, dtype) in refs.items():
+        err = rel_max(got[name].to(dev), want)
+        tol = EXPORT_RTOL[dtype]
+        check(got[name].device.type == "cuda",
+              f"served {name} came back on {got[name].device}, not cuda")
+        check(err <= tol, f"served {name}: rel err {err:.3e} > {tol}")
+        out.append(f"{name}: exported in {sec:.2f} s, served rel err "
+                   f"{err:.1e} (tol {tol})")
+    # a method that reaches a CUDA kernel is refused, by name
+    t = torch.linspace(0, 1, 64, device=dev)[:, None]
+    pod = port.PodI(pod_family(t, torch.linspace(0, 1, 4000, device=dev)
+                               [None, :]), t, 4, key=seed)
+    try:
+        export_model_call(pod, "predict", (t[:3],),
+                          os.path.join(folder, "pod.pt2"))
+        refused = None
+    except NotImplementedError as e:
+        refused = str(e)
+    check(refused is not None and "rbf_matvec" in refused
+          and "item 19" in refused,
+          f"PodI.predict export on CUDA was not refused: {refused}")
+    out.append(f"PodI.predict refused: {refused[:60]}...")
+    split = proc.stdout.split("SERVED", 1)[1].strip().split(" ", 1)[1]
+    out.append(f"one fresh process (torch only) served {len(jobs)} programs "
+               f"in {serve_s:.2f} s {split}")
+    return out
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--seed", type=int, default=0,
@@ -4538,6 +5135,38 @@ def main(argv=None) -> int:
           flush=True)
     torch.cuda.empty_cache()
 
+    # 23. the multi-device layer, in spawned worlds that count their own
+    # launches (from 0 before each path of the world of one)
+    names = ("pairwise_kernel_matrix", "rbf_matvec")
+    t0 = time.perf_counter()
+    par_counts, wall1, wall2 = phase_parallel(args.seed + 16)
+    eleventh = {k: sum(c[k] for c in par_counts.values()) for k in names}
+    for name, count in eleventh.items():
+        check(count > 0, f"{name} was not launched by the parallel phase")
+    par_s = time.perf_counter() - t0
+    report("parallel", t0, "NCCL world of 1 at the full shapes, 2 gloo "
+           "ranks on one card at the reduced ones; each check printed above")
+    print(f"[launches] ok  parallel (world of one, by path): {par_counts}",
+          flush=True)
+
+    # 24. export: PcaRsvd.apply_tr and the DMDc rollout served from a fresh
+    # process; the PodI fit for the refusal launches the kernel matrix
+    rk.pairwise_kernel_matrix.launches = 0
+    rk.rbf_matvec.launches = 0
+    t0 = time.perf_counter()
+    lines = phase_export(port, dev, args.seed + 17)
+    export_s = time.perf_counter() - t0
+    report("export", t0, "; ".join(lines))
+    twelfth = {"pairwise_kernel_matrix": rk.pairwise_kernel_matrix.launches,
+               "rbf_matvec": rk.rbf_matvec.launches}
+    check(twelfth["rbf_matvec"] == 0,
+          f"the refused PodI.predict export launched the matvec: {twelfth}")
+    print(f"[launches] ok  export: {twelfth}", flush=True)
+    print(f"[walls] parallel {par_s:.2f} s (NCCL world of 1 {wall1:.2f} s, "
+          f"gloo world of 2 {wall2:.2f} s), export {export_s:.2f} s | {smi}",
+          flush=True)
+    torch.cuda.empty_cache()
+
     # timing details and the kNN against its plain version (not counted)
     t0 = time.perf_counter()
     fit_r = detail_rbf_fit(rk, dev, gen)
@@ -4567,7 +5196,8 @@ def main(argv=None) -> int:
              "dream/factorize/mle": third,
              "inference/filters/evidence": fourth, "gp": fifth,
              "rom": sixth, "koopman": seventh, "uq": eighth,
-             "streaming": ninth, "stats": tenth}
+             "streaming": ninth, "stats": tenth, "parallel": eleventh,
+             "export": twelfth}
     table = {"kernels": []}
     for name in ("pairwise_kernel_matrix", "rbf_matvec"):
         top = max((row for row in timings[name] if row["main_path"]),

@@ -15,7 +15,12 @@ reference active_subspaces.rs:23-277):
   sorted descending by value; ``fit_svd`` takes the RSVD of G / sqrt(N)
   with the reference defaults (8 iterations, 10 oversamples).
 
-The ``mesh=`` keywords are not ported.
+``mesh=`` (a 1-D ``DeviceMesh``) on ``fit``, ``fit_bootstrap`` and
+``fit_svd`` shards the N query rows, every rank of the mesh making the same
+call: each rank runs the kNN of its queries against the whole support and
+their local fits, and the gradient outer-product sum is all-reduced before
+the replicated ``eigh`` (``fit_bootstrap`` all-gathers the k x N gradients
+to resample them; ``fit_svd`` is the sharded RSVD of G^T / sqrt(N)).
 """
 from __future__ import annotations
 
@@ -42,11 +47,6 @@ __all__ = [
 # Reference defaults for fit_svd (active_subspaces.rs:243).
 ASS_N_ITER = ActiveSsConfig().n_iter
 ASS_N_OVERSAMPLES = ActiveSsConfig().n_oversamples
-
-
-def _no_mesh(mesh) -> None:
-    if mesh is not None:
-        raise NotImplementedError("active subspaces with mesh= are not ported")
 
 
 def local_poly_grads(x_nbr: torch.Tensor, y_nbr: torch.Tensor,
@@ -242,13 +242,41 @@ class ActiveSsRsvd:
         reference loops serially, active_subspaces.rs:215-229)."""
         return self.grad_est.grad_batch(self._samples(x_mat)).mT
 
+    def _shard_queries(self, x_mat, mesh):
+        """(this rank's query rows, N): the query/sample axis sharded over
+        the mesh (the support stays whole on every rank)."""
+        from corrla_rs_tpu_torch.parallel.mesh import _axis, _local, _size
+
+        axis = _axis(mesh, None)
+        n_dev = _size(mesh, axis)
+        n = x_mat.shape[0]
+        if n % n_dev != 0:
+            raise ValueError(
+                f"active-subspace mesh= requires the sample count ({n}) to "
+                f"divide the mesh size ({n_dev})"
+            )
+        dev = getattr(self.grad_est, "x_mat", None)
+        x_l, _ = _local(x_mat, mesh, axis,
+                        device=None if dev is None else dev.device)
+        return x_l, n
+
+    def _gram(self, x_mat, mesh):
+        """(C = G G^T / N, this rank's columns of G)."""
+        if mesh is None:
+            x = self._samples(x_mat)
+            g = self.create_grad_mat(x)
+            return (g @ g.mT) / x.shape[0], g
+        from corrla_rs_tpu_torch.parallel.mesh import _axis, _psum
+
+        x_l, n = self._shard_queries(x_mat, mesh)
+        g_l = self.create_grad_mat(x_l)
+        return _psum(g_l @ g_l.mT, mesh, _axis(mesh, None)) / n, g_l
+
     def fit(self, x_mat, mesh=None) -> FittedActiveSsRsvd:
         """EVD path: eigh of C = G G^T / N, sorted descending by value.
         Parity with active_subspaces.rs:252-277."""
-        _no_mesh(mesh)
-        x = self._samples(x_mat)
-        g = self.create_grad_mat(x)
-        eigs, eigvs = torch.linalg.eigh((g @ g.mT) / x.shape[0])
+        c, _g = self._gram(x_mat, mesh)
+        eigs, eigvs = torch.linalg.eigh(c)
         sorted_vals, sorted_vecs = sort_evd(eigs, eigvs)
         return FittedActiveSsRsvd(sorted_vecs, sorted_vals, self.n_comps)
 
@@ -263,11 +291,14 @@ class ActiveSsRsvd:
         spectral-norm distances ||W W^T - W_b W_b^T||_2 of the leading
         n_comps subspaces.
         """
-        _no_mesh(mesh)
-        x = self._samples(x_mat)
-        g = self.create_grad_mat(x)                   # (k, N)
-        n = g.shape[1]
-        vals0, w0 = _sorted_eigh((g @ g.mT) / n)
+        c, g = self._gram(x_mat, mesh)
+        if mesh is not None:
+            from corrla_rs_tpu_torch.parallel.mesh import _all_gather, _axis
+
+            # the resamples draw from all N columns
+            g = _all_gather(g.mT, mesh, _axis(mesh, None)).mT
+        n = g.shape[1]                                # g: (k, N)
+        vals0, w0 = _sorted_eigh(c)
         w0 = w0[:, : self.n_comps]
         idx = _bootstrap_indices(key, int(n_boot), n, g.device)
         gb = g[:, idx].movedim(1, 0)                  # (n_boot, k, N)
@@ -288,13 +319,23 @@ class ActiveSsRsvd:
         """RSVD path: RSVD of G / sqrt(N). Parity with
         active_subspaces.rs:233-250. ``key`` is an int seed or a
         ``torch.Generator``."""
-        _no_mesh(mesh)
+        n_iter = n_iter if n_iter is not None else ASS_N_ITER
+        n_oversamples = (n_oversamples if n_oversamples is not None
+                         else ASS_N_OVERSAMPLES)
+        if mesh is not None:
+            from corrla_rs_tpu_torch.parallel.mesh import _axis
+            from corrla_rs_tpu_torch.parallel.sharded_rsvd import _sharded_svd
+
+            x_l, n = self._shard_queries(x_mat, mesh)
+            k = x_l.shape[1]
+            g_l = self.create_grad_mat(x_l) / np.sqrt(n)
+            # G (k, N) is fat: the SVD of G^T, sharded along its rows
+            _u, _ut, s, vt = _sharded_svd(
+                g_l.mT, None, k, min(k, self.n_comps), n_iter, n_oversamples,
+                key, "auto", mesh, _axis(mesh, None))
+            return FittedActiveSsRsvd(vt.mT, torch.diag(s), self.n_comps)
         x = self._samples(x_mat)
         g = self.create_grad_mat(x) / np.sqrt(x.shape[0])
-        u, s, _vt = random_svd(
-            g, min(x.shape[1], self.n_comps),
-            n_iter if n_iter is not None else ASS_N_ITER,
-            n_oversamples if n_oversamples is not None else ASS_N_OVERSAMPLES,
-            key=key,
-        )
+        u, s, _vt = random_svd(g, min(x.shape[1], self.n_comps), n_iter,
+                               n_oversamples, key=key)
         return FittedActiveSsRsvd(u, torch.diag(s), self.n_comps)

@@ -22,8 +22,20 @@ forms: the mode prefactor is (X' V) (S^+ U_1^T U^), not ((X' V S^+) U_1^T) U^.
 Rollouts are loops over steps of a few matrix-vector products on the
 device, with no synchronisation inside the loop. ``dmdc_fit_ensemble``
 fits the members one after another and takes their eigendecompositions in
-one batched call; ``rollout_ensemble`` steps all members at once. The
-``mesh=`` path is not ported.
+one batched call; ``rollout_ensemble`` steps all members at once.
+
+``DMDc(mesh=)`` shards the state axis over a 1-D ``DeviceMesh``, every rank
+of the mesh making the same call (``_dmdc_reduce_sharded``). Both RSVDs are
+``parallel.sharded_rsvd``'s; the n_u control rows of Omega are not on the
+state axis, so they ride as a replicated tail whose share of every
+reduction is added once, after the all-reduce, and U~_2 comes out
+replicated. Each product that contracts over n_x is local plus an
+all-reduce; B, the mode prefactor and U^ stay sharded along the states; A~
+and its eigendecomposition are replicated. The factored dynamics W come
+from a complex TSQR of the sharded modes (``_pinv_comp_sharded``), sharded
+along their columns. The rollouts step on the local rows: the 'modes' and
+'reduced' ones with one r-vector all-reduce a step, the dense one with an
+all-gather of the state.
 """
 from __future__ import annotations
 
@@ -34,7 +46,7 @@ from corrla_rs_tpu_torch.ops.eig import eig, eig_host
 from corrla_rs_tpu_torch.ops.mat_utils import pinv_comp_parts, pinv_diag
 from corrla_rs_tpu_torch.ops.random_svd import random_svd
 from corrla_rs_tpu_torch.utils.config import DmdConfig
-from corrla_rs_tpu_torch.utils.device import as_tensor
+from corrla_rs_tpu_torch.utils.device import _is_dtensor, as_tensor
 from corrla_rs_tpu_torch.utils.prng import split_seed
 
 __all__ = ["DMDc", "DMD", "dmdc_fit_ensemble", "rollout_ensemble"]
@@ -95,9 +107,64 @@ def _dmdc_reduce(x, u, n_modes, n_iters, n_oversamples, key):
     return a_til, b_op, tmp_modes_scale, u_hat
 
 
-def _factored(lam_re, lam_im, modes_re, modes_im, rtol=None):
-    """W = diag(lambda) Phi^+ as (w_re, w_im), leading dims batch."""
-    p_re, p_im = pinv_comp_parts(modes_re, modes_im, rtol)
+def _dmdc_reduce_sharded(x_l, u, n_modes, n_iters, n_oversamples, key,
+                         mesh, axis):
+    """Stage 1 on the mesh: ``x_l`` is this rank's rows of the states, ``u``
+    the controls every rank holds. The control rows of Omega ride as the
+    sharded RSVD's replicated tail. Returns (a_til (r, r) replicated, this
+    rank's rows of b_op, tmp_modes_scale and u_hat)."""
+    from corrla_rs_tpu_torch.parallel.mesh import _psum
+    from corrla_rs_tpu_torch.parallel.sharded_rsvd import _sharded_svd
+
+    m = x_l.shape[1] - 1
+    y_l = x_l[:, 1:]                  # output space (state only)
+    k1, k2 = _split_seed(key, 2, x_l.device)
+    u_til_1, u_til_2, s_til, vt_til = _sharded_svd(
+        x_l[:, :-1], u[:, :-1], m, n_modes, n_iters, n_oversamples, k1,
+        "auto", mesh, axis)
+    u_hat, _, _, _ = _sharded_svd(y_l, None, m, n_modes, n_iters,
+                                  n_oversamples, k2, "auto", mesh, axis)
+    s_til_inv = pinv_diag(torch.diag(s_til))
+    y_v = y_l @ vt_til.mT                                  # (n_l, r)
+    # eqs. 29, 30 and 36 as in _dmdc_reduce, contracting over n_x by an
+    # all-reduce
+    tmp_op_scale = _psum(u_hat.mT @ y_v, mesh, axis) @ s_til_inv
+    u1t_uhat = _psum(u_til_1.mT @ u_hat, mesh, axis)
+    a_til = tmp_op_scale @ u1t_uhat
+    b_op = u_hat @ (tmp_op_scale @ u_til_2.mT)
+    tmp_modes_scale = y_v @ (s_til_inv @ u1t_uhat)
+    return a_til, b_op, tmp_modes_scale, u_hat
+
+
+def _pinv_comp_sharded(x_re, x_im, rtol, mesh, axis):
+    """``pinv_comp_parts`` of the row-sharded (n, r) Phi = x_re + i x_im:
+    this rank's columns (r, n_l) of its rank-cutoff pseudoinverse.
+
+    A complex TSQR, Phi = Q R (local QR, all-gather of the R factors as
+    real pairs, replicated QR of their stack), then the SVD of the r x r R,
+    whose singular values are Phi's: pinv(Phi) = V S^+ (Q U)^H."""
+    from corrla_rs_tpu_torch.parallel.mesh import _all_gather, _coord
+
+    if rtol is None:
+        rtol = 1.0e-10 if x_re.dtype == torch.float64 else 1.0e-5
+    q_l, r_l = torch.linalg.qr(torch.complex(x_re, x_im), mode="reduced")
+    r_all = torch.view_as_complex(
+        _all_gather(torch.view_as_real(r_l.contiguous()), mesh, axis))
+    q_r, r = torch.linalg.qr(r_all, mode="reduced")
+    kk = r_l.shape[0]
+    idx = _coord(mesh, axis)
+    q_l = q_l @ q_r[idx * kk:(idx + 1) * kk]
+    u, s, vh = torch.linalg.svd(r, full_matrices=False)
+    s_inv = torch.where(s > rtol * s[:1], 1.0 / s.clamp_min(1e-300),
+                        torch.zeros_like(s))
+    p = (vh.mH * s_inv[None, :].to(vh.dtype)) @ (q_l @ u).mH
+    return p.real.contiguous(), p.imag.contiguous()
+
+
+def _factored(lam_re, lam_im, modes_re, modes_im, rtol=None, pinv=None):
+    """W = diag(lambda) Phi^+ as (w_re, w_im), leading dims batch.
+    ``pinv(re, im, rtol)`` defaults to ``pinv_comp_parts``."""
+    p_re, p_im = (pinv or pinv_comp_parts)(modes_re, modes_im, rtol)
     w_re = lam_re[..., :, None] * p_re - lam_im[..., :, None] * p_im
     w_im = lam_re[..., :, None] * p_im + lam_im[..., :, None] * p_re
     return w_re, w_im
@@ -169,6 +236,13 @@ class DMDc:
     eigensolve, between the two device stages) or 'device'
     (``torch.linalg.eig`` on the data's device). ``lambdas`` is a host
     numpy complex array in both.
+
+    ``mesh=`` (a 1-D ``DeviceMesh``): every rank of the mesh makes the same
+    call with x_data a DTensor sharded along the states, or the full
+    snapshots, and the full controls. The state dimension must divide the
+    mesh size. ``modes_re/modes_im``, ``est_b_til()``, ``est_a_til()`` and
+    every prediction are then DTensors sharded along the states; a state
+    passed to ``predict``/``predict_multiple`` may be one too.
     """
 
     def __init__(self, x_data, u_data, n_modes: int, n_iters: int,
@@ -178,31 +252,101 @@ class DMDc:
         cfg = config or DmdConfig()
         _check_backend(eig_backend)
         if mesh is not None:
-            raise NotImplementedError("DMDc(mesh=...) is not ported")
-        x = as_tensor(x_data, device=device)
-        u = as_tensor(u_data, device=x.device, dtype=x.dtype)
+            from corrla_rs_tpu_torch.parallel.mesh import _axis
+
+            axis = _axis(mesh, None)
+            x, u = self._sharded_inputs(x_data, u_data, mesh, axis)
+            self.n_x = x_data.shape[0]
+        else:
+            x = as_tensor(x_data, device=device)
+            u = as_tensor(u_data, device=x.device, dtype=x.dtype)
+            self.n_x = x.shape[0]
         self.n_snapshots = x.shape[1]
-        self.n_x = x.shape[0]
         self.n_u = u.shape[0]
         self.n_modes = int(n_modes)
         self.dt_snapshots = float(dt if dt is not None else cfg.dt)
-        self._A, self._B, tmp_modes_scale, self._u_hat = _dmdc_reduce(
-            x, u, self.n_modes, int(n_iters), int(cfg.n_oversamples), key)
+        args = (self.n_modes, int(n_iters), int(cfg.n_oversamples), key)
+        if mesh is None:
+            self._A, self._B, tmp_modes_scale, self._u_hat = _dmdc_reduce(
+                x, u, *args)
+        else:
+            self._A, b_op, tmp_modes_scale, u_hat = _dmdc_reduce_sharded(
+                x, u, *args, mesh, axis)
         self.lambdas, lam_re, lam_im, v_re, v_im = _spectrum(self._A,
                                                              eig_backend)
         self.modes_re = tmp_modes_scale @ v_re
         self.modes_im = tmp_modes_scale @ v_im
         self._a_full = None
         rtol = None if eig_backend == "device" else _HOST_PINV_RTOL
-        self._w_re, self._w_im = _factored(lam_re, lam_im, self.modes_re,
-                                           self.modes_im, rtol)
+        if mesh is None:
+            self._w_re, self._w_im = _factored(lam_re, lam_im, self.modes_re,
+                                               self.modes_im, rtol)
+            return
+        w_re, w_im = _factored(
+            lam_re, lam_im, self.modes_re, self.modes_im, rtol,
+            lambda re, im, tol: _pinv_comp_sharded(re, im, tol, mesh, axis))
+        from corrla_rs_tpu_torch.parallel.mesh import _dtensor
+
+        rows = (self.n_x, self.n_modes)
+        self._B = _dtensor(b_op, mesh, axis, 0, (self.n_x, self.n_u))
+        self._u_hat = _dtensor(u_hat, mesh, axis, 0, rows)
+        self.modes_re = _dtensor(self.modes_re, mesh, axis, 0, rows)
+        self.modes_im = _dtensor(self.modes_im, mesh, axis, 0, rows)
+        self._w_re = _dtensor(w_re, mesh, axis, 1, rows[::-1])
+        self._w_im = _dtensor(w_im, mesh, axis, 1, rows[::-1])
+
+    @staticmethod
+    def _sharded_inputs(x_data, u_data, mesh, axis):
+        """(this rank's rows of x, the full u) on the mesh's device."""
+        from corrla_rs_tpu_torch.parallel.mesh import _local, _size
+
+        n_dev = _size(mesh, axis)
+        n_x, n_t = x_data.shape
+        if n_x % n_dev != 0:
+            raise ValueError(
+                f"DMDc mesh= requires the state dimension ({n_x}) to divide "
+                f"the mesh size ({n_dev}); pad the snapshots or drop mesh= "
+                "(silently falling back to one device would hide a large "
+                "performance cliff)"
+            )
+        x_l, _ = _local(x_data, mesh, axis)
+        u = as_tensor(u_data, device=x_l.device, dtype=x_l.dtype)
+        if n_x + u.shape[0] < n_t - 1:
+            raise ValueError(
+                f"DMDc mesh= shards the states, which must be the long axis: "
+                f"{n_x} states and {u.shape[0]} controls against "
+                f"{n_t - 1} snapshot pairs; drop mesh= for a short state")
+        return x_l, u
+
+    def _sharding(self):
+        """(mesh, axis) of a fit made with mesh=, else None."""
+        if not _is_dtensor(self._B):
+            return None
+        from corrla_rs_tpu_torch.parallel.mesh import _placement
+
+        mesh, axis, _ = _placement(self._B)
+        return mesh, axis
 
     def est_a_til(self) -> torch.Tensor:
         """Full-state A = Phi_r W_r - Phi_i W_i (dmd_rom.rs:165-175), built
-        once on first use: O(n_x^2) memory."""
+        once on first use: O(n_x^2) memory (with mesh=, this rank's rows,
+        from an all-gather of W)."""
         if self._a_full is None:
-            self._a_full = (self.modes_re @ self._w_re
-                            - self.modes_im @ self._w_im)
+            sharded = self._sharding()
+            if sharded is None:
+                self._a_full = (self.modes_re @ self._w_re
+                                - self.modes_im @ self._w_im)
+            else:
+                from corrla_rs_tpu_torch.parallel.mesh import _all_gather, \
+                    _dtensor
+
+                mesh, axis = sharded
+                w_re, w_im = (_all_gather(w.to_local().mT, mesh, axis).mT
+                              for w in (self._w_re, self._w_im))
+                a_l = (self.modes_re.to_local() @ w_re
+                       - self.modes_im.to_local() @ w_im)
+                self._a_full = _dtensor(a_l, mesh, axis, 0,
+                                        (self.n_x, self.n_x))
         return self._a_full
 
     def est_b_til(self) -> torch.Tensor:
@@ -210,14 +354,28 @@ class DMDc:
         return self._B
 
     def _input(self, v) -> torch.Tensor:
-        return as_tensor(v, device=self._B.device, dtype=self._B.dtype)
+        b = self._B.to_local() if _is_dtensor(self._B) else self._B
+        return as_tensor(v, device=b.device, dtype=b.dtype)
 
     def predict(self, x_0, u_input) -> torch.Tensor:
         """One step: A x_0 + B u. Parity with dmd_rom.rs:185-194."""
+        sharded = self._sharding()
+        if sharded is not None:
+            return self._predict_sharded(x_0, u_input, *sharded)
         x0, u = self._input(x_0), self._input(u_input)
         _check_shape("x_0", x0, self.n_x, 1)
         _check_shape("u_input", u, self.n_u, 1)
         return self.est_a_til() @ x0 + self._B @ u
+
+    def _predict_sharded(self, x_0, u_input, mesh, axis):
+        from corrla_rs_tpu_torch.parallel.mesh import _dtensor, _full
+
+        x0 = self._input(_full(x_0))
+        u = self._input(u_input)
+        _check_shape("x_0", x0, self.n_x, 1)
+        _check_shape("u_input", u, self.n_u, 1)
+        y_l = self.est_a_til().to_local() @ x0 + self._B.to_local() @ u
+        return _dtensor(y_l, mesh, axis, 0, (self.n_x, 1))
 
     def predict_multiple(self, x_0, u_seq, method: str = "dense"):
         """Roll the dynamics over the columns of u_seq. dmd_rom.rs:199-225.
@@ -227,6 +385,10 @@ class DMDc:
         step, no dense A); method='reduced' rolls in the POD basis
         U^ A~ U^T and needs no eigendecomposition.
         """
+        sharded = self._sharding()
+        if sharded is not None:
+            return self._predict_multiple_sharded(x_0, u_seq, method,
+                                                  *sharded)
         x0, u = self._input(x_0), self._input(u_seq)
         _check_shape("x_0", x0, self.n_x, 1)
         _check_shape("u_seq", u, self.n_u)
@@ -236,6 +398,41 @@ class DMDc:
         if method == "reduced":
             return _rollout_reduced(self._u_hat, self._A, self._B, x0, u)
         return _rollout_dense(self.est_a_til(), self._B, x0, u)
+
+    def _predict_multiple_sharded(self, x_0, u_seq, method, mesh, axis):
+        """The rollouts on this rank's rows: one r-vector all-reduce a step
+        ('modes', 'reduced'), or an all-gather of the state (dense)."""
+        from corrla_rs_tpu_torch.parallel.mesh import _all_gather, \
+            _dtensor, _local, _psum
+
+        _check_shape("x_0", x_0, self.n_x, 1)
+        b_op = self._B.to_local()
+        x0, _ = _local(x_0, mesh, axis, device=b_op.device,
+                       dtype=b_op.dtype)
+        u = self._input(u_seq)
+        _check_shape("u_seq", u, self.n_u)
+        bu = _controls(b_op, u)
+        if method == "modes":
+            phi = torch.cat([self.modes_re.to_local(),
+                             -self.modes_im.to_local()], dim=-1)
+            w = torch.cat([self._w_re.to_local(), self._w_im.to_local()],
+                          dim=-2)
+
+            def step(x, j):
+                return phi @ _psum(w @ x, mesh, axis) + bu[j]
+        elif method == "reduced":
+            u_hat, a_til = self._u_hat.to_local(), self._A
+
+            def step(x, j):
+                return u_hat @ (a_til @ _psum(u_hat.mT @ x, mesh, axis)) \
+                    + bu[j]
+        else:
+            a_l = self.est_a_til().to_local()
+
+            def step(x, j):
+                return a_l @ _all_gather(x, mesh, axis) + bu[j]
+        out = _roll(step, x0, u.shape[-1])
+        return _dtensor(out, mesh, axis, 0, (self.n_x, u.shape[-1]))
 
 
 def dmdc_fit_ensemble(x_batch, u_batch, n_modes: int, n_iters: int, key=0,

@@ -108,20 +108,27 @@ def _cr_histogram(cr_ids, jds, n_cr, dtype):
 
 def _dream_generation(state: DreamState, rand: _GenRand, ln_prob_fn,
                       delta_max, n_cr, gamma_jump_prob, n_adapt,
-                      prop_fixup_fn) -> DreamState:
-    """One DREAM generation from pre-drawn randomness (see _draw_dream)."""
+                      prop_fixup_fn, population=None,
+                      reduce=None) -> DreamState:
+    """One DREAM generation from pre-drawn randomness (see _draw_dream).
+
+    Where ``state`` holds a shard of the chains: ``population`` is all the
+    heads (the pairs index them, their spread normalizes the jumps), and
+    ``reduce`` sums the (2, n_cr) stack of the crossover histogram over the
+    shards."""
     heads = state.heads
     n_chains, d = heads.shape
     dtype, dev = heads.dtype, heads.device
+    pop = heads if population is None else population
     # chain spread for jump-distance normalization (guard zeros)
-    chain_std = torch.std(heads, dim=0, correction=0) + 1e-30
+    chain_std = torch.std(pop, dim=0, correction=0) + 1e-30
 
     pair_mask = (
         torch.arange(delta_max, device=dev)[None, :] < rand.delta[:, None]
     ).to(dtype)[..., None]                            # (n, dm, 1)
     a_idx = rand.pairs[:, :delta_max]
     b_idx = rand.pairs[:, delta_max:]
-    diff = torch.sum((heads[a_idx] - heads[b_idx]) * pair_mask, dim=1)  # (n, d)
+    diff = torch.sum((pop[a_idx] - pop[b_idx]) * pair_mask, dim=1)  # (n, d)
 
     # crossover draw via the inverse CDF of the (adapting) p_cr, from the
     # pre-drawn uniforms
@@ -153,6 +160,8 @@ def _dream_generation(state: DreamState, rand: _GenRand, ln_prob_fn,
 
     # crossover adaptation (burn-in only)
     jd_add, id_add = _cr_histogram(cr_ids, jds, n_cr, dtype)
+    if reduce is not None:
+        jd_add, id_add = reduce(torch.stack([jd_add, id_add]))
     jump_dist = state.jump_dist + jd_add
     n_id = state.n_id + id_add
     mean_jump = jump_dist / n_id.clamp_min(1.0)

@@ -37,7 +37,9 @@ Each wrapper checks its operands, and then, for CUDA tensors, launches its
 kernel on the current stream without synchronising and adds one to its
 ``launches`` count; a failed launch raises. For CPU tensors it runs the
 plain PyTorch version (``pairwise_kernel_matrix_ref``, ``rbf_matvec_ref``),
-which nothing on the CUDA path calls.
+which nothing on the CUDA path calls. A CUDA call under ``torch.export``
+raises ``NotImplementedError`` naming the kernel: the launch needs real
+data pointers (``utils.export``).
 """
 from __future__ import annotations
 
@@ -237,6 +239,23 @@ def _entry(name: str, dtype: torch.dtype):
     return fn
 
 
+# torch.export sets this while it traces (a torch without it: compiling)
+_exporting = getattr(torch.compiler, "is_exporting",
+                     torch.compiler.is_compiling)
+
+
+def _refuse_export(name: str) -> None:
+    """Raise where a CUDA launch is being exported rather than run: the
+    ctypes launch needs real data pointers, and quietly tracing the plain
+    version instead would ship a program that never runs the kernel."""
+    if _exporting():
+        raise NotImplementedError(
+            f"{name}: the CUDA kernel cannot be traced or exported yet (it "
+            "launches through ctypes on real data pointers); making the "
+            "kernels torch.library custom ops is ROADMAP queue 1 item 19. "
+            "Export on the CPU, where the plain version traces")
+
+
 def _launch(device: torch.device, fn, *args) -> int:
     """``fn(*args, stream)`` on the current stream of ``device``, under
     ``torch.cuda.device`` only when that is not the current device."""
@@ -272,6 +291,7 @@ def _kernel_matrix_operands(name: str, xa: torch.Tensor,
 def _launch_kernel_matrix(out: torch.Tensor, xa: torch.Tensor,
                           xb: torch.Tensor, phi: int, eps: float) -> None:
     """One launch of the kernel into ``out`` (checked by the caller)."""
+    _refuse_export("pairwise_kernel_matrix")
     (n_a, d), n_b = xa.shape, xb.shape[0]
     fn = _entry("kernel_matrix", out.dtype)
     rc = _launch(out.device, fn, xa.data_ptr(), xb.data_ptr(), out.data_ptr(),
@@ -356,6 +376,7 @@ def rbf_matvec(x_query: torch.Tensor, x_support: torch.Tensor,
         )
     if first.device.type == "cpu":
         return rbf_matvec_ref(x_query, x_support, coeffs, kernel, eps)
+    _refuse_export("rbf_matvec")
     if n_q == 0 or n_s == 0:
         return torch.zeros((n_q, n_c), dtype=coeffs.dtype,
                            device=coeffs.device)

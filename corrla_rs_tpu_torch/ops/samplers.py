@@ -276,18 +276,20 @@ def _draw_demc(gen, n_gen: int, n_chains: int, ndim: int, var_epsilon: float,
 
 
 def _demc_step_pre(state: DemcState, rand, ln_prob_fn, gamma: float,
-                   prop_fixup_fn=None) -> DemcState:
+                   prop_fixup_fn=None, population=None) -> DemcState:
     """One DEMC generation from pre-drawn randomness ``rand`` = (pairs
     (n, 2), jitter (n, d), u_acc (n,)).
 
     Proposal parity with space_samplers.rs:326-358; all chains propose from
     the same generation of heads (the reference's ``sample_mcmc_par``,
-    space_samplers.rs:377-393).
+    space_samplers.rs:377-393). ``population``: the heads the pairs index,
+    where ``state`` holds a shard of them (default ``state.heads``).
     """
     n_chains = state.heads.shape[0]
     pairs, jitter, u_acc = rand
     heads = state.heads
-    delta = heads[pairs[:, 0]] - heads[pairs[:, 1]]
+    pop = heads if population is None else population
+    delta = pop[pairs[:, 0]] - pop[pairs[:, 1]]
     prop = heads + gamma * delta + jitter
     if prop_fixup_fn is not None:
         prop = torch.func.vmap(prop_fixup_fn)(prop)

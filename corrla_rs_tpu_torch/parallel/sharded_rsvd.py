@@ -1,0 +1,207 @@
+"""Multi-device randomized SVD: a row-sharded tall matrix over a mesh.
+
+Counterpart of ``corrla_rs_tpu/parallel/sharded_rsvd.py``. The tall matrix
+A (n, m) is split along its rows across the mesh axis; each rank runs the
+local products and the collectives join them. Per power iteration:
+
+    Y_l   = A_l @ Omega                       (local GEMM)
+    Z     = allreduce(A_l^T @ Y_l)            (Gram reduction)
+    Y_l   = A_l @ Z                           (local GEMM)
+
+The in-loop thin QR is the preconditioned ridge-fallback CholeskyQR (three
+rounds of all-reduced column norms and Gram, Cholesky with the small/large
+ridge chosen by ``torch.where`` on the device, as in
+``ops.random_svd._cholesky_qr2``): two k x k all-reduces a round. The final
+orthonormalization is an exact TSQR (``_tsqr``): a local Householder QR,
+an all-gather of the k x k R factors, one replicated QR of their stack, and
+this rank's block of its Q. B = allreduce(Q_l^T A_l) and its small SVD are
+replicated on every rank.
+
+Omega is drawn whole through ``ops.random_svd._draw_sketch``, so the same
+key gives the same sketch on every rank and in the single-device
+``random_svd``. The local products are the same ``torch.matmul`` with TF32
+off as in ``ops.random_svd``.
+
+The body also takes a replicated ``tail`` of extra rows that every rank
+holds: the matrix is then [A sharded; tail], and the tail's share of every
+reduction is added once, after the all-reduce (``models.dmd`` puts DMDc's
+control rows there).
+"""
+from __future__ import annotations
+
+import torch
+
+from corrla_rs_tpu_torch.ops import random_svd as _rsvd
+from corrla_rs_tpu_torch.parallel.mesh import (
+    _all_gather,
+    _axis,
+    _coord,
+    _dtensor,
+    _local,
+    _psum,
+    _size,
+    make_mesh,
+)
+
+__all__ = ["sharded_random_svd", "sharded_power_iter_qr"]
+
+
+def _reduce(local, tail_part, mesh, axis_name):
+    """allreduce(local) plus the replicated tail's share, added once."""
+    total = _psum(local, mesh, axis_name)
+    return total if tail_part is None else total + tail_part
+
+
+def _chol_qr_once(y_l, y_t, mesh, axis_name, eps_small, eps_big, tiny):
+    """One preconditioned CholeskyQR round (ridge fallback) on the sharded
+    panel y_l (and the replicated tail y_t): column norms and the Gram are
+    all-reduced, everything else is local."""
+    k = y_l.shape[1]
+    cn2 = _reduce(torch.sum(y_l * y_l, dim=0),
+                  None if y_t is None else torch.sum(y_t * y_t, dim=0),
+                  mesh, axis_name)
+    cn = torch.sqrt(cn2).clamp_min(tiny)
+    ys_l = y_l / cn[None, :]
+    ys_t = None if y_t is None else y_t / cn[None, :]
+    g = _reduce(ys_l.mT @ ys_l, None if ys_t is None else ys_t.mT @ ys_t,
+                mesh, axis_name)
+    eye = torch.eye(k, dtype=y_l.dtype, device=y_l.device)
+    r_small, info = torch.linalg.cholesky_ex(g + eps_small * eye, upper=True)
+    ok = (info == 0) & torch.isfinite(r_small).all()
+    r_big, _ = torch.linalg.cholesky_ex(g + eps_big * eye, upper=True)
+    r = torch.where(ok, r_small, r_big)
+
+    def solve(y):
+        return torch.linalg.solve_triangular(r, y, upper=True, left=False)
+
+    return solve(ys_l), None if ys_t is None else solve(ys_t)
+
+
+def _chol_qr2(y_l, y_t, mesh, axis_name):
+    """Three robust rounds: see ops.random_svd._cholesky_qr2 for why
+    (rank-deficient sketches, f32 Gram rounding)."""
+    if y_l.dtype == torch.float32:
+        eps_small, eps_big, tiny = 1e-7, 1e-2, 1e-30
+    else:
+        eps_small, eps_big, tiny = 1e-15, 1e-8, 1e-290
+    for _ in range(3):
+        y_l, y_t = _chol_qr_once(y_l, y_t, mesh, axis_name, eps_small,
+                                 eps_big, tiny)
+    return y_l, y_t
+
+
+def _tsqr(y_l, y_t, mesh, axis_name):
+    """Exact thin QR of [y_l sharded; y_t replicated] (one-level TSQR).
+
+    Local Householder QR of each shard's (n_local, k) panel, an all-gather
+    of the R factors, one replicated Householder QR of their stack (with
+    the tail's rows below it), then Q_l @ (this rank's block of Q_r).
+    Backward stable like Householder, so it is the final orthonormalization
+    of the range finder. Returns (Q_l, Q_tail)."""
+    q_l, r_l = torch.linalg.qr(y_l, mode="reduced")
+    r_all = _all_gather(r_l, mesh, axis_name)
+    stacked = r_all if y_t is None else torch.cat([r_all, y_t])
+    q_r = torch.linalg.qr(stacked, mode="reduced").Q
+    kk = r_l.shape[0]
+    idx = _coord(mesh, axis_name)
+    q_l = q_l @ q_r[idx * kk:(idx + 1) * kk]
+    return q_l, None if y_t is None else q_r[r_all.shape[0]:]
+
+
+def _power_iter_sharded(a_l, a_t, omega, n_iter, stabilize, mesh, axis_name):
+    """Row-sharded randomized range finder of [a_l; a_t]; returns
+    (Q_l, Q_tail)."""
+    y_l = a_l @ omega
+    y_t = None if a_t is None else a_t @ omega
+    for i in range(int(n_iter)):
+        if stabilize == "always" or i > 2:
+            y_l, y_t = _chol_qr2(y_l, y_t, mesh, axis_name)
+        z = _reduce(a_l.mT @ y_l, None if a_t is None else a_t.mT @ y_t,
+                    mesh, axis_name)
+        y_l = a_l @ z
+        y_t = None if a_t is None else a_t @ z
+        norm2 = _reduce(torch.sum(y_l * y_l),
+                        None if y_t is None else torch.sum(y_t * y_t),
+                        mesh, axis_name)
+        scale = torch.sqrt(norm2).clamp_min(1e-30)
+        y_l = y_l / scale
+        y_t = None if y_t is None else y_t / scale
+    return _tsqr(y_l, y_t, mesh, axis_name)
+
+
+def sharded_power_iter_qr(a_l, omega, n_iter, stabilize, axis_name, mesh):
+    """The randomized range finder on this rank's rows ``a_l``: returns
+    this rank's rows of the orthonormal Q. Every rank of the mesh axis
+    calls it with its own rows and the same ``omega``. (JAX finds the mesh
+    from inside ``shard_map``; torch has no ambient mesh, so it is passed.)
+    """
+    return _power_iter_sharded(a_l, None, omega, n_iter, stabilize, mesh,
+                               axis_name)[0]
+
+
+def _check_tall(n: int, m: int, n_dev: int) -> None:
+    """The sharded SVD's layout: tall, rows divisible by the axis size."""
+    if n < m:
+        raise ValueError(
+            "sharded_random_svd expects a tall (n >= m) matrix; transpose "
+            "fat inputs at the caller (layout choice)"
+        )
+    if n % n_dev != 0:
+        raise ValueError(
+            f"rows ({n}) must divide the mesh axis size ({n_dev})"
+        )
+
+
+def _resolve(stabilize: str, dtype) -> str:
+    """'auto' as ``ops.random_svd.power_iter`` resolves it."""
+    if stabilize == "auto":
+        return "always" if dtype == torch.float32 else "reference"
+    return stabilize
+
+
+def _sharded_svd(a_l, a_t, m, omega_rank, n_iter, n_oversamples, key,
+                 stabilize, mesh, axis_name):
+    """The body of every sharded randomized SVD: (U_l, U_tail, s, Vt) of
+    [a_l; a_t] (m columns), truncated to the rank, s and Vt replicated."""
+    sketch_rank = min(int(omega_rank) + int(n_oversamples), m)
+    rank = min(int(omega_rank), sketch_rank)
+    omega = _rsvd._draw_sketch(key, (m, sketch_rank), a_l.dtype, a_l.device)
+    q_l, q_t = _power_iter_sharded(a_l, a_t, omega, n_iter,
+                                   _resolve(stabilize, a_l.dtype), mesh,
+                                   axis_name)
+    b = _reduce(q_l.mT @ a_l, None if a_t is None else q_t.mT @ a_t, mesh,
+                axis_name)
+    u_b, s, vt = torch.linalg.svd(b, full_matrices=False)
+    u_b = u_b[:, :rank]
+    return (q_l @ u_b, None if q_t is None else q_t @ u_b, s[:rank],
+            vt[:rank, :])
+
+
+def sharded_random_svd(a, omega_rank: int, n_iter: int, n_oversamples: int,
+                       key=0, stabilize: str = "always", mesh=None,
+                       axis_name: str | None = None):
+    """Randomized SVD of a tall row-sharded matrix over a device mesh.
+
+    Every rank of the mesh calls it. Args:
+      a: (n, m) with n >= m, n divisible by the mesh axis size: a DTensor
+         sharded along its rows on the axis, or the full matrix on every
+         rank (each keeps its own rows).
+      key: an int seed or a ``torch.Generator`` (in the same state on every
+         rank): Omega is drawn whole, as ``random_svd`` draws it.
+      stabilize: 'always' (default here: CholeskyQR2 is cheap next to the
+         sharded products and much safer in f32) or 'reference'.
+      mesh: a DeviceMesh; default a CUDA mesh over the whole world.
+    Returns:
+      (U (n, r) as a DTensor sharded along its rows, s (r,), Vt (r, m)),
+      s and Vt replicated: the semantics of ops.random_svd.random_svd for
+      the same key, up to the order of the sums.
+    """
+    mesh = mesh if mesh is not None else make_mesh()
+    axis_name = _axis(mesh, axis_name)
+    n, m = a.shape
+    _check_tall(n, m, _size(mesh, axis_name))
+    a_l, _ = _local(a, mesh, axis_name)
+    u_l, _, s, vt = _sharded_svd(a_l, None, m, omega_rank, n_iter,
+                                 n_oversamples, key, stabilize, mesh,
+                                 axis_name)
+    return _dtensor(u_l, mesh, axis_name, 0, (n, u_l.shape[1])), s, vt

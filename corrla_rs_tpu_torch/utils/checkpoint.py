@@ -15,6 +15,12 @@ the JAX package registers; an unknown class is refused with a
 ``ValueError`` that names it. ``torch.device`` attributes are machine-specific and are saved
 as None (loaded objects put numpy inputs on the default device).
 
+A model fitted with ``mesh=`` saves whole: its ``DTensor`` attributes are
+gathered whole (``parallel.mesh._full``) and its ``DeviceMesh`` (``_mesh``) is
+written as None, as the JAX package writes its mesh, so the file loads as
+a single-device model. Every rank of the mesh calls ``save_model`` (the
+gathers are collectives) and the mesh's first rank writes the file.
+
 A DREAM run resumes from its ``DreamState``: ``save_dream_state`` writes
 its arrays and its generator's state; ``load_dream_state`` restores them.
 A state the JAX package saved carries a JAX key instead (``key_data``);
@@ -23,11 +29,12 @@ the port's generator is then seeded from the key's words.
 from __future__ import annotations
 
 import json
+import sys
 
 import numpy as np
 import torch
 
-from corrla_rs_tpu_torch.utils.device import default_device
+from corrla_rs_tpu_torch.utils.device import _is_dtensor, default_device
 
 __all__ = [
     "save_model", "load_model", "register_model_class",
@@ -110,9 +117,31 @@ def _is_array(val) -> bool:
 
 
 def _numpy(val) -> np.ndarray:
+    if _is_dtensor(val):
+        from corrla_rs_tpu_torch.parallel.mesh import _full
+
+        val = _full(val)
     if isinstance(val, torch.Tensor):
         return val.detach().cpu().numpy()
     return np.asarray(val)
+
+
+def _is_mesh(val) -> bool:
+    mod = sys.modules.get("torch.distributed.device_mesh")
+    return mod is not None and isinstance(val, mod.DeviceMesh)
+
+
+def _writer(model) -> bool:
+    """Whether this process writes the file: always, unless the model holds
+    a mesh or DTensors, whose first rank alone writes."""
+    for val in vars(model).values():
+        mesh = val if _is_mesh(val) else (
+            val.device_mesh if _is_dtensor(val) else None)
+        if mesh is not None:
+            import torch.distributed as dist
+
+            return dist.get_rank() == int(mesh.mesh.min())
+    return True
 
 
 def _coerce(v):
@@ -136,7 +165,7 @@ def save_model(path: str, model) -> None:
     arrays = {}
     scalars = {}
     for name, val in vars(model).items():
-        if isinstance(val, torch.device):
+        if isinstance(val, torch.device) or _is_mesh(val):
             scalars[name] = None
         elif _is_array(val):
             arrays[f"arr_{name}"] = _numpy(val)
@@ -161,6 +190,8 @@ def save_model(path: str, model) -> None:
                     f"cannot checkpoint attribute {name!r} of type "
                     f"{type(val)}"
                 ) from None
+    if not _writer(model):
+        return
     np.savez(
         path,
         __class__=np.asarray(type(model).__name__),

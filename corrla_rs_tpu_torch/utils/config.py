@@ -14,6 +14,7 @@ under ``corrla_rs_tpu`` imports JAX.
 - DEMC: gamma 0.8, jitter width 1e-12
 - DREAM: up to 3 chain pairs, 3 crossover values, unit-gamma jumps at
   probability 0.2, noise widths 0.05 and 1e-6, no adaptation by default
+- mesh: one rank on each of the "rows" and "chains" axes
 """
 from __future__ import annotations
 
@@ -21,7 +22,7 @@ from dataclasses import dataclass
 
 __all__ = ["RsvdConfig", "PcaConfig", "PodConfig", "DmdConfig",
            "ActiveSsConfig", "DirichletSamplerConfig", "DemcConfig",
-           "DreamConfig"]
+           "DreamConfig", "MeshConfig"]
 
 
 @dataclass(frozen=True)
@@ -80,3 +81,12 @@ class DreamConfig:
     b: float = 0.05
     b_star: float = 1e-6
     n_adapt: int = 0
+
+
+@dataclass(frozen=True)
+class MeshConfig:
+    """Multi-device layout: rows axis for tall matrices, chains for MCMC
+    (``parallel.mesh.make_mesh_2d``)."""
+    rows: int = 1
+    chains: int = 1
+    axis_names: tuple = ("rows", "chains")

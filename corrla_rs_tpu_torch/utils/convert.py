@@ -33,7 +33,10 @@ the real ones a class keeps on the host (``_HOST_ARRAYS``: SPOD's
 frequencies, the bagged fits' member statistics, a PCE's standardisation,
 multi-indices and recurrences, CCA's canonical correlations), stay host
 numpy arrays, as the port keeps
-them; the JAX-only ``_mesh`` attribute is dropped.
+them. A mesh (``_mesh``, a JAX mesh or a ``DeviceMesh``) becomes None, and
+a port model fitted with ``mesh=`` crosses too: its DTensor attributes are
+gathered whole (``parallel.mesh._full``; every rank of the mesh calls), so the
+result is a single-device model.
 """
 from __future__ import annotations
 
@@ -72,7 +75,7 @@ from corrla_rs_tpu_torch.ops.pce import PolynomialChaos
 from corrla_rs_tpu_torch.ops.pls import PlsRegressor
 from corrla_rs_tpu_torch.ops.rvine import RVineCopula
 from corrla_rs_tpu_torch.ops.vine import CVineCopula
-from corrla_rs_tpu_torch.utils.device import default_device
+from corrla_rs_tpu_torch.utils.device import _is_dtensor, default_device
 
 __all__ = ["from_jax_state", "load_jax_checkpoint"]
 
@@ -166,7 +169,7 @@ _GMM_ARRAYS = ("weights", "means", "covs", "log_likelihood",
 # states that are no class of fitted attributes, each made by its own function
 _OTHER_STATES = ("DreamState", "EnsembleState", "LaplaceResult", "tt_cores",
                  "cp_factors", "GmmFit")
-_JAX_ONLY = "_mesh"   # a jax.sharding.Mesh, or None
+_MESH = "_mesh"   # a jax.sharding.Mesh or a DeviceMesh, or None
 
 
 def _is_array(val) -> bool:
@@ -197,14 +200,20 @@ def _restore(cls, state: dict, device=None):
     host = _HOST_ARRAYS.get(cls.__name__, ())
 
     def carry(val):
+        if _is_dtensor(val):
+            from corrla_rs_tpu_torch.parallel.mesh import _full
+
+            val = _full(val)
+        if isinstance(val, torch.Tensor):
+            val = val.detach().cpu()
         val = np.array(val)
         return val if np.iscomplexobj(val) else torch.as_tensor(val,
                                                                 device=dev)
 
     obj = cls.__new__(cls)
     for name, val in state.items():
-        if name == _JAX_ONLY:
-            continue
+        if name == _MESH:
+            val = None
         if name in host and val is not None:
             val = np.array(val)
         elif _is_array(val):

@@ -15,6 +15,8 @@ products to reach sigma relative errors near 1e-6.
 """
 from __future__ import annotations
 
+import sys
+
 import numpy as np
 import torch
 
@@ -54,6 +56,13 @@ def as_tensor(x, device=None, dtype=None) -> torch.Tensor:
     if not arr.flags.writeable or any(s < 0 for s in arr.strides):
         arr = arr.copy()
     return torch.as_tensor(arr, device=device or _DEFAULT_DEVICE, dtype=dtype)
+
+
+def _is_dtensor(x) -> bool:
+    """Whether ``x`` is a ``torch.distributed.tensor.DTensor``, without
+    importing that module (none can exist before it is imported)."""
+    mod = sys.modules.get("torch.distributed.tensor")
+    return mod is not None and isinstance(x, mod.DTensor)
 
 
 def _host_f64(x) -> np.ndarray:

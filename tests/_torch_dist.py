@@ -1,0 +1,541 @@
+"""Spawned gloo worlds for the port's multi-device tests.
+
+``World(n, tmpdir)`` starts n processes (the spawn start method, so the
+test process keeps no process group), each with a gloo process group over
+a ``FileStore`` under ``tmpdir`` (no TCP port: several pytest workers start
+worlds at once), one torch thread and the port's default device set to the
+CPU (``backend``/``device`` give other worlds, such as NCCL on the card).
+``world.run(case, *args)`` sends every rank the name of a case of this
+module and its (picklable) arguments, runs it on every rank, and returns
+the ranks' results in rank order; a rank that raises fails the call with
+its traceback.
+
+This module imports only torch and the port: the JAX side of a test is
+computed in the test process and handed in as numpy arrays, its random
+draws included (``_inject`` puts them behind the port's seams).
+"""
+from __future__ import annotations
+
+import datetime
+import os
+import traceback
+
+import numpy as np
+import torch
+
+_TIMEOUT_S = 240
+
+
+class World:
+    def __init__(self, n: int, tmpdir: str, backend: str = "gloo",
+                 device: str = "cpu"):
+        import multiprocessing as mp
+
+        ctx = mp.get_context("spawn")
+        self.n = n
+        self.conns, self.procs = [], []
+        store = os.path.join(tmpdir, "store")
+        for rank in range(n):
+            parent, child = ctx.Pipe()
+            proc = ctx.Process(target=_serve, daemon=True,
+                               args=(rank, n, store, child, backend, device))
+            proc.start()
+            child.close()
+            self.conns.append(parent)
+            self.procs.append(proc)
+
+    def run(self, case: str, *args):
+        for conn in self.conns:
+            conn.send((case, args))
+        results, errors = [], []
+        for rank, conn in enumerate(self.conns):
+            if not conn.poll(_TIMEOUT_S):
+                self.close()
+                raise TimeoutError(f"rank {rank} gave no answer to {case} in "
+                                   f"{_TIMEOUT_S} s")
+            ok, value = conn.recv()
+            results.append(value)
+            if not ok:
+                errors.append(f"rank {rank}:\n{value}")
+        if errors:
+            raise AssertionError("\n".join(errors))
+        return results
+
+    def close(self):
+        for conn in self.conns:
+            try:
+                conn.send(None)
+            except (BrokenPipeError, OSError):
+                pass
+        for proc in self.procs:
+            proc.join(10)
+            if proc.is_alive():
+                proc.terminate()
+
+
+def _serve(rank: int, n: int, store: str, conn, backend: str,
+           device: str) -> None:
+    import torch.distributed as dist
+
+    from corrla_rs_tpu_torch.parallel.mesh import init_distributed
+    from corrla_rs_tpu_torch.utils.device import set_default_device
+
+    torch.set_num_threads(1)
+    set_default_device(device)
+    _DEVICE[0] = device
+    # on CUDA every rank works on the card of its rank (one card: card 0)
+    init_distributed(
+        backend=backend, device_type=device, store=dist.FileStore(store, n),
+        rank=rank, world_size=n,
+        timeout=datetime.timedelta(seconds=_TIMEOUT_S // 2))
+    try:
+        while True:
+            msg = conn.recv()
+            if msg is None:
+                break
+            case, args = msg
+            try:
+                conn.send((True, CASES[case](*args)))
+            except Exception:
+                conn.send((False, traceback.format_exc()))
+    finally:
+        dist.destroy_process_group()
+
+
+# ---------------------------------------------------------------------------
+# helpers of the cases
+
+
+# the device type of this rank's world
+_DEVICE = ["cpu"]
+
+
+def _mesh(n=None, axis="rows"):
+    from corrla_rs_tpu_torch.parallel.mesh import make_mesh
+
+    return make_mesh(n, axis_name=axis, device_type=_DEVICE[0])
+
+
+def _np(x):
+    """numpy of a tensor, a DTensor (gathered: every rank calls) or a
+    nested tuple/list/dict of them."""
+    from corrla_rs_tpu_torch.parallel.mesh import _full
+
+    x = _full(x)
+    if isinstance(x, torch.Tensor):
+        return x.detach().cpu().numpy()
+    if isinstance(x, (tuple, list)):
+        return type(x)(_np(v) for v in x)
+    if isinstance(x, dict):
+        return {k: _np(v) for k, v in x.items()}
+    return x
+
+
+class _inject:
+    """Patch ``module.name`` with ``value`` inside a ``with`` block."""
+
+    def __init__(self, *patches):
+        self.patches = patches
+
+    def __enter__(self):
+        self.saved = [(m, n, getattr(m, n)) for m, n, _ in self.patches]
+        for m, n, v in self.patches:
+            setattr(m, n, v)
+
+    def __exit__(self, *exc):
+        for m, n, v in self.saved:
+            setattr(m, n, v)
+
+
+def _sketches(table):
+    """``_draw_sketch`` and ``_split_seed`` seams that hand out the JAX
+    draws of ``table`` ({seed, placeholder or (seed, shape): array});
+    ``_split_seed(key, n)`` returns the placeholders ``f"{key}/{i}"``."""
+    from corrla_rs_tpu_torch.models import dmd
+    from corrla_rs_tpu_torch.ops import random_svd
+
+    def draw(seed, shape, dtype, device):
+        arr = table.get((seed, tuple(shape)))
+        arr = table[seed] if arr is None else arr
+        assert tuple(arr.shape) == tuple(shape), (seed, arr.shape, shape)
+        return torch.as_tensor(arr, dtype=dtype, device=device)
+
+    def split(seed, n, device="cpu"):
+        return [f"{seed}/{i}" for i in range(int(n))]
+
+    return _inject((random_svd, "_draw_sketch", draw),
+                   (random_svd, "_split_seed", split),
+                   (dmd, "_split_seed", split))
+
+
+def _table_seam(table):
+    """A chunked draw seam popping successive generations of ``table`` (a
+    tuple of arrays with a leading generation axis)."""
+    pos = [0]
+
+    def draw(gen, n_gen, *args, **kwargs):
+        lo, hi = pos[0], pos[0] + n_gen
+        pos[0] = hi
+        return tuple(torch.as_tensor(t[lo:hi]) for t in table)
+
+    return draw
+
+
+# ---------------------------------------------------------------------------
+# the cases: each runs on every rank
+
+
+def case_mesh(n):
+    from corrla_rs_tpu_torch.parallel import mesh as pm
+    from corrla_rs_tpu_torch.utils.config import MeshConfig
+
+    mesh = _mesh(n)
+    a = torch.arange(2 * n * 4, dtype=torch.float64).reshape(2 * n, 4)
+    sh = pm.shard_rows(a, mesh)
+    out = {"size": mesh.size(), "names": mesh.mesh_dim_names,
+           "placements_ok": tuple(sh.placements) == pm.row_sharding(mesh),
+           "local_rows": sh.to_local().shape[0],
+           "full_ok": bool(torch.equal(sh.full_tensor(), a)),
+           "replicated": [str(p) for p in pm.replicated_sharding(mesh)]}
+    m2 = pm.make_mesh_2d(MeshConfig(rows=n // 2, chains=2),
+                         device_type="cpu")
+    out["mesh2d"] = (tuple(m2.mesh.shape), m2.mesh_dim_names)
+    errors = []
+    for fn in (lambda: pm.make_mesh_2d(rows=n, chains=2, device_type="cpu"),
+               lambda: pm.make_mesh(n + 1, device_type="cpu"),
+               lambda: pm.shard_rows(torch.ones(2 * n + 1, 2), mesh)):
+        try:
+            fn()
+            errors.append(None)
+        except ValueError as e:
+            errors.append(str(e))
+    out["errors"] = errors
+    return out
+
+
+def case_rsvd(a, omega_rank, n_iter, n_oversamples, table, stabilize):
+    from corrla_rs_tpu_torch.ops.random_svd import random_svd
+    from corrla_rs_tpu_torch.parallel.sharded_rsvd import sharded_random_svd
+
+    mesh = _mesh()
+    with _sketches(table):
+        u, s, vt = sharded_random_svd(a, omega_rank, n_iter, n_oversamples,
+                                      key=0, mesh=mesh)
+        local = tuple(u.to_local().shape)
+        placements = [str(p) for p in u.placements]
+        single = random_svd(torch.as_tensor(a, device=_DEVICE[0]),
+                            omega_rank, n_iter,
+                            n_oversamples, key=0, stabilize=stabilize)
+    return {"usv": _np((u, s, vt)), "local": local,
+            "placements": placements, "single": _np(single)}
+
+
+def case_rsvd_dtensor(a, table):
+    """A DTensor input (each rank holds only its rows) gives the same."""
+    from corrla_rs_tpu_torch.parallel.mesh import _dtensor, _rows_of
+    from corrla_rs_tpu_torch.parallel.sharded_rsvd import sharded_random_svd
+
+    mesh = _mesh()
+    a = torch.as_tensor(a)
+    dt = _dtensor(_rows_of(a, mesh, "rows", 0).clone(), mesh, "rows", 0,
+                  a.shape)
+    with _sketches(table):
+        return _np(sharded_random_svd(dt, 5, 10, 8, key=0, mesh=mesh))
+
+
+def case_rsvd_2d(a, table):
+    """Rows sharded over a 2 x 2 mesh's "rows" axis, replicated over its
+    "chains" axis: the same result as the 1-D mesh of the rows."""
+    from corrla_rs_tpu_torch.parallel.mesh import make_mesh_2d
+    from corrla_rs_tpu_torch.parallel.sharded_rsvd import sharded_random_svd
+
+    mesh = make_mesh_2d(rows=2, chains=2, device_type=_DEVICE[0])
+    with _sketches(table):
+        u, s, vt = sharded_random_svd(a, 5, 10, 8, key=0, mesh=mesh,
+                                      axis_name="rows")
+    return {"usv": _np((u, s, vt)), "local": tuple(u.to_local().shape),
+            "placements": [str(p) for p in u.placements]}
+
+
+def case_rsvd_validates():
+    from corrla_rs_tpu_torch.parallel.sharded_rsvd import sharded_random_svd
+
+    mesh = _mesh()
+    n = mesh.size()
+    out = []
+    for shape in ((10, 20), (4 * n + 1, 4)):
+        try:
+            sharded_random_svd(torch.ones(shape), 2, 4, 4, mesh=mesh)
+            out.append(None)
+        except ValueError as e:
+            out.append(str(e))
+    return out
+
+
+def case_power_iter_qr(a, omega):
+    """The exported range finder on each rank's own rows."""
+    from corrla_rs_tpu_torch.parallel.mesh import _all_gather, _rows_of
+    from corrla_rs_tpu_torch.parallel.sharded_rsvd import \
+        sharded_power_iter_qr
+
+    mesh = _mesh()
+    a_l = _rows_of(torch.as_tensor(a), mesh, "rows", 0)
+    q_l = sharded_power_iter_qr(a_l, torch.as_tensor(omega), 6, "always",
+                                "rows", mesh)
+    return _np(_all_gather(q_l, mesh, "rows"))
+
+
+def case_pca(x, rank, table):
+    from corrla_rs_tpu_torch.models.pca import PcaRsvd
+
+    mesh = _mesh()
+    with _sketches(table):
+        p = PcaRsvd(x, rank, mesh=mesh)
+    xq = torch.as_tensor(x[:7])
+    return _np({"s": p.singular_values, "comps": p.components,
+                "means": p.means, "ev": p.explained_var(),
+                "tr": p.apply_tr(xq)})
+
+
+def case_pod(p, t, n_modes, table, tq):
+    from corrla_rs_tpu_torch.models.pod import PodI
+
+    from corrla_rs_tpu_torch.ops import rbf_kernels as rk
+
+    mesh = _mesh()
+    before = (rk.pairwise_kernel_matrix.launches, rk.rbf_matvec.launches)
+    with _sketches(table):
+        pod = PodI(p, t, n_modes, mesh=mesh)
+    y = pod.predict(tq)
+    launches = (rk.pairwise_kernel_matrix.launches - before[0],
+                rk.rbf_matvec.launches - before[1])
+    return _np({"pred": y, "modes": pod.modes, "weights": pod.mode_weights,
+                "modes_local": tuple(pod.modes.to_local().shape),
+                "pred_placements": [str(q) for q in y.placements],
+                "launches": launches})
+
+
+def case_active_ss(x, y, table, boot_idx):
+    from corrla_rs_tpu_torch.models import active_subspaces as asm
+
+    mesh = _mesh()
+    ge = asm.PolyGradientEstimator(x, y, 2, 16)
+    est = asm.ActiveSsRsvd(ge, 2)
+    f = est.fit(x, mesh=mesh)
+    with _sketches(table):
+        fs = est.fit_svd(x, key=2, mesh=mesh)
+    with _inject((asm, "_bootstrap_indices",
+                  lambda key, n_boot, n, device: torch.as_tensor(boot_idx))):
+        boot = est.fit_bootstrap(x, n_boot=boot_idx.shape[0], key=1,
+                                 mesh=mesh)
+    try:
+        est.fit(x[:x.shape[0] - 1], mesh=mesh)
+        err = None
+    except ValueError as e:
+        err = str(e)
+    return _np({"vals": f.singular_vals, "comps": f.components,
+                "sensi": f.var_diag_evd_sensi(),
+                "svd_vals": fs.singular_vals_, "svd_comps": fs.components_,
+                "boot": boot, "error": err})
+
+
+def case_dmdc(snaps, u, n_modes, n_iters, table, mid):
+    from corrla_rs_tpu_torch.models.dmd import DMDc
+
+    mesh = _mesh()
+    with _sketches(table):
+        m = DMDc(snaps, u, n_modes, n_iters, key=3, mesh=mesh)
+    v, w = snaps[:, mid:mid + 1], u[:, mid:mid + 1]
+    x0 = snaps[:, 0:1]
+    out = {"lambdas": m.lambdas, "one": m.predict(v, w),
+           "b": m.est_b_til(), "a": m.est_a_til()}
+    for method in ("dense", "modes", "reduced"):
+        out[method] = m.predict_multiple(x0, u, method=method)
+    # a state given as a DTensor steps the same
+    from corrla_rs_tpu_torch.parallel.mesh import shard_rows
+
+    out["reduced_dt"] = m.predict_multiple(
+        shard_rows(torch.as_tensor(x0), mesh), u, method="reduced")
+    out["placements"] = [str(p) for p in m.modes_re.placements]
+    return _np(out)
+
+
+def case_dmdc_rejects(snaps, u):
+    from corrla_rs_tpu_torch.models.dmd import DMDc
+
+    try:
+        DMDc(snaps, u, 4, 8, mesh=_mesh())
+    except ValueError as e:
+        return str(e)
+    return None
+
+
+def case_hosvd(t, ranks, table):
+    from corrla_rs_tpu_torch.ops.hosvd import tucker_reconstruct
+    from corrla_rs_tpu_torch.parallel.sharded_hosvd import sharded_hosvd
+
+    with _sketches(table):
+        core, factors = sharded_hosvd(t, ranks, mesh=_mesh())
+    local = tuple(factors[0].to_local().shape)
+    from corrla_rs_tpu_torch.parallel.mesh import _full
+
+    factors = [_full(f) for f in factors]
+    return _np({"core": core, "factors": factors, "local": local,
+                "rec": tucker_reconstruct(core, factors)})
+
+
+def case_hosvd_validates(cases):
+    from corrla_rs_tpu_torch.parallel.sharded_hosvd import sharded_hosvd
+
+    out = []
+    for shape, ranks in cases:
+        try:
+            sharded_hosvd(np.ones(shape), ranks, mesh=_mesh())
+            out.append(None)
+        except ValueError as e:
+            out.append(str(e))
+    return out
+
+
+def _gauss_1d(mu, std):
+    def lnp(x):
+        return -0.5 * ((x[0] - mu) / std) ** 2 - np.log(std)
+    return lnp
+
+
+def case_demc(heads0, n_steps, draws, n_mesh):
+    """DEMC with the JAX package's sharded draws fed to the seam."""
+    from corrla_rs_tpu_torch.ops import samplers
+    from corrla_rs_tpu_torch.parallel.sharded_samplers import \
+        demc_run_sharded
+
+    lnp = samplers.ln_like_sum(
+        _gauss_1d(2.0, 3.0), samplers.ln_prior_uniform(np.array([[-20.0,
+                                                                  20.0]])))
+    with _inject((samplers, "_draw_demc", _table_seam(draws))):
+        hist, heads, ar = demc_run_sharded(
+            heads0, lnp, n_steps, gamma=0.8, var_epsilon=1e-10, key=0,
+            mesh=_mesh(n_mesh, "chains"))
+    return _np({"hist": hist, "heads": heads, "ar": ar,
+                "placements": [str(p) for p in hist.placements]})
+
+
+def case_demc_same_draws(heads0, n_steps, seed):
+    """The sharded run against the single-device run on the same torch
+    draws (each rank draws the whole table from the same seed)."""
+    from corrla_rs_tpu_torch.ops import samplers
+    from corrla_rs_tpu_torch.parallel.sharded_samplers import \
+        demc_run_sharded
+
+    lnp = _gauss_1d(0.5, 1.5)
+    hist, heads, ar = demc_run_sharded(heads0, lnp, n_steps, 0.8, 1e-10,
+                                       key=seed, mesh=_mesh(None, "chains"))
+    h1, st = samplers.demc_run(torch.as_tensor(heads0), lnp, n_steps, 0.8,
+                               1e-10, seed)
+    return _np({"hist": hist, "single": h1, "ar": ar,
+                "ar_single": int(st.n_accept) / (n_steps * heads0.shape[0])})
+
+
+def case_dream(heads0, n_steps, seed, n_adapt):
+    from corrla_rs_tpu_torch.ops.dream import dream_run
+    from corrla_rs_tpu_torch.parallel.sharded_samplers import \
+        dream_run_sharded
+
+    lnp = _gauss_1d(2.0, 3.0)
+    hist, heads, ar = dream_run_sharded(heads0, lnp, n_steps, key=seed,
+                                        n_adapt=n_adapt,
+                                        mesh=_mesh(None, "chains"))
+    h1, st = dream_run(torch.as_tensor(heads0), lnp, n_steps, key=seed,
+                       n_adapt=n_adapt)
+    return _np({"hist": hist, "single": h1, "ar": ar,
+                "ar_single": int(st.n_accept) / (n_steps * heads0.shape[0]),
+                "errors": _dream_errors()})
+
+
+def _dream_errors():
+    from corrla_rs_tpu_torch.parallel.sharded_samplers import \
+        dream_run_sharded
+
+    try:
+        dream_run_sharded(np.zeros((9, 1)), _gauss_1d(0.0, 1.0), 2,
+                          mesh=_mesh(None, "chains"))
+    except ValueError as e:
+        return str(e)
+    return None
+
+
+def _iso(x):
+    return -0.5 * torch.sum(x ** 2)
+
+
+def _skew(y):
+    return -0.5 * torch.sum((y * torch.tensor([0.25, 2.0],
+                                              dtype=y.dtype)) ** 2)
+
+
+def case_stretch(w0, n_steps, draws):
+    """The stretch move with the JAX package's sharded draws, its exact
+    affine equivariance, and the divisibility error."""
+    from corrla_rs_tpu_torch.ops import ensemble_mcmc
+    from corrla_rs_tpu_torch.parallel.sharded_samplers import \
+        stretch_run_sharded
+
+    mesh = _mesh(None, "chains")
+    scale = np.array([4.0, 0.5])
+    runs = {}
+    for name, w, lnp in (("iso", w0, _iso), ("skew", w0 * scale, _skew)):
+        with _inject((ensemble_mcmc, "_draw_stretch", _table_seam(draws))):
+            runs[name] = stretch_run_sharded(w, lnp, n_steps, key=2,
+                                             mesh=mesh)
+    try:
+        stretch_run_sharded(np.zeros((6, 2)), _iso, 3, mesh=mesh)
+        err = None
+    except ValueError as e:
+        err = str(e)
+    return _np({"iso": runs["iso"], "skew": runs["skew"], "error": err})
+
+
+def case_stretch_same_draws(w0, n_steps, seed):
+    from corrla_rs_tpu_torch.ops.ensemble_mcmc import stretch_run
+    from corrla_rs_tpu_torch.parallel.sharded_samplers import \
+        stretch_run_sharded
+
+    hist, heads, ar = stretch_run_sharded(w0, _iso, n_steps, key=seed,
+                                          mesh=_mesh(None, "chains"))
+    h1, st = stretch_run(torch.as_tensor(w0), _iso, n_steps, key=seed)
+    return _np({"hist": hist, "heads": heads, "single": h1, "ar": ar,
+                "ar_single": int(st.n_accept) / (n_steps * w0.shape[0])})
+
+
+def case_checkpoint(path_prefix, x, p, t, snaps, u, table):
+    """Sharded PcaRsvd, PodI and DMDc saved by every rank (the first rank
+    writes); the test process loads the files single-device."""
+    import torch.distributed as dist
+
+    from corrla_rs_tpu_torch.models.dmd import DMDc
+    from corrla_rs_tpu_torch.models.pca import PcaRsvd
+    from corrla_rs_tpu_torch.models.pod import PodI
+    from corrla_rs_tpu_torch.utils.checkpoint import save_model
+    from corrla_rs_tpu_torch.utils.convert import from_jax_state
+
+    mesh = _mesh()
+    with _sketches(table):
+        models = {"pca": PcaRsvd(x, 3, mesh=mesh),
+                  "pod": PodI(p, t, 3, mesh=mesh),
+                  "dmdc": DMDc(snaps, u, 4, 10, key=3, mesh=mesh)}
+    for name, model in models.items():
+        save_model(f"{path_prefix}_{name}.npz", model)
+    dist.barrier()
+    # convert's from_jax_state takes the sharded attributes too
+    pod = from_jax_state("PodI", vars(models["pod"]), "cpu")
+    return _np({"pca_tr": models["pca"].apply_tr(torch.as_tensor(x[:5])),
+                "pod_pred": models["pod"].predict(torch.as_tensor(t[:3])),
+                "pod_conv_pred": pod.predict(torch.as_tensor(t[:3])),
+                "pod_conv_mesh": pod._mesh,
+                "dmdc_roll": models["dmdc"].predict_multiple(
+                    snaps[:, :1], u[:, :6], method="modes"),
+                "wrote": os.path.exists(f"{path_prefix}_pca.npz")})
+
+
+CASES = {name[len("case_"):]: fn for name, fn in dict(globals()).items()
+         if name.startswith("case_")}

@@ -139,7 +139,7 @@ def test_fitted_transforms_and_scores_match_jax(cpu_device):
     np.testing.assert_allclose(back.numpy(),
                                np.asarray(fj.inv_transform(fj.transform(x))),
                                atol=TOL * 10)
-    with pytest.raises(NotImplementedError, match="mesh"):
+    with pytest.raises(TypeError, match="mesh"):
         tas.ActiveSsRsvd(tas.PolyGradientEstimator(x, y, 2, 14), 2).fit(
             x, mesh=object())
 

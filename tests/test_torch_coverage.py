@@ -48,13 +48,6 @@ NOT_PORTED = {
     "ops.eig_device": "queue 1 item 7 (only on a measured H100 need)",
     # queue 1 item 12: the port's bench and its tracing
     "utils.tracing": "queue 1 item 12",
-    # queue 1 items 18-19
-    "parallel.mesh": "queue 1 item 18",
-    "parallel.sharded_rsvd": "queue 1 item 18",
-    "parallel.sharded_hosvd": "queue 1 item 18",
-    "parallel.sharded_samplers": "queue 1 item 18",
-    "utils.config.MeshConfig": "queue 1 item 18",
-    "utils.export": "queue 1 item 19",
     # what only the TPU needed
     "utils.cache": _LEAVE_OUT,
     "utils.smallpath": _LEAVE_OUT,
@@ -155,7 +148,7 @@ def test_this_slice_is_ported():
 # interpolation, the ROM models on the DMD core and the checkpoints; then
 # the Koopman/DMD-family ROM models and the sensitivity/UQ estimators;
 # then out-of-core streaming, the rest of the statistics layer and the
-# test helpers
+# test helpers; then the multi-device layer and the export
 SLICE_MODULES = (
     "ops.gp", "ops.design", "ops.bayes_opt", "ops.grassmann", "ops.deim",
     "ops.gappy", "ops.spdmd", "models.hankel_dmd", "models.mrdmd",
@@ -165,6 +158,8 @@ SLICE_MODULES = (
     "ops.pce", "ops.sobol", "ops.morris", "ops.shapley", "ops.mlmc",
     "ops.multifidelity", "ops.streaming", "ops.gmm", "ops.cma", "ops.cca",
     "ops.pls", "ops.copula", "ops.vine", "ops.rvine", "utils.testing",
+    "parallel.mesh", "parallel.sharded_rsvd", "parallel.sharded_hosvd",
+    "parallel.sharded_samplers", "utils.export",
 )
 SLICE_NAMES = (
     "GpRegressor", "SparseGpRegressor", "latin_hypercube", "sobol_sample",
@@ -196,7 +191,11 @@ JAX_ONLY_PARAMS = {"precision", "power_precision"}
 OWN_DEFAULTS = {("utils.log", "get_logger", "name"): "corrla_rs_tpu_torch"}
 # (module, callable) whose parameters differ from the JAX package's by
 # design, with the reason (ROADMAP "Differences by design")
-OWN_SIGNATURES = {}
+OWN_SIGNATURES = {
+    ("parallel.sharded_rsvd", "sharded_power_iter_qr"):
+        "the body of a sharded call takes its mesh: JAX finds it inside "
+        "shard_map, torch has no ambient mesh",
+}
 # ported modules that share no public callable with the JAX module, with
 # the reason: the signature walk has nothing to compare there
 NO_SHARED_CALLABLES = {
@@ -204,8 +203,9 @@ NO_SHARED_CALLABLES = {
                   "split_seed and fold_seed stand where as_key and split_key "
                   "do",
 }
-# every port entry point may end in this one extra parameter
-PORT_ONLY_TRAILING = "device"
+# every port entry point may end in one extra parameter of these
+# (make_mesh and make_mesh_2d take the mesh's device type)
+PORT_ONLY_TRAILING = ("device", "device_type")
 
 
 def _public(mod):
@@ -287,7 +287,7 @@ def test_slice_signatures_equal_the_jax_package(rel):
         want = [(p, OWN_DEFAULTS.get((rel, name, p), default))
                 for p, default in _params(jfn)
                 if p not in JAX_ONLY_PARAMS or p in kept]
-        if len(got) == len(want) + 1 and got[-1][0] == PORT_ONLY_TRAILING:
+        if len(got) == len(want) + 1 and got[-1][0] in PORT_ONLY_TRAILING:
             got = got[:-1]
         assert [p for p, _ in got] == [p for p, _ in want], f"{rel}.{name}"
         for (p, dg), (_, dw) in zip(got, want):

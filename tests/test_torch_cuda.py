@@ -1660,3 +1660,91 @@ def test_slice_cma_es_converges_on_the_card(dev):
     assert res.x_best.is_cuda and res.history.is_cuda
     assert res.f_best < 1e-10
     assert float((res.x_best - 1.5).abs().max()) < 1e-5
+
+
+# ---------------------------------------------------------------------------
+# the multi-device layer on the card: a world of one rank under NCCL
+
+
+@pytest.fixture(scope="module")
+def nccl_world(tmp_path_factory):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from _torch_dist import World
+
+    world = World(1, str(tmp_path_factory.mktemp("nccl")), backend="nccl",
+                  device="cuda")
+    yield world
+    world.close()
+
+
+def _spectrum_matrix(n, m, n_sig, seed):
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    s = np.logspace(0, -3, n_sig)
+    u = np.linalg.qr(rng.standard_normal((n, n_sig)))[0]
+    v = np.linalg.qr(rng.standard_normal((m, n_sig)))[0]
+    return ((u * s) @ v.T).astype(np.float32), s, rng
+
+
+def test_slice_sharded_rsvd_nccl_matches_random_svd(nccl_world):
+    import numpy as np
+
+    a, s_true, rng = _spectrum_matrix(20_000, 1000, 120, 1)
+    omega = rng.standard_normal((1000, 60)).astype(np.float32)
+    r = nccl_world.run("rsvd", a, 50, 6, 10, {0: omega}, "always")[0]
+    u, s, vt = r["usv"]
+    assert r["placements"] == ["S(0)"] and r["local"] == (20_000, 50)
+    assert float(np.max(np.abs(s - s_true[:50]) / s_true[:50])) <= 1e-3
+    # the single-device random_svd on the card, same sketch
+    single = r["single"][1]
+    assert float(np.max(np.abs(s - single) / single)) <= 1e-5
+
+
+def test_slice_sharded_podi_on_the_card_matches_cpu_f64(nccl_world,
+                                                        monkeypatch):
+    import numpy as np
+
+    from corrla_rs_tpu_torch.models.pod import PodI
+    from corrla_rs_tpu_torch.ops import random_svd
+
+    t = np.linspace(0.0, 1.0, 40)[:, None]
+    s = np.linspace(0.0, 1.0, 4000)[None, :]
+    p = np.exp(-t * s) + 0.3 * np.sin(2 * np.pi * s * t)
+    tq = np.array([[0.13], [0.5], [0.77]])
+    omega = np.random.default_rng(2).standard_normal((40, 16))
+    r = nccl_world.run("pod", p, t, 6, {0: omega}, tq)[0]
+    # both kernels ran on the card: the fit's kernel matrix, the matvec
+    assert all(n >= 1 for n in r["launches"]), r["launches"]
+    assert r["pred_placements"] == ["S(0)"]
+    monkeypatch.setattr(random_svd, "_draw_sketch",
+                        lambda seed, shape, dtype, device: torch.as_tensor(
+                            omega, dtype=dtype, device=device))
+    want = PodI(p, t, 6, device="cpu").predict(
+        torch.as_tensor(tq)).numpy()
+    assert float(np.max(np.abs(r["pred"] - want))) <= 1e-8 * float(
+        np.max(np.abs(want)))
+
+
+def test_slice_export_refuses_a_kernel_on_the_card(dev, tmp_path):
+    from corrla_rs_tpu_torch.models.pca import PcaRsvd
+    from corrla_rs_tpu_torch.models.pod import PodI
+    from corrla_rs_tpu_torch.utils.export import (
+        export_model_call,
+        load_exported,
+    )
+
+    gen = torch.Generator(device=dev).manual_seed(5)
+    x = torch.randn(64, 400, generator=gen, device=dev, dtype=torch.float64)
+    t = torch.linspace(0, 1, 64, device=dev, dtype=torch.float64)[:, None]
+    pod = PodI(x, t, 4)
+    with pytest.raises(NotImplementedError, match="item 19"):
+        export_model_call(pod, "predict", (t[:3],), str(tmp_path / "p.pt2"))
+    # a method that reaches no kernel exports on the card
+    pca = PcaRsvd(x, 4)
+    export_model_call(pca, "apply_tr", (x[:5],), str(tmp_path / "a.pt2"))
+    got = load_exported(str(tmp_path / "a.pt2"))(x[:5])
+    assert got.is_cuda
+    assert float((got - pca.apply_tr(x[:5])).abs().max()) <= 1e-12 * float(
+        pca.apply_tr(x[:5]).abs().max())

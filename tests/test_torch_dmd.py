@@ -106,7 +106,7 @@ def test_dmdc_forced_sine_fixture(cpu_device, nx, nt):
 def test_dmdc_validates(cpu_device):
     with pytest.raises(ValueError, match="eig_backend"):
         DMDc(np.ones((4, 5)), np.ones((1, 5)), 2, 2, eig_backend="nope")
-    with pytest.raises(NotImplementedError, match="mesh"):
+    with pytest.raises(TypeError, match="mesh"):
         DMDc(np.ones((4, 5)), np.ones((1, 5)), 2, 2, mesh=object())
     with pytest.raises(ValueError, match="batches"):
         port.dmdc_fit_ensemble(np.ones((4, 5)), np.ones((1, 5)), 2, 2)

@@ -46,7 +46,8 @@ def test_port_never_imports_jax():
     # those of the GPs, Grassmann interpolation and the ROM models, those
     # of the Koopman/DMD-family models and the UQ estimators, and those of
     # out-of-core streaming, the statistics layer and the test helpers (the
-    # drop-in shim corrla_rs_torch is imported above)
+    # drop-in shim corrla_rs_torch is imported above), and those of the
+    # multi-device layer and the export
     for name in ("ops.tt", "ops.cp", "ops.nmf", "ops.completion",
                  "ops.ensemble_mcmc", "ops.hmc", "ops.nuts", "ops.smc",
                  "ops.kalman", "ops.enkf", "ops.particle", "ops.laplace",
@@ -60,7 +61,9 @@ def test_port_never_imports_jax():
                  "ops.pce", "ops.sobol", "ops.morris", "ops.shapley",
                  "ops.mlmc", "ops.multifidelity", "ops.streaming",
                  "ops.gmm", "ops.cma", "ops.cca", "ops.pls", "ops.copula",
-                 "ops.vine", "ops.rvine", "utils.testing"):
+                 "ops.vine", "ops.rvine", "utils.testing", "parallel.mesh",
+                 "parallel.sharded_rsvd", "parallel.sharded_hosvd",
+                 "parallel.sharded_samplers", "utils.export"):
         assert f"corrla_rs_tpu_torch.{name}" in loaded, name
 
 
