@@ -126,8 +126,9 @@ time, and any failure raises (exit code != 0):
     double buffers: streamed_random_svd (the Gram and the power method),
     streamed_pca and streamed_single_pass_svd on rsvd's matrix (4.0 GB),
     the Gram method again under a device-memory cap below the source's
-    size; streamed_gram/cov/pearson_corr of 4,000,000 x 256 f32 against
-    f64 products; streamed_hosvd of a 262,144 x 32 x 32 tensor of
+    size and over two slots on the card (devices=); streamed_gram (also
+    over two slots)/cov/pearson_corr of 4,000,000 x 256 f32 against f64
+    products; streamed_hosvd of a 262,144 x 32 x 32 tensor of
     multilinear rank 16; streamed_pod of 2,000 x 1,000,000 f32 (8.0 GB,
     20 modes, predicted at 512 queries: its fit launches the kernel matrix,
     its predict the matvec); streamed_dmdc of 1,000,000 x 1,001 f32. Each
@@ -155,10 +156,19 @@ time, and any failure raises (exit code != 0):
     dream's 8,192 chains x 3 dims x 500 generations (held to the dream
     phase's limits and to the single-device run on the same draws); each
     path counts its launches from 0; the samplers' time a generation,
-    sharded and single-device, alternated. Then a world of 2 gloo ranks on
-    the same card (NCCL refuses two ranks on one device; its processes
-    start while the NCCL world works) runs the reduced shapes of
-    PARALLEL_SMALL, held to the world of one (PARALLEL_2RANK_TOL);
+    sharded and single-device, alternated. Then the row-sharded paths at
+    ROWS_FULL, f64, each held to the single-device port on the same data
+    at its JAX test's tolerance (ROWS_TOL): pearson_corr, mat_cov_centered
+    and single_pass_svd on a row-sharded DTensor of 100,000 x 10,000,
+    NormalRv.nll of 1,048,576 draws, SparseGpRegressor.fit on 1,048,576 x
+    8 row-sharded points (its K_mm, K_mn and K_mq launch the kernel
+    matrix: 3 launches; K_mn's launch is timed after the path),
+    sketched_lstsq, matrix_complete, spod, cp_als, nmf, robust_pca and
+    gmm_fit with mesh=. Then a world of 2 gloo ranks on the same card
+    (NCCL refuses two ranks on one device; its processes start while the
+    NCCL world works) runs the reduced shapes of PARALLEL_SMALL and
+    ROWS_SMALL, held to the world of one (PARALLEL_2RANK_TOL,
+    ROWS_2RANK_TOL);
 24. export: PcaRsvd.apply_tr and the DMDc reduced rollout exported on the
     card in f32 and f64 with utils.export, served from one fresh process
     that imports only torch (1e-6 / 1e-12 relative; its import, load and
@@ -482,6 +492,11 @@ STREAM_TOL = {
                        "(both packages; measured 1e-6 at 2,000 x 50,000 on "
                        "the CPU)"),
     "dmdc": (1e-3, "the DMDc phase's rollout tolerance, err / max|x|"),
+    "slots": (1e-4, "sigma rel, two slots' Gram against one slot's: f32 "
+                    "sums in another order, each about 1e-5 off the truth "
+                    "at the Gram path's smallest sigma (4.8e-6 and 1.1e-5 "
+                    "on the card), so a tenth of the limit against the "
+                    "truth"),
 }
 # tolerance of each statistics check against its planted truth
 STATS_TOL = {
@@ -3714,6 +3729,24 @@ def phase_streaming(port, dev, gen, seed):
                      f" GB host) method={method}: sigma rel err {err:.3e} "
                      f"(tol {tol['rsvd']}), |U^T U - I| {orth:.1e}; "
                      f"{sec:.4f} s, peak {peak / 2 ** 30:.3f} GiB; {passes}")
+            if method == "gram":
+                s_one = s
+        # the Gram path again over two slots on this card (devices=), held
+        # to the one-slot run: the same sums, reduced in another order
+        (u, s, vt), sec, peak, passes = streamed_fit(
+            log, lambda: st.streamed_random_svd(a, rank, n_iter, n_os,
+                                                key=1, devices=[dev, dev]))
+        err = ((s.double() - s_true[:rank]).abs()
+               / s_true[:rank]).max().item()
+        same = ((s - s_one).abs() / s_one).max().item()
+        check(err <= tol["rsvd"] and same <= tol["slots"],
+              f"streamed_random_svd over two slots: sigma {err:.3e}, "
+              f"against one slot {same:.3e}")
+        say(out, f"streamed_random_svd method=gram over two slots on "
+                 f"{dev} (devices=): sigma rel err {err:.3e} (tol "
+                 f"{tol['rsvd']}), against one slot {same:.3e} (tol "
+                 f"{tol['slots']}); {sec:.4f} s, peak {peak / 2 ** 30:.3f} "
+                 f"GiB; {passes}")
         (s, comps), sec, peak, passes = streamed_fit(
             log, lambda: st.streamed_pca(a, rank, n_iter, n_os, key=1))
         err = ((s[:, 0].double() - s_cent).abs() / s_cent).max().item()
@@ -3780,6 +3813,8 @@ def phase_streaming(port, dev, gen, seed):
         for name, fn, want, key in (
                 ("streamed_gram", lambda: st.streamed_gram(host)[0], g64,
                  "gram"),
+                ("streamed_gram over two slots", lambda: st.streamed_gram(
+                    host, devices=[dev, dev])[0], g64, "gram"),
                 ("streamed_cov", lambda: st.streamed_cov(host), cov64,
                  "gram"),
                 ("streamed_pearson_corr",
@@ -4355,10 +4390,336 @@ def par_small(port, pm, dev, seed):
     hist, _, ar = demc_run_sharded(heads, ln_prob, gens, 0.8, 1e-6,
                                    key=seed,
                                    mesh=pm.make_mesh(axis_name="chains"))
+    keep = {}
+    lines = [fn() for _, fn in rows_paths(port, pm, dev, seed + 1,
+                                          ROWS_SMALL, keep)]
     # numpy, not tensors: a tensor put on a queue is shared through a file
     # descriptor that dies with the rank's process
     return {"sigma": s.cpu().numpy(), "pred": pred.cpu().numpy(),
-            "demc": pm._full(hist).cpu().numpy(), "demc_ar": ar}
+            "demc": pm._full(hist).cpu().numpy(), "demc_ar": ar,
+            "rows": {k: v for k, v in keep.items()
+                     if isinstance(v, np.ndarray)}, "rows_lines": lines}
+
+
+# the row-sharded paths: the world of one runs them at ROWS_FULL,
+# the single-device phases' widths, and both worlds at ROWS_SMALL; f64
+# throughout, so that each is held to its JAX test's tolerance (ROWS_TOL)
+ROWS_SMALL = {
+    # pearson/cov and single_pass_svd: n, m, rank, oversamples
+    "matrix": (20_000, 2000, 50, 10),
+    "nll": 65_536,                        # normal draws
+    "sparse_gp": (65_536, 64, 1024),      # n, inducing, queries (d = 8)
+    "lstsq": (20_000, 100),               # rows, columns
+    "completion": (1000, 500, 5, 0.30, 20),
+    "spod": (4096, 2048, 128),            # points, snapshots, n_fft
+    "cp": (64, 5, 20),                    # side, rank, sweeps
+    "nmf": (2000, 200, 5, 50),            # rows, columns, rank, sweeps
+    "robust_pca": (400, 5, 0.05),         # side, rank, corrupted share
+    "gmm": (65_536, 4, 4, 30),            # points, dims, components, its
+}
+ROWS_FULL = {
+    "matrix": SIZES["rsvd"][:3] + (SIZES["rsvd"][4],),
+    "nll": 1 << 20,
+    "sparse_gp": SIZES["sparse_gp"] + (4096,),
+    "lstsq": SIZES["lstsq"],
+    "completion": SIZES["completion"],
+    "spod": SIZES["spod"],
+    "cp": SIZES["cp"],
+    # sweeps and iterations cut for time (500 and 200 in one run each)
+    "nmf": SIZES["nmf"][:3] + (100,),
+    "robust_pca": SIZES["robust_pca"],
+    "gmm": SIZES["gmm"] + (50,),
+}
+# each row-sharded path against the single-device port on the same data,
+# at the tolerance of the JAX test that holds the sharded path there
+ROWS_TOL = {
+    "pearson": (1e-10, "test_parallel.py:223 (atol)"),
+    "nll": (1e-12, "test_parallel.py:243 (rtol)"),
+    "single_pass": ((1e-9, 1e-8), "test_parallel.py:326 (sigma rtol, "
+                                  "reconstruction atol of max|A|)"),
+    "sparse_gp": ((1e-7, 1e-9), "test_parallel.py:345 (mean, variance "
+                                "atol)"),
+    "lstsq": ((1e-4, 1e-10), "test_sketch_solve.py:76 (x rtol, residual "
+                             "rel)"),
+    "completion": ((1e-8, 1e-10), "test_completion.py:88 (rtol, atol)"),
+    "spod": ((1e-9, 1e-9), "test_spod.py:85 (energies rtol, 1 - |<phi, "
+                           "phi1>| at the wave's bin)"),
+    "cp": ((1e-9, 1e-9), "test_sharded_factorizations.py:30 (weights "
+                         "rtol, reconstruction atol of max|T|)"),
+    "nmf": (1e-8, "test_sharded_factorizations.py:50 (W H atol)"),
+    "robust_pca": (1e-9, "test_sharded_factorizations.py:67 (L, S atol "
+                         "of max|L|; sweeps and rank equal)"),
+    "gmm": ((1e-8, 1e-7, 1e-9), "test_parallel.py:712 (means and weights "
+                                "rtol, covs rtol, log-likelihood rel)"),
+}
+# how far the 2 gloo ranks' results may sit from the world of one's at
+# ROWS_SMALL (relative to each result's largest entry): the order of the
+# sums differs, and the iterative fits carry it on
+ROWS_2RANK_TOL = {"sparse_gp": 1e-5}     # two BFGS runs stop at |g| <= 1e-5
+ROWS_2RANK_DEFAULT = 1e-7
+
+
+def rows_paths(port, pm, dev, seed, sizes, keep):
+    """The row-sharded paths at ``sizes``: (name, fn) pairs. Each fn runs
+    the sharded path on the world's 1-D mesh, checks it against the
+    single-device port on the same data (ROWS_TOL) and returns its result
+    line; ``keep`` gathers, on every rank, what the 2-rank comparison and
+    the kernel timing read (numpy, or tensors under "gp_")."""
+    from corrla_rs_tpu_torch.ops import rbf_kernels as rk
+    from corrla_rs_tpu_torch.ops.stats_corr import mat_cov_centered, \
+        pearson_corr
+    from corrla_rs_tpu_torch.ops.univariate_rv import NormalRv
+
+    mesh = pm.make_mesh()
+    f64 = torch.float64
+    gen = torch.Generator(device=dev).manual_seed(seed)
+
+    def randn(*shape):
+        return torch.randn(*shape, generator=gen, device=dev, dtype=f64)
+
+    def rand(*shape):
+        return torch.rand(*shape, generator=gen, device=dev, dtype=f64)
+
+    def tol(name):
+        return ROWS_TOL[name][0]
+
+    def shard(a):
+        return pm.shard_rows(a, mesh)
+
+    def matrix():
+        n, m, rank, n_os = sizes["matrix"]
+        a = low_rank(n, m, torch.logspace(0, -3, 2 * rank, dtype=f64), gen,
+                     dev, f64)
+        for what, fn in (("pearson", pearson_corr),
+                         ("cov", mat_cov_centered)):
+            got = fn(shard(a))
+            err = (got - fn(a)).abs().max().item()
+            check(err <= tol("pearson"), f"{what} on a row-sharded DTensor "
+                  f"{err:.3e}")
+            keep[what] = got.cpu().numpy()
+        (u, s, vt), sec = wall(lambda: port.single_pass_svd(
+            shard(a), rank, n_os, key=seed))
+        u1, s1, vt1 = port.single_pass_svd(a, rank, n_os, key=seed)
+        u = pm._full(u)
+        s_tol, rec_tol = tol("single_pass")
+        sig = ((s - s1).abs() / s1).max().item()
+        rec = rel_max(u @ (s[:, None] * vt), u1 @ (s1[:, None] * vt1))
+        check(sig <= s_tol and rec <= rec_tol, f"single_pass_svd on a "
+              f"row-sharded DTensor: sigma {sig:.3e}, reconstruction "
+              f"{rec:.3e}")
+        keep["single_pass"] = s.cpu().numpy()
+        del a, u, u1
+        return (f"pearson_corr, mat_cov_centered and single_pass_svd on a "
+                f"row-sharded DTensor {n}x{m} f64 (rank {rank}, {n_os} os): "
+                f"against single-device within {tol('pearson')} (Pearson, "
+                f"cov), sigma {sig:.3e}, reconstruction {rec:.3e} (tol "
+                f"{s_tol}, {rec_tol}); single pass {sec:.4f} s")
+
+    def nll():
+        n = sizes["nll"]
+        x = 2.0 + 3.0 * randn(n)
+        rv = NormalRv(2.0, 3.0)
+        got, sec = wall(lambda: rv.nll(shard(x)))
+        err = abs(got.item() / rv.nll(x).item() - 1.0)
+        check(err <= tol("nll"), f"NormalRv.nll on a row-sharded DTensor "
+              f"{err:.3e}")
+        keep["nll"] = got.cpu().numpy()
+        return (f"NormalRv.nll of {n} draws on a row-sharded DTensor: rel "
+                f"{err:.3e} against single-device (tol {tol('nll')}); "
+                f"{sec:.4f} s")
+
+    def sparse_gp():
+        n, m, n_q = sizes["sparse_gp"]
+        d = 8
+        f = gp_family(d, gen, dev)
+        x = rand(n, d) * 2 - 1
+        y = f(x) + 0.01 * randn(n)
+        xq = rand(n_q, d) * 2 - 1
+        sp, sec = wall(lambda: port.SparseGpRegressor(
+            inducing=m, key=seed).fit(shard(x), shard(y)))
+        (mean, var), pred_s = wall(lambda: sp.predict(xq))
+        keep["launches"] = {k: getattr(rk, k).launches
+                            for k in ("pairwise_kernel_matrix", "rbf_matvec")}
+        # the single-device fit at the sharded fit's hyperparameters
+        one = port.SparseGpRegressor(
+            inducing=m, key=seed, length_scale=sp.length_scale,
+            signal_var=sp.signal_var, noise_var=sp.noise_var).fit(
+                x, y, optimize_hypers=False)
+        mean1, var1 = one.predict(xq)
+        m_tol, v_tol = tol("sparse_gp")
+        dm = (mean - mean1).abs().max().item()
+        dv = (var - var1).abs().max().item()
+        rmse = torch.sqrt(torch.mean((mean - f(xq)) ** 2)).item()
+        # the fit's accuracy is the gp phase's check; here the sharded fit
+        # must be the single-device one
+        check(dm <= m_tol and dv <= v_tol and math.isfinite(rmse),
+              f"SparseGpRegressor on row-sharded data: mean {dm:.3e}, "
+              f"variance {dv:.3e}, RMSE {rmse:.3e}")
+        keep["sparse_gp"] = mean.cpu().numpy()
+        keep["gp_ind"], keep["gp_rows"] = sp.x_ind, shard(x).to_local()
+        return (f"SparseGpRegressor.fit on row-sharded {n}x{d} f64, {m} "
+                f"inducing: fit {sec:.4f} s, predict {n_q} {pred_s:.4f} s; "
+                f"against the single-device fit at its hyperparameters: "
+                f"mean {dm:.3e}, variance {dv:.3e} (tol {m_tol}, {v_tol}); "
+                f"RMSE {rmse:.3e}")
+
+    def lstsq():
+        n, m = sizes["lstsq"]
+        a = low_rank(n, m, torch.logspace(0, -1, m, dtype=f64), gen, dev,
+                     f64)
+        b = a @ randn(m) + 0.01 * randn(n)
+        (x, _), sec = wall(lambda: port.sketched_lstsq(
+            a, b, n_iters=50, key=seed, mesh=mesh))
+        x1, _ = port.sketched_lstsq(a, b, n_iters=50, key=seed)
+        x_tol, r_tol = tol("lstsq")
+        dx = ((x - x1).abs() / x1.abs()).max().item()
+        r, r1 = (torch.linalg.vector_norm(a @ v - b).item() for v in (x, x1))
+        check(dx <= x_tol and abs(r - r1) <= r_tol * r1,
+              f"sketched_lstsq(mesh=) x {dx:.3e}, residual {r:.6e} / {r1:.6e}")
+        keep["lstsq"] = x.cpu().numpy()
+        return (f"sketched_lstsq(mesh=) {n}x{m} f64, 50 iterations: x rel "
+                f"{dx:.3e}, residual {abs(r - r1) / r1:.3e} against "
+                f"single-device (tol {x_tol}, {r_tol}); {sec:.4f} s")
+
+    def completion():
+        n, m, rank, frac, n_sweeps = sizes["completion"]
+        truth = randn(n, rank) @ randn(rank, m)
+        mask = rand(n, m) < frac
+        data = torch.where(mask, truth, torch.nan)
+        (m_hat, _, _, _), sec = wall(lambda: port.matrix_complete(
+            data, mask, rank, n_sweeps, lam=1e-10, key=seed, mesh=mesh))
+        m_hat = pm._full(m_hat)
+        one = port.matrix_complete(data, mask, rank, n_sweeps, lam=1e-10,
+                                   key=seed)[0]
+        rtol, atol = tol("completion")
+        excess = ((m_hat - one).abs() - rtol * one.abs()).max().item()
+        held = rel_max(m_hat[~mask], truth[~mask])
+        check(excess <= atol and held <= FACTORIZE_TOL["completion"][0],
+              f"matrix_complete(mesh=): {excess:.3e} over rtol, held-out "
+              f"{held:.3e}")
+        keep["completion"] = m_hat.cpu().numpy()
+        return (f"matrix_complete(mesh=) {n}x{m} f64 rank {rank}, "
+                f"{n_sweeps} sweeps: against single-device {excess:.3e} "
+                f"beyond rtol {rtol} (atol {atol}); held-out entries "
+                f"{held:.3e}; {sec:.4f} s")
+
+    def spod():
+        n_x, n_t, n_fft = sizes["spod"]
+        s_ax = torch.linspace(0, 1, n_x, device=dev, dtype=f64)[:, None]
+        t = torch.arange(n_t, device=dev, dtype=f64)[None, :]
+        b1 = n_fft // 12
+        x = (torch.cos(2 * math.pi * (b1 / n_fft * t - 3 * s_ax))
+             + 0.05 * randn(n_x, n_t))
+        fit, sec = wall(lambda: port.spod(x, n_fft=n_fft, overlap=0.5,
+                                          n_modes=4, mesh=mesh))
+        one = port.spod(x, n_fft=n_fft, overlap=0.5, n_modes=4)
+        e_tol, v_tol = tol("spod")
+        de = ((fit.energies - one.energies).abs()
+              - e_tol * one.energies.abs()).max().item()
+        phi = torch.complex(pm._full(fit.modes_re)[b1, :, 0],
+                            pm._full(fit.modes_im)[b1, :, 0])
+        phi1 = torch.complex(one.modes_re[b1, :, 0], one.modes_im[b1, :, 0])
+        gap = 1.0 - abs(torch.vdot(phi1, phi).item())
+        check(de <= 1e-12 and gap <= v_tol, f"spod(mesh=): energies "
+              f"{de:.3e} over rtol, 1 - |<phi, phi1>| {gap:.3e}")
+        keep["spod"] = fit.energies.cpu().numpy()
+        return (f"spod(mesh=) {n_x}x{n_t} f64, n_fft {n_fft}: energies "
+                f"within rtol {e_tol} of single-device (excess {de:.1e}), "
+                f"1 - |<phi, phi1>| {gap:.1e} at the wave's bin (tol "
+                f"{v_tol}); {sec:.4f} s")
+
+    def cp():
+        side, rank, n_sweeps = sizes["cp"]
+        f0 = [randn(side, rank) for _ in range(3)]
+        t = torch.einsum("ir,jr,kr,r->ijk", *f0, torch.linspace(
+            3.0, 1.0, rank, device=dev, dtype=f64))
+        (w, facs, _), sec = wall(lambda: port.cp_als(t, rank, n_sweeps,
+                                                     key=seed, mesh=mesh))
+        w1, facs1, _ = port.cp_als(t, rank, n_sweeps, key=seed)
+        rec = port.cp_reconstruct(w, [pm._full(facs[0])] + facs[1:])
+        w_tol, r_tol = tol("cp")
+        dw = ((w - w1).abs() / w1).max().item()
+        dr = rel_max(rec, port.cp_reconstruct(w1, facs1))
+        fit = rel_max(rec, t)
+        check(dw <= w_tol and dr <= r_tol
+              and fit <= FACTORIZE_TOL["cp"][0],
+              f"cp_als(mesh=): weights {dw:.3e}, reconstruction {dr:.3e}, "
+              f"against the tensor {fit:.3e}")
+        keep["cp"] = w.cpu().numpy()
+        return (f"cp_als(mesh=) {side}^3 f64 rank {rank}, {n_sweeps} sweeps: "
+                f"weights {dw:.3e}, reconstruction {dr:.3e} against "
+                f"single-device (tol {w_tol}, {r_tol}), {fit:.3e} against "
+                f"the tensor; {sec:.4f} s")
+
+    def nmf():
+        n, m, rank, n_sweeps = sizes["nmf"]
+        x = rand(n, rank) @ rand(rank, m)
+        (w, h, errs), sec = wall(lambda: port.nmf(x, rank, n_sweeps,
+                                                  key=seed, mesh=mesh))
+        w1, h1, _ = port.nmf(x, rank, n_sweeps, key=seed)
+        wh = pm._full(w) @ h
+        err = (wh - w1 @ h1).abs().max().item()
+        check(err <= tol("nmf") and errs[-1].item() <= errs[0].item(),
+              f"nmf(mesh=): W H {err:.3e} from single-device")
+        keep["nmf"] = wh.cpu().numpy()
+        return (f"nmf(mesh=) {n}x{m} f64 rank {rank}, {n_sweeps} sweeps: "
+                f"W H within {err:.3e} of single-device (tol "
+                f"{tol('nmf')}), rel err {errs[-1].item():.3e}; {sec:.4f} s")
+
+    def robust_pca():
+        n, rank, frac = sizes["robust_pca"]
+        l_true = randn(n, rank) @ randn(rank, n) / rank ** 0.5
+        mask = rand(n, n) < frac
+        sign = torch.randint(0, 2, (n, n), generator=gen,
+                             device=dev).to(f64) * 2 - 1
+        m_in = l_true + torch.where(mask, 10.0 * sign, 0.0)
+        (l_hat, s_hat, info), sec = wall(lambda: port.robust_pca(
+            m_in, mesh=mesh))
+        l1, s1, info1 = port.robust_pca(m_in)
+        scale = l_true.abs().max()
+        dl = ((pm._full(l_hat) - l1).abs().max() / scale).item()
+        ds = ((pm._full(s_hat) - s1).abs().max() / scale).item()
+        check(dl <= tol("robust_pca") and ds <= tol("robust_pca")
+              and info["iterations"] == info1["iterations"]
+              and info["rank"] == info1["rank"] == rank,
+              f"robust_pca(mesh=): L {dl:.3e}, S {ds:.3e}, {info} against "
+              f"{info1}")
+        keep["robust_pca"] = pm._full(l_hat).cpu().numpy()
+        return (f"robust_pca(mesh=) {n}x{n} f64 rank {rank}: L {dl:.3e}, S "
+                f"{ds:.3e} of max|L| from single-device (tol "
+                f"{tol('robust_pca')}), {info['iterations']} sweeps as "
+                f"single-device's, rank {info['rank']}; {sec:.4f} s")
+
+    def gmm():
+        n, d, k, n_iter = sizes["gmm"]
+        means = 300.0 * randn(k, d)
+        comp = torch.randint(0, k, (n,), generator=gen, device=dev)
+        x = means[comp] + randn(n, d)
+        fit, sec = wall(lambda: port.gmm_fit(x, k, key=seed, n_iter=n_iter,
+                                             mesh=mesh))
+        one = port.gmm_fit(x, k, key=seed, n_iter=n_iter)
+        r_mw, r_cov, r_ll = tol("gmm")
+
+        def rel(a, b):
+            return ((a - b).abs() / b.abs().clamp_min(1e-300)).max().item()
+
+        dm, dw = rel(fit.means, one.means), rel(fit.weights, one.weights)
+        dc = ((fit.covs - one.covs).abs() - r_cov * one.covs.abs()).max()
+        dll = abs(fit.log_likelihood.item() / one.log_likelihood.item() - 1)
+        check(dm <= r_mw and dw <= r_mw and dc.item() <= 1e-9
+              and dll <= r_ll and int(fit.n_iter) == int(one.n_iter),
+              f"gmm_fit(mesh=): means {dm:.3e}, weights {dw:.3e}, covs "
+              f"{dc.item():.3e} over rtol, log-likelihood {dll:.3e}")
+        keep["gmm"] = fit.means.cpu().numpy()
+        return (f"gmm_fit(mesh=) {n}x{d} f64, {k} components, {n_iter} "
+                f"iterations ({int(fit.n_iter)} before the freeze): means "
+                f"{dm:.3e}, weights {dw:.3e}, log-likelihood {dll:.3e} "
+                f"against single-device (tol {r_mw}, {r_ll}); {sec:.4f} s")
+
+    return [("pearson/single_pass", matrix), ("nll", nll),
+            ("sparse_gp", sparse_gp), ("lstsq", lstsq),
+            ("completion", completion), ("spod", spod), ("cp", cp),
+            ("nmf", nmf), ("robust_pca", robust_pca), ("gmm", gmm)]
 
 
 def par_full(port, pm, rk, dev, seed):
@@ -4381,13 +4742,20 @@ def par_full(port, pm, rk, dev, seed):
     gen = torch.Generator(device=dev).manual_seed(seed)
     names = ("pairwise_kernel_matrix", "rbf_matvec")
 
+    keep = {}
+
     def window(path, fn):
         rk.pairwise_kernel_matrix.launches = 0
         rk.rbf_matvec.launches = 0
         t0 = time.perf_counter()
-        fn()
+        line = fn()
         torch.cuda.synchronize()
-        counts[path] = {k: getattr(rk, k).launches for k in names}
+        if line:
+            out.append(line)
+        # a path that compares with single-device after its own work
+        # records its launches before the comparison
+        counts[path] = keep.pop("launches", None) or {
+            k: getattr(rk, k).launches for k in names}
         out.append(f"  ({time.perf_counter() - t0:.2f} s, launches "
                    f"{counts[path]})")
         torch.cuda.empty_cache()
@@ -4600,12 +4968,29 @@ def par_full(port, pm, rk, dev, seed):
 
     for path, fn in (("rsvd", rsvd), ("pca", pca), ("PodI", podi),
                      ("dmdc", dmdc), ("active_ss", active),
-                     ("hosvd", hosvd), ("samplers", samplers)):
+                     ("hosvd", hosvd), ("samplers", samplers),
+                     *rows_paths(port, pm, dev, seed + 1, ROWS_FULL, keep)):
         window(path, fn)
     check(all(counts["PodI"][k] > 0 for k in names),
           f"PodI(mesh=) did not launch both kernels: {counts['PodI']}")
     check(counts["active_ss"]["pairwise_kernel_matrix"] > 0,
           "the active subspaces' kNN did not launch the kernel matrix")
+    check(counts["sparse_gp"]["pairwise_kernel_matrix"] == 3,
+          f"the sharded sparse GP's K_mm, K_mn and K_mq are 3 launches: "
+          f"{counts['sparse_gp']}")
+    # the sharded sparse GP's K_mn launch on this rank's rows, timed after
+    # its path (not counted), beside the kernel table's row of that shape
+    x_ind, x_rows = keep.pop("gp_ind"), keep.pop("gp_rows")
+    m, n = x_ind.shape[0], x_rows.shape[0]
+    ms = cuda_ms(lambda: rk.pairwise_kernel_matrix(x_ind, x_rows, "linear",
+                                                   1.0))
+    bound_ms, by = kmat_bound(m, n, x_rows.shape[1], x_rows.element_size())
+    keep["kmat_rmn_ms"] = ms
+    out.append(f"the sharded sparse GP's K_mn launch, {m} x {n} d="
+               f"{x_rows.shape[1]} f64 on this rank's rows: {ms:.4f} ms "
+               f"(bound {bound_ms:.4f} ms by {by}; PERF.md's kernel table "
+               f"holds the single-device time of this shape)")
+    del x_ind, x_rows
     return out, counts
 
 
@@ -4722,6 +5107,13 @@ def phase_parallel(seed):
     check(sig <= PARALLEL_2RANK_TOL["sigma"][0], f"2 gloo ranks sigma {sig}")
     check(pod <= PARALLEL_2RANK_TOL["podi"][0], f"2 gloo ranks PodI {pod}")
     check(demc <= PARALLEL_2RANK_TOL["demc"][0], f"2 gloo ranks DEMC {demc}")
+    rows = {k: float(np.max(np.abs(b["rows"][k] - v))
+                     / max(np.max(np.abs(v)), 1e-300))
+            for k, v in a["rows"].items()}
+    check(set(rows) == set(b["rows"]) and all(
+        v <= ROWS_2RANK_TOL.get(k, ROWS_2RANK_DEFAULT)
+        for k, v in rows.items()),
+        f"2 gloo ranks' row-sharded paths against the world of one: {rows}")
     n, m, rank, _, _ = PARALLEL_SMALL["rsvd"]
     n_snap, n_pts, n_modes, n_q = PARALLEL_SMALL["podi"]
     chains, d, gens, held = PARALLEL_SMALL["demc"]
@@ -4734,6 +5126,13 @@ def phase_parallel(seed):
             f"(tol {PARALLEL_2RANK_TOL['demc'][0]}), acceptance "
             f"{b['demc_ar']:.4f} / {a['demc_ar']:.4f}")
     print(f"    {line}", flush=True)
+    print(f"    the row-sharded paths at ROWS_SMALL, 2 gloo ranks against the "
+          f"world of one (tol {ROWS_2RANK_DEFAULT} of each result's largest "
+          f"entry, sparse_gp {ROWS_2RANK_TOL['sparse_gp']}): "
+          + ", ".join(f"{k} {v:.3e}" for k, v in rows.items()),
+          flush=True)
+    for line in b["rows_lines"]:
+        print(f"      2 gloo ranks: {line}", flush=True)
     print(f"    walls: NCCL world of 1 {wall1:.2f} s (from spawn to its last "
           f"result), gloo world of 2 {wall2:.2f} s (from its go, its start "
           f"overlapped with the NCCL world's work)", flush=True)

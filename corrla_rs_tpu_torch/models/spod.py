@@ -17,8 +17,11 @@ modes that are orthogonal at every frequency and energy-ranked there.
 - The mode lift Phi_f = Q_f V_f Lambda_f^{-1/2} is one batched complex GEMM
   on the device; directions below eps * lambda_max(f) get zero columns.
 
-``mesh=`` is accepted as None and raises ``NotImplementedError`` otherwise
-(ROADMAP queue 1 item 18).
+- ``mesh=``: rows of x (space) shard across the mesh. The mean removal,
+  the blocks, the DFT and the mode lift stay on each rank's rows; only the
+  (B, B) cross-spectral Grams are psummed (one complex (n_freq, B, B)
+  block). The modes come back as DTensors sharded along their spatial
+  axis (``Shard(1)``), the energies replicated.
 """
 from __future__ import annotations
 
@@ -85,17 +88,37 @@ def spod(x_data, n_fft: int = 128, overlap: float = 0.5,
     n_fft: Welch block length; overlap: fractional block overlap in [0, 1);
     dt: sample spacing; window: 'hann' or 'boxcar'; n_modes: modes kept a
     frequency (default all n_blocks); weights: optional (n_x,) positive
-    spatial quadrature weights W (modes come back W-orthonormal); mesh:
-    None only here. Energies are scaled like the one-sided Welch PSD.
-    ``device`` is where numpy input goes.
+    spatial quadrature weights W (modes come back W-orthonormal); mesh: a
+    DeviceMesh (``parallel.mesh.make_mesh``; every rank calls) over whose
+    first axis the rows of x shard (a DTensor sharded so, or the full
+    array every rank holds; the rows must divide the axis size). Energies
+    are scaled like the one-sided Welch PSD. ``device`` is where numpy
+    input goes.
     """
+    psum, rows = (lambda t: t), None
     if mesh is not None:
-        raise NotImplementedError(
-            "spod(mesh=...) is not ported yet (ROADMAP queue 1 item 18)")
-    x = as_tensor(x_data, device=device)
-    if x.ndim != 2:
-        raise ValueError(f"x_data must be 2-d, got {x.ndim}-d")
-    n_x, n_t = int(x.shape[0]), int(x.shape[1])
+        from corrla_rs_tpu_torch.parallel.mesh import _axis, _local, _psum, \
+            _size
+
+        axis = _axis(mesh, None)
+        shape = tuple(x_data.shape)
+        if len(shape) != 2:
+            raise ValueError(f"x_data must be 2-d, got {len(shape)}-d")
+        n_dev = _size(mesh, axis)
+        if shape[0] % n_dev:
+            raise ValueError(f"rows ({shape[0]}) must divide the mesh axis "
+                             f"size ({n_dev})")
+        x, _ = _local(x_data, mesh, axis, device=device)
+        rows = (mesh, axis, shape[0] // n_dev * mesh.get_local_rank(axis))
+
+        def psum(t):
+            return _psum(t, mesh, axis)
+    else:
+        x = as_tensor(x_data, device=device)
+        shape = tuple(x.shape)
+    if len(shape) != 2:
+        raise ValueError(f"x_data must be 2-d, got {len(shape)}-d")
+    n_x, n_t = int(shape[0]), int(shape[1])
     n_fft = int(n_fft)
     if not 4 <= n_fft <= n_t:
         raise ValueError(
@@ -133,6 +156,8 @@ def spod(x_data, n_fft: int = 128, overlap: float = 0.5,
                 f"shape {w_arr.shape}"
             )
         sqrt_w = np.sqrt(w_arr)
+        if rows is not None:
+            sqrt_w = sqrt_w[rows[2]:rows[2] + x.shape[0]]
         x = x * torch.as_tensor(sqrt_w, dtype=dt_, device=dev)[:, None]
     x = x - x.mean(dim=1, keepdim=True)
     win = torch.as_tensor(w_np * np.sqrt(2.0 * float(dt) / w_pow),
@@ -144,7 +169,7 @@ def spod(x_data, n_fft: int = 128, overlap: float = 0.5,
     spec = torch.fft.rfft(x[:, idx] * win, dim=-1)      # (n_x, B, n_freq)
     q = spec.permute(2, 0, 1).contiguous()              # (n_freq, n_x, B)
     del spec
-    m = (q.mH @ q) / n_blocks                            # (n_freq, B, B)
+    m = psum(q.mH @ q) / n_blocks                        # (n_freq, B, B)
 
     # host complex Hermitian eigendecomposition of the (B, B) Grams,
     # batched over frequencies: no eigenvector-pairing ambiguity
@@ -185,4 +210,11 @@ def spod(x_data, n_fft: int = 128, overlap: float = 0.5,
                                    device=dev)
     out.modes_re = phi.real.contiguous()
     out.modes_im = phi.imag.contiguous()
+    if rows is not None:
+        from corrla_rs_tpu_torch.parallel.mesh import _dtensor
+
+        mesh, axis, _ = rows
+        full = (phi.shape[0], n_x, phi.shape[2])
+        out.modes_re = _dtensor(out.modes_re, mesh, axis, 1, full)
+        out.modes_im = _dtensor(out.modes_im, mesh, axis, 1, full)
     return out

@@ -112,54 +112,106 @@ def _component_logpdf(x, means, chols):
             - 0.5 * d * math.log(2.0 * math.pi)).mT       # (n, k)
 
 
-def _kmeanspp_init(key, x, k: int):
-    n = x.shape[0]
+class _Rows:
+    """How the EM reaches the rows of x: all of them here (``sharded`` is
+    None), or this rank's block of a row-sharded x. ``psum`` sums over the
+    shards; ``row(i)`` is the global row i on every rank; ``argmax(v)`` is
+    the global index of the largest entry of the sharded vector v, the
+    lowest on a tie."""
+
+    def __init__(self, x, n: int, sharded=None):
+        self.x, self.n, self.sharded = x, n, sharded
+        self.lo = 0
+        if sharded is not None:
+            from corrla_rs_tpu_torch.parallel.mesh import _coord
+
+            self.lo = _coord(*sharded) * x.shape[0]
+
+    def psum(self, t):
+        if self.sharded is None:
+            return t
+        from corrla_rs_tpu_torch.parallel.mesh import _psum
+
+        return _psum(t, *self.sharded)
+
+    def row(self, i):
+        if self.sharded is None:
+            return self.x[i]
+        # the owner adds its row to a zero block: an exact sum
+        i = i - self.lo
+        mine = (i >= 0) & (i < self.x.shape[0])
+        own = self.x[i.clamp(0, self.x.shape[0] - 1)]
+        return self.psum(torch.where(mine, own, torch.zeros_like(own)))
+
+    def argmax(self, v):
+        if self.sharded is None:
+            return torch.argmax(v)
+        from corrla_rs_tpu_torch.parallel.mesh import _all_gather
+
+        j = torch.argmax(v)
+        # f64 holds every index exactly
+        pairs = _all_gather(torch.stack([v[j].double(),
+                                         (j + self.lo).double()])[None],
+                            *self.sharded)                      # (ranks, 2)
+        # the first rank holding the maximum has the lowest index
+        return pairs[torch.argmax(pairs[:, 0]), 1].long()
+
+
+def _kmeanspp_init(key, rows: _Rows, k: int):
+    x, n = rows.x, rows.n
     first, gumbel = _draw_kmeanspp(key, n, k, x.dtype, x.device)
+    gumbel = gumbel[:, rows.lo:rows.lo + x.shape[0]]
     centers = x.new_zeros((k, x.shape[1]))
-    centers[0] = x[first]
-    d2 = ((x - x[first]) ** 2).sum(dim=1)
+    c = rows.row(torch.as_tensor(first, device=x.device))
+    centers[0] = c
+    d2 = ((x - c) ** 2).sum(dim=1)
     tiny = torch.finfo(x.dtype).tiny
     for j in range(1, k):
-        p = d2 / d2.sum().clamp_min(tiny)
-        idx = torch.argmax(torch.log(p + 1e-30) + gumbel[j])
-        c = x[idx]
+        p = d2 / rows.psum(d2.sum()).clamp_min(tiny)
+        c = rows.row(rows.argmax(torch.log(p + 1e-30) + gumbel[j]))
         centers[j] = c
         d2 = torch.minimum(d2, ((x - c) ** 2).sum(dim=1))
     return centers
 
 
-def _e_step(x, w, means, covs):
+def _e_step(rows: _Rows, w, means, covs):
     chols = torch.linalg.cholesky(covs)
-    lp = _component_logpdf(x, means, chols) + torch.log(w)
+    lp = _component_logpdf(rows.x, means, chols) + torch.log(w)
     norm = torch.logsumexp(lp, dim=1)
-    return torch.exp(lp - norm[:, None]), norm.sum()
+    return torch.exp(lp - norm[:, None]), rows.psum(norm.sum())
 
 
-def _m_step(x, resp, cov_type: str, reg: float):
-    n, d = x.shape
-    nk = resp.sum(dim=0) + 1e-12
+def _m_step(rows: _Rows, resp, cov_type: str, reg: float):
+    x, n, d = rows.x, rows.n, rows.x.shape[1]
+    nk = rows.psum(resp.sum(dim=0)) + 1e-12
     w = nk / n
-    means = (resp.mT @ x) / nk[:, None]
+    means = rows.psum(resp.mT @ x) / nk[:, None]
     diff = x[None, :, :] - means[:, None, :]              # (k, n, d)
-    covs = (diff * resp.mT[:, :, None]).mT @ diff / nk[:, None, None]
+    covs = rows.psum((diff * resp.mT[:, :, None]).mT @ diff) \
+        / nk[:, None, None]
     if cov_type == "diag":
         covs = torch.diag_embed(torch.diagonal(covs, dim1=-2, dim2=-1))
     return w, means, covs + reg * torch.eye(d, dtype=x.dtype,
                                             device=x.device)
 
 
-def _gmm_em(x, key, k: int, n_iter: int, cov_type: str, reg: float,
-            tol: float):
-    n, d = x.shape
-    means = _kmeanspp_init(key, x, k)
-    covs = torch.diag(x.var(dim=0, correction=0) + reg).expand(k, d, d)
+def _gmm_em(rows: _Rows, key, k: int, n_iter: int, cov_type: str,
+            reg: float, tol: float):
+    x, n, d = rows.x, rows.n, rows.x.shape[1]
+    means = _kmeanspp_init(key, rows, k)
+    if rows.sharded is None:
+        var = x.var(dim=0, correction=0)
+    else:
+        mean = rows.psum(x.sum(dim=0)) / n
+        var = rows.psum(((x - mean) ** 2).sum(dim=0)) / n
+    covs = torch.diag(var + reg).expand(k, d, d)
     w = x.new_full((k,), 1.0 / k)
     ll_prev = x.new_tensor(-math.inf)
     frozen = torch.zeros((), dtype=torch.bool, device=x.device)
     it = torch.zeros((), dtype=torch.int64, device=x.device)
     for step in range(n_iter):
-        resp, ll = _e_step(x, w, means, covs)
-        w_new, m_new, c_new = _m_step(x, resp, cov_type, reg)
+        resp, ll = _e_step(rows, w, means, covs)
+        w_new, m_new, c_new = _m_step(rows, resp, cov_type, reg)
         # a non-finite ll_prev (the -inf start) always counts as improved
         improved = ~torch.isfinite(ll_prev) \
             | ((ll - ll_prev) > tol * ll_prev.abs())
@@ -173,7 +225,7 @@ def _gmm_em(x, key, k: int, n_iter: int, cov_type: str, reg: float,
         ll_prev = ll
         if (step + 1) % _FROZEN_EVERY == 0 and bool(frozen):
             break
-    resp, ll_final = _e_step(x, w, means, covs)
+    resp, ll_final = _e_step(rows, w, means, covs)
     return w, means, covs, ll_final, it, resp
 
 
@@ -189,25 +241,49 @@ def gmm_fit(x, n_components: int, key=0, n_iter: int = 200,
     ``tol`` relative; check ``fit.n_iter``); cov_type 'full' or 'diag';
     reg: diagonal regularization added to every covariance. Numpy ``x``
     goes to ``device`` (default ``utils.device.default_device()``).
-    ``mesh``/``axis_name``: the JAX package's row sharding, not ported (a
-    mesh other than None raises; ROADMAP queue 1 item 18).
+    ``mesh``/``axis_name``: a DeviceMesh (``parallel.mesh.make_mesh``;
+    every rank calls) and the axis (default its first) the rows of x shard
+    over (x a DTensor sharded so, or the full array every rank holds; the
+    axis size must divide n). The E-step stays on each rank's rows, the
+    M-step psums its statistics (nk, resp^T x, the weighted Grams), and the
+    k-means++ seeding takes each centre's global argmax from the ranks'
+    (value, index) pairs. The responsibilities come back a DTensor with
+    ``Shard(0)``; the rest is replicated.
 
     Returns :class:`GmmFit`.
     """
+    sharded = None
     if mesh is not None:
-        raise NotImplementedError("gmm_fit(mesh=...) is not ported")
-    x = as_tensor(x, device=device)
+        from corrla_rs_tpu_torch.parallel.mesh import _axis, _local, _size
+
+        axis = _axis(mesh, axis_name)
+        shape = tuple(x.shape)
+        n_dev = _size(mesh, axis)
+        if shape[0] % n_dev:
+            raise ValueError(
+                f"mesh axis size ({n_dev}) must divide the row count "
+                f"({shape[0]})")
+        x, _ = _local(x, mesh, axis, device=device)
+        sharded = (mesh, axis)
+        n = shape[0]
+    else:
+        x = as_tensor(x, device=device)
+        n = int(x.shape[0])
     if x.ndim == 1:
         x = x[:, None]
-    n = int(x.shape[0])
     k = int(n_components)
     if not 1 <= k <= n:
         raise ValueError(f"n_components must be in [1, {n}], got {k}")
     if cov_type not in ("full", "diag"):
         raise ValueError("cov_type must be 'full' or 'diag', got "
                          f"{cov_type!r}")
-    w, means, covs, ll, it, resp = _gmm_em(x, key, k, int(n_iter), cov_type,
-                                           float(reg), float(tol))
+    w, means, covs, ll, it, resp = _gmm_em(_Rows(x, n, sharded), key, k,
+                                           int(n_iter), cov_type, float(reg),
+                                           float(tol))
+    if sharded is not None:
+        from corrla_rs_tpu_torch.parallel.mesh import _dtensor
+
+        resp = _dtensor(resp, *sharded, 0, (n, k))
     return GmmFit(w, means, covs, ll, it, resp, cov_type)
 
 

@@ -265,13 +265,19 @@ def _draw_inducing(key, n: int, m: int, device) -> torch.Tensor:
     return torch.randperm(n, generator=gen, device=device)[:m]
 
 
-def _sgpr_factors(r_mm, r_mn, y, log_params, kernel):
+def _sgpr_factors(r_mm, r_mn, y, log_params, kernel, sharded=None):
     """Titsias (2009) variational sparse GP factors from the distances
     r_mm (m, m) and r_mn (m, n).
 
     Returns (l_mm, l_b, a, c) with
       l_mm = chol(K_mm + jitter), a = l_mm^-1 K_mn / sigma,
       l_b = chol(I + a a^T),      c = l_b^-1 a y / sigma.
+
+    ``sharded`` = (mesh, axis) when r_mn and y are this rank's columns and
+    rows of a row-sharded fit: a stays local, a a^T and a y are psummed,
+    and l_b is the Cholesky factor of I + a a^T; the replicated values that
+    meet the local columns go through ``parallel.mesh._to_local`` (see
+    there for the gradients).
     """
     ls, sv, nv = torch.exp(log_params)
     m = r_mm.shape[0]
@@ -279,30 +285,63 @@ def _sgpr_factors(r_mm, r_mn, y, log_params, kernel):
     k_mm = gp_kernel_eval(r_mm, kernel, ls, sv)
     k_mm = k_mm + _jitter(r_mm.dtype) * sv * _eye(m, r_mm)
     l_mm = _cholesky(k_mm)
-    k_mn = gp_kernel_eval(r_mn, kernel, ls, sv)
-    a = torch.linalg.solve_triangular(l_mm, k_mn, upper=False) / sigma
+    ls_l, sv_l, l_mm_l, sigma_l = ls, sv, l_mm, sigma
+    if sharded is not None:
+        from corrla_rs_tpu_torch.parallel.mesh import _to_local
+
+        ls_l, sv_l, l_mm_l, sigma_l = (_to_local(v, *sharded)
+                                       for v in (ls, sv, l_mm, sigma))
+    k_mn = gp_kernel_eval(r_mn, kernel, ls_l, sv_l)
+    a = torch.linalg.solve_triangular(l_mm_l, k_mn, upper=False) / sigma_l
     # chol(B) with B = I + A A^T through QR of [A^T; I] (R^T R = B):
     # forming B would square the condition number
-    stack = torch.cat([a.mT, _eye(m, a)], dim=0)
-    rr = torch.linalg.qr(stack, mode="reduced").R
-    sgn = torch.sign(torch.diagonal(rr))
-    sgn = torch.where(sgn == 0, 1.0, sgn)
-    l_b = (rr * sgn[:, None]).mT
-    c = torch.linalg.solve_triangular(l_b, (a @ y)[:, None],
+    if sharded is None:
+        stack = torch.cat([a.mT, _eye(m, a)], dim=0)
+        rr = torch.linalg.qr(stack, mode="reduced").R
+        sgn = torch.sign(torch.diagonal(rr))
+        sgn = torch.where(sgn == 0, 1.0, sgn)
+        l_b = (rr * sgn[:, None]).mT
+        ay = a @ y
+    else:
+        from corrla_rs_tpu_torch.parallel.mesh import _psum_grad
+
+        # one psum of [A A^T | A y]; B is the identity plus a PSD matrix,
+        # so its Cholesky is stable. A local QR of A^T (a TSQR) would be
+        # exact too, but its backward divides by a rank's R, which is near
+        # singular where the inducing points lie far from the rank's rows
+        gay = _psum_grad(a @ torch.cat([a.mT, y[:, None]], dim=1), *sharded)
+        ay = gay[:, m]
+        l_b = _cholesky(gay[:, :m] + _eye(m, a))
+    c = torch.linalg.solve_triangular(l_b, ay[:, None],
                                       upper=False)[:, 0] / sigma
     return l_mm, l_b, a, c
 
 
-def _sgpr_neg_elbo(log_params, r_mm, r_mn, y, kernel):
-    """Negative Titsias ELBO / n, the sparse analogue of _nlml."""
+def _sgpr_neg_elbo(log_params, r_mm, r_mn, y, kernel, sharded=None):
+    """Negative Titsias ELBO / n, the sparse analogue of _nlml.
+    ``sharded``: see ``_sgpr_factors``; n, y^T y and the trace's sum of
+    a^2 are then psummed."""
     _ls, sv, nv = torch.exp(log_params)
+    _l_mm, l_b, a, c = _sgpr_factors(r_mm, r_mn, y, log_params, kernel,
+                                     sharded)
+    sums = torch.stack([torch.sum(y * y), torch.sum(a * a)])
     n = r_mn.shape[1]
-    _l_mm, l_b, a, c = _sgpr_factors(r_mm, r_mn, y, log_params, kernel)
-    quad = torch.sum(y * y) / nv - torch.sum(c * c)
+    if sharded is not None:
+        from corrla_rs_tpu_torch.parallel.mesh import _psum_grad
+
+        sums = _psum_grad(sums, *sharded)
+        n = n * _size(sharded)
+    quad = sums[0] / nv - torch.sum(c * c)
     logdet = n * torch.log(nv) + 2.0 * torch.sum(
         torch.log(torch.diagonal(l_b)))
-    trace = (n * sv - nv * torch.sum(a * a)) / nv
+    trace = (n * sv - nv * sums[1]) / nv
     return 0.5 * (n * _LOG_2PI + logdet + quad + trace) / n
+
+
+def _size(sharded) -> int:
+    from corrla_rs_tpu_torch.parallel.mesh import _size as size
+
+    return size(*sharded)
 
 
 def _sgpr_predict(x_ind, l_mm, l_b, c, log_params, xq, kernel):
@@ -326,7 +365,24 @@ class SparseGpRegressor:
     inducing: int (that many training points, chosen uniformly at random
     with ``key`` through ``_draw_inducing``) or an (m, d) array of explicit
     locations. ``device`` is where numpy inputs to ``fit`` go.
+
+    ``fit`` takes x as a row-sharded DTensor (``Shard(0)`` on a 1-D mesh;
+    every rank calls) and y sharded the same way or whole on every rank.
+    K_mn is then the kernel matrix of each rank's rows, and the ELBO's
+    reductions over the samples are psums and a TSQR (``_sgpr_factors``);
+    the drawn inducing rows reach every rank through one psum of a
+    zero-filled (m, d) block. BFGS runs on every rank on equal values;
+    the fitted model and ``predict`` are replicated.
     """
+
+    # the 1-D mesh of a fit on row-sharded data
+    _mesh = None
+
+    @property
+    def _sharded(self):
+        """(mesh, axis) of a sharded fit, else None."""
+        mesh = self._mesh
+        return None if mesh is None else (mesh, mesh.mesh_dim_names[0])
 
     # class-level defaults: checkpoints written before these attributes
     # existed restore without __init__
@@ -358,6 +414,12 @@ class SparseGpRegressor:
             dtype=self.x_ind.dtype, device=self.x_ind.device))
 
     def fit(self, x, y, optimize_hypers: bool = True):
+        from corrla_rs_tpu_torch.parallel.mesh import rows_of_dtensor
+
+        rows = rows_of_dtensor(x)
+        vars(self).pop("_mesh", None)
+        if rows is not None:
+            return self._fit_sharded(rows, y, optimize_hypers)
         x = as_tensor(x, device=self._device)
         y = as_tensor(y, device=x.device, dtype=x.dtype)
         if y.ndim == 2:
@@ -375,13 +437,47 @@ class SparseGpRegressor:
         else:
             self.x_ind = as_tensor(self._inducing_spec, device=x.device,
                                    dtype=x.dtype)
+        return self._fit_factors(x, yc, optimize_hypers)
+
+    def _fit_sharded(self, rows, y, optimize_hypers):
+        from corrla_rs_tpu_torch.parallel.mesh import _coord, _local, _psum
+
+        x_l, (n, _d), mesh, axis = rows
+        self._mesh = mesh
+        y_l, _ = _local(y, mesh, axis, device=x_l.device, dtype=x_l.dtype)
+        if y_l.ndim == 2:
+            y_l = y_l[:, 0]
+        self._y_mean = _psum(torch.sum(y_l), mesh, axis) / n
+        self._y_scale = torch.clamp_min(
+            torch.sqrt(_psum(torch.sum((y_l - self._y_mean) ** 2), mesh,
+                             axis) / n),
+            torch.finfo(y_l.dtype).tiny)
+        yc = (y_l - self._y_mean) / self._y_scale
+        if isinstance(self._inducing_spec, int):
+            m = min(self._inducing_spec, n)
+            idx = _draw_inducing(self._key, n, m, x_l.device) \
+                - _coord(mesh, axis) * x_l.shape[0]
+            mine = ((idx >= 0) & (idx < x_l.shape[0]))[:, None]
+            own = x_l[idx.clamp(0, x_l.shape[0] - 1)]
+            # each rank adds the rows it owns to a zero block: exact
+            self.x_ind = _psum(torch.where(mine, own, torch.zeros_like(own)),
+                               mesh, axis)
+        else:
+            self.x_ind = as_tensor(self._inducing_spec, device=x_l.device,
+                                   dtype=x_l.dtype)
+        return self._fit_factors(x_l, yc, optimize_hypers)
+
+    def _fit_factors(self, x, yc, optimize_hypers):
+        """The distances, the hyperparameters' MLE and the factors, from
+        the training points ``x`` (this rank's rows of a sharded fit)."""
         r_mm = pairwise_dists(self.x_ind, self.x_ind)
         r_mn = pairwise_dists(self.x_ind, x)
         if optimize_hypers:
             init = torch.log(torch.tensor(self._init_spec, dtype=x.dtype,
                                           device=x.device))
             lp = _minimize(
-                lambda p: _sgpr_neg_elbo(p, r_mm, r_mn, yc, self.kernel),
+                lambda p: _sgpr_neg_elbo(p, r_mm, r_mn, yc, self.kernel,
+                                         self._sharded),
                 init)
             s2 = float(self._y_scale) ** 2
             ls, sv, nv = (float(v) for v in torch.exp(lp))
@@ -391,7 +487,8 @@ class SparseGpRegressor:
         self._yc = yc
         self.x_train = x
         l_mm, l_b, _a, c = _sgpr_factors(r_mm, r_mn, yc,
-                                         self._log_params_std(), self.kernel)
+                                         self._log_params_std(), self.kernel,
+                                         self._sharded)
         self._l_mm, self._l_b, self._c = l_mm, l_b, c
         return self
 
@@ -407,9 +504,12 @@ class SparseGpRegressor:
 
     def elbo(self) -> float:
         """Collapsed variational lower bound on log p(y_standardised)
-        (total, not /n; the fit-space objective)."""
-        n = self.x_train.shape[0]
+        (total, not /n; the fit-space objective). After a sharded fit every
+        rank calls."""
+        n = self.x_train.shape[0] * (1 if self._sharded is None
+                                     else _size(self._sharded))
         r_mm = pairwise_dists(self.x_ind, self.x_ind)
         r_mn = pairwise_dists(self.x_ind, self.x_train)
         return -float(_sgpr_neg_elbo(self._log_params_std(), r_mm, r_mn,
-                                     self._yc, self.kernel)) * n
+                                     self._yc, self.kernel,
+                                     self._sharded)) * n

@@ -202,17 +202,27 @@ def single_pass_svd(a: torch.Tensor, rank: int, n_oversamples: int = 10,
     Tropp et al. recommend l ~ 2k for a stable core solve; the default is
     l = 2k + 1, capped by the matrix dimensions.
 
+    A row-sharded DTensor ``a`` (tall: n >= m) runs the same algorithm on
+    each rank's rows, every rank calling: Y = A Omega stays row-sharded, W =
+    Psi A and Psi Q are psums of the products of the columns of Psi that
+    meet the rank's rows (Psi and Omega are drawn whole, as here), and the
+    QR of Y is an exact TSQR. U comes back a DTensor with ``Shard(0)``; s
+    and Vt are replicated.
+
     Returns (U (n, rank), s (rank,), Vt (rank, m)) like ``random_svd``.
     """
+    from corrla_rs_tpu_torch.parallel.mesh import rows_of_dtensor
+
+    rows = rows_of_dtensor(a)
+    if rows is not None:
+        return _single_pass_sharded(rows, rank, n_oversamples,
+                                    core_oversamples, key)
     a = as_tensor(a)
     fat = a.shape[0] < a.shape[1]
     aa = a.mT if fat else a
     n, m = aa.shape
-    k = min(rank + n_oversamples, m)
-    if core_oversamples is None:
-        ell = min(2 * k + 1, n)
-    else:
-        ell = min(k + int(core_oversamples), n)
+    k, ell = _single_pass_widths(n, m, rank, n_oversamples,
+                                 core_oversamples)
     k_om, k_psi = _split_seed(key, 2, aa.device)
     omega = _draw_sketch(k_om, (m, k), aa.dtype, aa.device)
     psi = _draw_sketch(k_psi, (ell, n), aa.dtype, aa.device)
@@ -225,3 +235,42 @@ def single_pass_svd(a: torch.Tensor, rank: int, n_oversamples: int = 10,
     x = torch.linalg.solve_triangular(rb, qb.mT @ w, upper=True)   # (k, m)
     u_x, s, vt = torch.linalg.svd(x, full_matrices=False)
     return _truncate(q @ u_x, s, vt, rank, fat)
+
+
+def _single_pass_widths(n: int, m: int, rank: int, n_oversamples: int,
+                        core_oversamples):
+    """(k, ell): the range sketch's and the co-range sketch's widths."""
+    k = min(rank + n_oversamples, m)
+    if core_oversamples is None:
+        return k, min(2 * k + 1, n)
+    return k, min(k + int(core_oversamples), n)
+
+
+def _single_pass_sharded(rows, rank, n_oversamples, core_oversamples, key):
+    """``single_pass_svd`` of a row-sharded DTensor (``rows`` from
+    ``parallel.mesh.rows_of_dtensor``)."""
+    from corrla_rs_tpu_torch.parallel.mesh import _coord, _dtensor, _psum
+    from corrla_rs_tpu_torch.parallel.sharded_rsvd import _tsqr
+
+    a_l, (n, m), mesh, axis = rows
+    if n < m:
+        raise ValueError(
+            f"single_pass_svd of a row-sharded matrix needs it tall (n >= "
+            f"m), got {n} x {m}")
+    k, ell = _single_pass_widths(n, m, rank, n_oversamples,
+                                 core_oversamples)
+    k_om, k_psi = _split_seed(key, 2, a_l.device)
+    omega = _draw_sketch(k_om, (m, k), a_l.dtype, a_l.device)
+    n_l = a_l.shape[0]
+    lo = _coord(mesh, axis) * n_l
+    psi_l = _draw_sketch(k_psi, (ell, n), a_l.dtype,
+                         a_l.device)[:, lo:lo + n_l]
+    y_l = a_l @ omega                                   # pass 1, sharded
+    w = _psum(psi_l @ a_l, mesh, axis)                  # pass 2: (ell, m)
+    q_l, _ = _tsqr(y_l, None, mesh, axis)
+    qb, rb = torch.linalg.qr(_psum(psi_l @ q_l, mesh, axis), mode="reduced")
+    x = torch.linalg.solve_triangular(rb, qb.mT @ w, upper=True)   # (k, m)
+    u_x, s, vt = torch.linalg.svd(x, full_matrices=False)
+    u_l = (q_l @ u_x)[:, :rank]
+    return (_dtensor(u_l, mesh, axis, 0, (n, u_l.shape[1])), s[:rank],
+            vt[:rank, :])

@@ -33,18 +33,25 @@ from corrla_rs_tpu_torch.utils.device import as_tensor
 __all__ = ["sketched_lstsq"]
 
 
-def _sketched_cgls(a, b, s_rows, n_iters, key):
+def _sketched_cgls(a, b, s_rows, n_iters, key, rows=None):
     """Preconditioned CGLS on min ||A x - b||_2, columns of ``b`` (m, k)
     side by side.
 
     Precondition with R from QR(S A): substitute x = R^{-1} z and run
     CGLS on (A R^{-1}); every iterate applies R^{-1} / R^{-T} by
     triangular solves (n x n) and A / A^T by tall products.
+    ``rows`` = (m, offset, psum) when ``a`` and ``b`` are this rank's rows
+    of a row-sharded system: the sketch S is drawn whole and this rank's
+    columns taken, and the contractions over m (S A, A^T r, ||A p||^2)
+    are psummed; the (n, n) algebra is replicated.
     Returns (x (n, k), normal-equation residual history (k, n_iters))."""
     m, n = a.shape
+    lo, psum = 0, (lambda t: t)
+    if rows is not None:
+        m, lo, psum = rows
     sk = _rsvd._draw_sketch(key, (s_rows, m), a.dtype, a.device)
-    sk = sk / s_rows ** 0.5
-    r_mat = torch.linalg.qr(sk @ a).R
+    sk = sk[:, lo:lo + a.shape[0]] / s_rows ** 0.5
+    r_mat = torch.linalg.qr(psum(sk @ a)).R
     # guard rank deficiency: floor R's diagonal at eps * max|diag|
     finfo = torch.finfo(a.dtype)
     d = torch.diagonal(r_mat)
@@ -56,7 +63,8 @@ def _sketched_cgls(a, b, s_rows, n_iters, key):
         return a @ torch.linalg.solve_triangular(r_mat, z, upper=True)
 
     def atmat(y):         # R^{-T} A^T y
-        return torch.linalg.solve_triangular(r_mat.mT, a.mT @ y, upper=False)
+        return torch.linalg.solve_triangular(r_mat.mT, psum(a.mT @ y),
+                                             upper=False)
 
     z = a.new_zeros((n, b.shape[1]))
     res = b
@@ -67,7 +75,7 @@ def _sketched_cgls(a, b, s_rows, n_iters, key):
     hist = a.new_empty((n_iters, b.shape[1]))
     for i in range(n_iters):
         q = amat(p)
-        alpha = gg / torch.sum(q * q, dim=0).clamp_min(finfo.tiny)
+        alpha = gg / psum(torch.sum(q * q, dim=0)).clamp_min(finfo.tiny)
         z = z + alpha * p
         res = res - alpha * q
         g = atmat(res)
@@ -89,33 +97,56 @@ def sketched_lstsq(a, b, sketch_factor: float = 4.0, n_iters: int = 30,
     (m, k), multiple right-hand sides share the sketch/QR and advance
     together; sketch_factor: sketch rows = factor*n (>= 2; 4 keeps the
     preconditioned condition number ~3); n_iters: fixed CGLS iterations
-    (30 reaches f64 machine precision at factor 4); mesh: the JAX package's
-    row sharding, not ported (anything but None raises).
+    (30 reaches f64 machine precision at factor 4); mesh: a DeviceMesh
+    (``parallel.mesh.make_mesh``; every rank calls) over whose first axis
+    the rows of A and b (the long axis) shard (DTensors sharded so, or
+    full arrays every rank holds; m must divide the axis size): every
+    contraction over m (the sketch, A^T r) is one psum, and the small
+    (s, n)/(n, n) algebra is replicated, as is x.
 
     Returns (x, hist): the solution(s) (n,) or (n, k) and the
     preconditioned normal-residual history (n_iters,) or (k, n_iters)
     for convergence inspection.
     """
+    rows = None
     if mesh is not None:
-        raise NotImplementedError("sketched_lstsq(mesh=...) is not ported")
-    a = as_tensor(a)
-    if a.ndim != 2 or a.shape[0] < a.shape[1]:
+        from corrla_rs_tpu_torch.parallel.mesh import _axis, _coord, _local, \
+            _psum, _size
+
+        axis = _axis(mesh, None)
+        shape, b_rows = tuple(a.shape), tuple(b.shape)[:1]
+        n_dev = _size(mesh, axis)
+        if len(shape) == 2 and shape[0] >= shape[1] and shape[0] % n_dev:
+            raise ValueError(f"rows ({shape[0]}) must divide the mesh axis "
+                             f"size ({n_dev})")
+        a, _ = _local(a, mesh, axis)
+    else:
+        a = as_tensor(a)
+        shape = tuple(a.shape)
+    if len(shape) != 2 or shape[0] < shape[1]:
         raise ValueError(
-            f"a must be (m >= n, n) tall, got {tuple(a.shape)}"
+            f"a must be (m >= n, n) tall, got {shape}"
         )
-    m, n = int(a.shape[0]), int(a.shape[1])
+    m, n = shape
     if sketch_factor < 2.0:
         raise ValueError(
             f"sketch_factor must be >= 2, got {sketch_factor}"
         )
     s_rows = min(max(int(round(sketch_factor * n)), n + 8), m)
-    bb = as_tensor(b, device=a.device)
+    if mesh is not None:
+        if b_rows != (m,):
+            raise ValueError(f"b must have {m} rows, got {tuple(b.shape)}")
+        bb, _ = _local(b, mesh, axis, device=a.device)
+        rows = (m, _coord(mesh, axis) * a.shape[0],
+                lambda t: _psum(t, mesh, axis))
+    else:
+        bb = as_tensor(b, device=a.device)
+        if bb.shape[0] != m:
+            raise ValueError(f"b must have {m} rows, got {tuple(bb.shape)}")
     squeeze = bb.ndim == 1
     if squeeze:
         bb = bb[:, None]
-    if bb.shape[0] != m:
-        raise ValueError(f"b must have {m} rows, got {tuple(bb.shape)}")
-    xs, hists = _sketched_cgls(a, bb, s_rows, int(n_iters), key)
+    xs, hists = _sketched_cgls(a, bb, s_rows, int(n_iters), key, rows)
     if squeeze:
         return xs[:, 0], hists[0]
     return xs, hists

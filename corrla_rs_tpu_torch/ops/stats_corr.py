@@ -46,14 +46,38 @@ __all__ = [
 ]
 
 
+def _sharded_cov(x) -> torch.Tensor | None:
+    """The covariance of a row-sharded DTensor ``x`` (None for anything
+    else): a psum of the column sums, then of the centered (m, m) Gram;
+    replicated on every rank."""
+    from corrla_rs_tpu_torch.parallel.mesh import _psum, rows_of_dtensor
+
+    rows = rows_of_dtensor(x)
+    if rows is None:
+        return None
+    x_l, (n, *_), mesh, axis = rows
+    mean = _psum(x_l.sum(dim=0), mesh, axis) / n
+    xc = x_l - mean
+    return _psum(xc.mT @ xc, mesh, axis) / (n - 1.0)
+
+
 def pearson_corr(x: torch.Tensor) -> torch.Tensor:
-    """Linear correlation matrix between columns. stats_corr.rs:14-28."""
+    """Linear correlation matrix between columns. stats_corr.rs:14-28.
+    A row-sharded DTensor gives the same matrix, replicated."""
+    cov = _sharded_cov(x)
+    if cov is not None:
+        sd = torch.sqrt(torch.diagonal(cov))
+        return cov / (sd[:, None] * sd[None, :])
     xz = zcenter_mat_col(x)
     return (xz.mT @ xz) / (x.shape[0] - 1.0)
 
 
 def mat_cov_centered(x: torch.Tensor) -> torch.Tensor:
-    """Sample covariance of columns. stats_corr.rs:32-43."""
+    """Sample covariance of columns. stats_corr.rs:32-43. A row-sharded
+    DTensor gives the same matrix, replicated."""
+    cov = _sharded_cov(x)
+    if cov is not None:
+        return cov
     xc = center_mat_col(x)
     return (xc.mT @ xc) / (x.shape[0] - 1.0)
 

@@ -36,10 +36,14 @@ between filling the pinned buffer (host clock), the copies and the compute
 device the same functions run without streams: the block is the staging
 buffer.
 
-Results are tensors on the device: ``devices=`` takes None (the default
-device) or one device; more than one raises ``NotImplementedError``
-(multi-device is ROADMAP queue 1 item 18). The functions without
-``devices=`` take ``device=``. Seeds split and draw through
+Results are tensors on the device. ``devices=`` takes None (the default
+device), one device, or a list of them: with more than one, row blocks go
+round-robin to ``devices[i % D]``, each slot with its own accumulator,
+pinned double buffer, streams and events, and the slots' partial sums are
+added on ``devices[0]`` in slot order (the JAX package's
+``_stream_accumulate_multi``). A device may appear twice: two slots on one
+card overlap one block's copy with the other's compute. The functions
+without ``devices=`` take ``device=``. Seeds split and draw through
 ``ops.random_svd``'s seams (``_split_seed``, ``_fold_seed``,
 ``_draw_sketch``).
 """
@@ -109,20 +113,35 @@ def _torch_dtype(dtype: np.dtype) -> torch.dtype:
     return torch.from_numpy(np.empty(0, dtype)).dtype
 
 
-def _one_device(devices) -> torch.device:
-    """The device of ``devices=``: None is the default device; one device
-    (or a sequence holding one) is that device."""
+def _devices(devices) -> list:
+    """The slots' devices of ``devices=``: None is the default device; one
+    device or a sequence of them. A CUDA device without an index is the
+    current one."""
     if devices is None:
-        return default_device()
-    if isinstance(devices, (list, tuple)):
-        if not devices:
-            raise ValueError("devices= is empty")
-        if len(devices) > 1:
-            raise NotImplementedError(
-                "streaming over more than one device is not ported "
-                "(ROADMAP queue 1 item 18); pass one device")
-        devices = devices[0]
-    return torch.device(devices)
+        devices = [default_device()]
+    elif not isinstance(devices, (list, tuple)):
+        devices = [devices]
+    if not devices:
+        raise ValueError("devices= is empty")
+    out = []
+    for dev in devices:
+        dev = torch.device(dev)
+        if dev.type == "cuda" and dev.index is None:
+            dev = torch.device("cuda", torch.cuda.current_device())
+        out.append(dev)
+    return out
+
+
+def _reduce_slots(parts: list, device):
+    """The slots' partial sums (tensors or tuples of them) added on
+    ``device`` in slot order."""
+    total = parts[0]
+    for part in parts[1:]:
+        if isinstance(total, tuple):
+            total = tuple(t + p.to(device) for t, p in zip(total, part))
+        else:
+            total = total + part.to(device)
+    return total
 
 
 def _default_block_rows(n: int, row_elems: int, dtype) -> int:
@@ -158,82 +177,117 @@ def _fill(stage: torch.Tensor, src) -> torch.Tensor:
     return view
 
 
-def _stream(blocks, block_elems: int, dtype: np.dtype, device: torch.device,
-            acc, step, what: str):
-    """acc = step(acc, device_block, i) over the host blocks, one pass.
+class _Slot:
+    """One device's share of a pass. CUDA: two pinned staging buffers and
+    two device buffers of ``block_elems`` each, a side stream and events;
+    the copy of a block runs on the side stream while the host fills the
+    other staging buffer, events order compute after copy and guard each
+    buffer's reuse, so at most one block of the slot is in flight. CPU:
+    the staging buffer is the block. Two slots on one device keep their
+    own buffers, streams and events."""
 
-    CUDA: two pinned staging buffers and two device buffers of
-    ``block_elems`` each; the copy of a block runs on a side stream while
-    the host fills the other staging buffer, and events order compute
-    after copy and guard each buffer's reuse (at most one block in
-    flight). CPU: the block is the staging buffer. Logs the pass's
-    statistics (see the module docstring)."""
-    tdt = _torch_dtype(dtype)
-    t_pass = time.perf_counter()
-    n_bytes, n_blocks, fill_s = 0, 0, 0.0
-    if device.type != "cuda":
-        stage = torch.empty(block_elems, dtype=tdt)
-        for i, src in blocks:
-            t0 = time.perf_counter()
-            blk = _fill(stage, src)
-            fill_s += time.perf_counter() - t0
-            n_bytes += blk.numel() * blk.element_size()
-            n_blocks += 1
-            acc = step(acc, blk, i)
-        _log_pass(what, device, n_blocks, n_bytes, t_pass, fill_s, None, None)
-        return acc
+    def __init__(self, device: torch.device, block_elems: int, tdt):
+        self.device = device
+        self.n_bytes, self.n_blocks, self.fill_s = 0, 0, 0.0
+        self.copy_ev, self.compute_ev = [], []
+        self.pending = None
+        if device.type != "cuda":
+            self.stage = torch.empty(block_elems, dtype=tdt)
+            return
+        self.main = torch.cuda.current_stream(device)
+        self.side = torch.cuda.Stream(device)
+        self.host = [torch.empty(block_elems, dtype=tdt, pin_memory=True)
+                     for _ in range(2)]
+        self.dev = [torch.empty(block_elems, dtype=tdt, device=device)
+                    for _ in range(2)]
+        self.copied = [torch.cuda.Event() for _ in range(2)]
+        self.used = [torch.cuda.Event() for _ in range(2)]
 
-    main = torch.cuda.current_stream(device)
-    side = torch.cuda.Stream(device)
-    host = [torch.empty(block_elems, dtype=tdt, pin_memory=True)
-            for _ in range(2)]
-    dev = [torch.empty(block_elems, dtype=tdt, device=device)
-           for _ in range(2)]
-    copied = [torch.cuda.Event() for _ in range(2)]
-    used = [torch.cuda.Event() for _ in range(2)]
-    copy_ev, compute_ev = [], []
-
-    def compute(i, b, dblk, acc):
-        main.wait_event(copied[b])
-        ev = (torch.cuda.Event(enable_timing=True),
-              torch.cuda.Event(enable_timing=True))
-        ev[0].record(main)
-        acc = step(acc, dblk, i)
-        ev[1].record(main)
-        used[b].record(main)
-        compute_ev.append(ev)
-        return acc
-
-    pending = None
-    for i, src in blocks:
-        b = i % 2
-        copied[b].synchronize()          # host[b]'s last copy has left it
+    def _filled(self, stage, src):
         t0 = time.perf_counter()
-        hblk = _fill(host[b], src)
-        fill_s += time.perf_counter() - t0
-        n_bytes += hblk.numel() * hblk.element_size()
-        n_blocks += 1
-        with torch.cuda.stream(side):
-            side.wait_event(used[b])     # no compute reads dev[b] any more
-            dblk = dev[b][:hblk.numel()].view(hblk.shape)
+        blk = _fill(stage, src)
+        self.fill_s += time.perf_counter() - t0
+        self.n_bytes += blk.numel() * blk.element_size()
+        self.n_blocks += 1
+        return blk
+
+    def put(self, i: int, src, acc, step):
+        """Take host block ``i``; returns the accumulator after the step of
+        the block before it (CUDA) or of this one (CPU)."""
+        if self.device.type != "cuda":
+            return step(acc, self._filled(self.stage, src), i)
+        b = self.n_blocks % 2
+        self.copied[b].synchronize()     # host[b]'s last copy has left it
+        hblk = self._filled(self.host[b], src)
+        with torch.cuda.stream(self.side):
+            self.side.wait_event(self.used[b])   # no compute reads dev[b]
+            dblk = self.dev[b][:hblk.numel()].view(hblk.shape)
             ev = (torch.cuda.Event(enable_timing=True),
                   torch.cuda.Event(enable_timing=True))
-            ev[0].record(side)
+            ev[0].record(self.side)
             dblk.copy_(hblk, non_blocking=True)
-            ev[1].record(side)
-            copied[b].record(side)
-            copy_ev.append(ev)
-        if pending is not None:
-            acc = compute(*pending, acc)
-        pending = (i, b, dblk)
-    if pending is not None:
-        acc = compute(*pending, acc)
-    torch.cuda.synchronize(device)
-    copy_ms = sum(s.elapsed_time(e) for s, e in copy_ev)
-    compute_ms = sum(s.elapsed_time(e) for s, e in compute_ev)
-    _log_pass(what, device, n_blocks, n_bytes, t_pass, fill_s, copy_ms,
-              compute_ms)
-    return acc
+            ev[1].record(self.side)
+            self.copied[b].record(self.side)
+            self.copy_ev.append(ev)
+        acc = self.finish(acc, step)
+        self.pending = (i, b, dblk)
+        return acc
+
+    def finish(self, acc, step):
+        """The step of the block still pending, if any."""
+        if self.pending is None:
+            return acc
+        i, b, dblk = self.pending
+        self.pending = None
+        self.main.wait_event(self.copied[b])
+        ev = (torch.cuda.Event(enable_timing=True),
+              torch.cuda.Event(enable_timing=True))
+        ev[0].record(self.main)
+        acc = step(acc, dblk, i)
+        ev[1].record(self.main)
+        self.used[b].record(self.main)
+        self.compute_ev.append(ev)
+        return acc
+
+
+def _stream_slots(blocks, block_elems: int, dtype: np.dtype, devices,
+                  accs, step, what: str) -> list:
+    """accs[d] = step(accs[d], device_block, i) over the host blocks, one
+    pass: block i goes round-robin to slot d = i % len(devices), each slot
+    a ``_Slot`` on its device with its own accumulator. Logs the pass's
+    statistics (see the module docstring); returns the accumulators."""
+    tdt = _torch_dtype(dtype)
+    t_pass = time.perf_counter()
+    slots = [_Slot(dev, block_elems, tdt) for dev in devices]
+    accs = list(accs)
+    for i, src in blocks:
+        d = i % len(slots)
+        accs[d] = slots[d].put(i, src, accs[d], step)
+    for d, slot in enumerate(slots):
+        accs[d] = slot.finish(accs[d], step)
+    copy_ms = compute_ms = None
+    if any(dev.type == "cuda" for dev in devices):
+        for dev in devices:
+            if dev.type == "cuda":
+                torch.cuda.synchronize(dev)
+        copy_ms = sum(a.elapsed_time(b) for sl in slots
+                      for a, b in sl.copy_ev)
+        compute_ms = sum(a.elapsed_time(b) for sl in slots
+                         for a, b in sl.compute_ev)
+    where = devices[0] if len(devices) == 1 else \
+        ",".join(str(dev) for dev in devices)
+    _log_pass(what, where, sum(sl.n_blocks for sl in slots),
+              sum(sl.n_bytes for sl in slots), t_pass,
+              sum(sl.fill_s for sl in slots), copy_ms, compute_ms)
+    return accs
+
+
+def _stream(blocks, block_elems: int, dtype: np.dtype, device: torch.device,
+            acc, step, what: str):
+    """acc = step(acc, device_block, i) over the host blocks, one pass on
+    one device (``_stream_slots`` with one slot)."""
+    return _stream_slots(blocks, block_elems, dtype, [device], [acc], step,
+                         what)[0]
 
 
 def _log_pass(what, device, n_blocks, n_bytes, t_pass, fill_s, copy_ms,
@@ -251,10 +305,16 @@ def _log_pass(what, device, n_blocks, n_bytes, t_pass, fill_s, copy_ms,
 
 
 def _rows_pass(a, n, block_rows, device, acc, step, what):
+    return _rows_pass_slots(a, n, block_rows, [device], [acc], step,
+                            what)[0]
+
+
+def _rows_pass_slots(a, n, block_rows, devices, accs, step, what) -> list:
     shape, dtype = _source_meta(a)
     row_elems = int(np.prod(shape[1:], dtype=np.int64))
-    return _stream(_row_blocks(a, n, block_rows), block_rows * row_elems,
-                   dtype, device, acc, step, what)
+    return _stream_slots(_row_blocks(a, n, block_rows),
+                         block_rows * row_elems, dtype, devices, accs, step,
+                         what)
 
 
 def _chol_qr_cols(w, h):
@@ -312,17 +372,19 @@ def streamed_gram(a, block_rows: int | None = None, devices=None):
     n)``.
 
     The building block for out-of-core PCA/Pearson: the covariance of the
-    centered data is ``(g - outer(s, s)/n) / (n - 1)``. ``devices``: None
-    or one device.
+    centered data is ``(g - outer(s, s)/n) / (n - 1)``. ``devices``: see
+    the module docstring; the result lies on the first.
     """
-    dev = _one_device(devices)
+    devs = _devices(devices)
     (n, m), dtype = _source_meta(a)
     if block_rows is None:
         block_rows = _default_block_rows(n, m, dtype)
     tdt = _torch_dtype(dtype)
-    acc = (torch.zeros((m, m), dtype=tdt, device=dev),
-           torch.zeros((m,), dtype=tdt, device=dev))
-    g, s = _rows_pass(a, n, block_rows, dev, acc, _acc_gram_and_sums, "gram")
+    accs = [(torch.zeros((m, m), dtype=tdt, device=dev),
+             torch.zeros((m,), dtype=tdt, device=dev)) for dev in devs]
+    g, s = _reduce_slots(_rows_pass_slots(a, n, block_rows, devs, accs,
+                                          _acc_gram_and_sums, "gram"),
+                         devs[0])
     return g, s, n
 
 
@@ -370,8 +432,8 @@ def streamed_random_svd(
     method='gram' (default): 3 passes over A. method='power': n_iter + 2
     passes, no (m, m) storage. center=True subtracts the column means
     implicitly (exact, through the Gram/sum algebra): the out-of-core PCA
-    path; method='gram' only. ``devices``: None or one device
-    (method='gram' only, as in the JAX package).
+    path; method='gram' only. ``devices`` (method='gram' only, as in the
+    JAX package): see the module docstring; the factors lie on the first.
     """
     (n, m), dtype = _source_meta(a)
     if n < m:
@@ -387,7 +449,8 @@ def streamed_random_svd(
         raise ValueError(f"method must be 'gram' or 'power', got {method!r}")
     if devices is not None and method != "gram":
         raise ValueError("devices= requires method='gram'")
-    dev = _one_device(devices)
+    devs = _devices(devices)
+    dev = devs[0]
     tdt = _torch_dtype(dtype)
     if block_rows is None:
         block_rows = _default_block_rows(n, m, dtype)
@@ -401,7 +464,8 @@ def streamed_random_svd(
         # skipped: the sketch-only factorization needs 2 passes, not 3
         w = omega
         if n_iter > 0 or center:
-            g, csum, _ = streamed_gram(a, block_rows=block_rows, devices=dev)
+            g, csum, _ = streamed_gram(a, block_rows=block_rows,
+                                       devices=devs)
             if center:
                 mu = csum / n
                 g = g - n * torch.outer(mu, mu)
@@ -419,28 +483,39 @@ def streamed_random_svd(
                            h_step, f"power {it + 1}")
             w = _chol_qr_cols(w, h)
 
-    # pass: Y = (A - 1 mu^T) W, written block by block into (n, k)
+    # pass: Y = (A - 1 mu^T) W, written block by block into (n, k) on the
+    # first device; each slot multiplies by its own copy of W
     mu_w = ((csum / n)[None, :] @ w) if center else None
+    reps = [(w.to(d), None if mu_w is None else mu_w.to(d)) for d in devs]
 
     def y_step(y, blk, i):
         lo = i * block_rows
-        out = torch.matmul(blk, w, out=y[lo:lo + blk.shape[0]])
-        if mu_w is not None:
-            out -= mu_w
+        w_d, mu_d = reps[i % len(devs)]
+        dst = y[lo:lo + blk.shape[0]]
+        out = (torch.matmul(blk, w_d, out=dst) if blk.device == y.device
+               else blk @ w_d)
+        if mu_d is not None:
+            out -= mu_d
+        if out is not dst:
+            dst.copy_(out)
         return y
 
-    y = _rows_pass(a, n, block_rows, dev,
-                   torch.empty((n, k), dtype=tdt, device=dev), y_step, "Y")
+    y = torch.empty((n, k), dtype=tdt, device=dev)
+    _rows_pass_slots(a, n, block_rows, devs, [y] * len(devs), y_step, "Y")
     q = torch.linalg.qr(y, mode="reduced").Q     # final QR: exact Householder
     del y
 
     # pass: B = Q^T (A - 1 mu^T) = sum_i Q_i^T A_i - (Q^T 1) mu^T
+    q_reps = [q.to(d) for d in devs]
+
     def b_step(b, blk, i):
         lo = i * block_rows
-        return b.addmm_(q[lo:lo + blk.shape[0]].mT, blk)
+        return b.addmm_(q_reps[i % len(devs)][lo:lo + blk.shape[0]].mT, blk)
 
-    b = _rows_pass(a, n, block_rows, dev,
-                   torch.zeros((k, m), dtype=tdt, device=dev), b_step, "B")
+    b = _reduce_slots(_rows_pass_slots(
+        a, n, block_rows, devs,
+        [torch.zeros((k, m), dtype=tdt, device=d) for d in devs], b_step,
+        "B"), dev)
     if center:
         b = b - torch.outer(q.sum(dim=0), csum / n)
     u_b, s, vt = torch.linalg.svd(b, full_matrices=False)

@@ -103,6 +103,19 @@ class _UniRv:
     """Shared NLL + fit plumbing (UniRv default impl, univariate_rv.rs:159-171)."""
 
     def nll(self, samples, params=None) -> torch.Tensor:
+        """Negative log-likelihood of ``samples``. A row-sharded DTensor
+        sums its local log-pdfs and psums them: the same value, replicated,
+        and its gradient in ``params`` the whole one on every rank."""
+        from corrla_rs_tpu_torch.parallel.mesh import _psum_grad, \
+            _to_local, rows_of_dtensor
+
+        rows = rows_of_dtensor(samples)
+        if rows is not None:
+            x_l, _shape, mesh, axis = rows
+            if isinstance(params, torch.Tensor):
+                params = _to_local(params, mesh, axis)
+            return -_psum_grad(torch.sum(torch.log(self.pdf(x_l, params))),
+                               mesh, axis)
         x = as_tensor(samples)
         return -torch.sum(torch.log(self.pdf(x, params)))
 

@@ -24,14 +24,25 @@ the card is a CUDA mesh (NCCL) unless the caller asks for ``"cpu"`` (gloo);
 nothing here moves to the CPU or to one process because it found no GPU or
 no process group: it raises.
 
+A function without ``mesh=`` whose JAX counterpart GSPMD partitions when
+its data arrives row-sharded (``pearson_corr``, ``mat_cov_centered``, the
+``nll`` of the univariate variables, ``single_pass_svd``,
+``SparseGpRegressor.fit``) takes the sharded path when it is handed a
+``DTensor`` with ``Shard(0)`` on a 1-D mesh (``rows_of_dtensor``); any other
+placement raises a ``ValueError`` that names it.
+
 Collectives of the sharded bodies (JAX name -> here): ``psum`` ->
-``_psum`` (all-reduce sum), ``all_gather(tiled=True)`` -> ``_all_gather``
+``_psum`` (all-reduce sum; ``_psum_grad`` and ``_to_local`` where
+autograd runs through it),
+``pmax`` -> ``_pmax``, ``all_gather(tiled=True)`` -> ``_all_gather``
 (all-gather along dim 0), ``axis_index`` -> ``_coord`` (the rank's
 coordinate on the axis). ``_full`` gathers a DTensor whole through
-``_all_gather``.
+``_all_gather``. ``record_traffic()`` records the bytes each of them
+moves.
 """
 from __future__ import annotations
 
+import contextlib
 import math
 import os
 
@@ -54,6 +65,7 @@ __all__ = [
     "row_sharding",
     "replicated_sharding",
     "shard_rows",
+    "record_traffic",
 ]
 
 
@@ -94,12 +106,11 @@ def _build(device_type: str, shape: tuple, names: tuple) -> DeviceMesh:
 
 def make_mesh(n_devices: int | None = None, axis_name: str = ROWS_AXIS,
               device_type: str = "cuda") -> DeviceMesh:
-    """1-D mesh over the first ``n_devices`` ranks (default: all). Every
-    rank of the world calls it."""
+    """1-D mesh over the first ``n_devices`` ranks (default, or more than
+    the world holds: all of them, as the JAX package's ``devs[:n]``).
+    Every rank of the world calls it."""
     world = _world()
-    n = world if n_devices is None else int(n_devices)
-    if n > world:
-        raise ValueError(f"mesh of {n} needs {n} devices, have {world}")
+    n = world if n_devices is None else min(int(n_devices), world)
     return _build(device_type, (n,), (axis_name,))
 
 
@@ -124,8 +135,9 @@ def make_mesh_2d(config=None, rows: int | None = None,
 
 
 def row_sharding(mesh: DeviceMesh, axis_name: str | None = None) -> tuple:
-    """Placements that split axis 0 of a matrix across the mesh axis."""
-    axis_name = axis_name or mesh.mesh_dim_names[0]
+    """Placements that split axis 0 of a matrix across the mesh axis (an
+    axis the mesh does not have raises ``ValueError``)."""
+    axis_name = _axis(mesh, axis_name)
     return tuple(Shard(0) if name == axis_name else Replicate()
                  for name in mesh.mesh_dim_names)
 
@@ -159,7 +171,13 @@ def _axis(mesh: DeviceMesh, axis_name: str | None) -> str:
     if not isinstance(mesh, DeviceMesh):
         raise TypeError(f"mesh must be a torch.distributed DeviceMesh "
                         f"(parallel.mesh.make_mesh), got {type(mesh)}")
-    return axis_name or mesh.mesh_dim_names[0]
+    names = mesh.mesh_dim_names
+    if axis_name is None:
+        return names[0]
+    if axis_name not in names:
+        raise ValueError(f"mesh has no axis {axis_name!r}; its axes are "
+                         f"{names}")
+    return axis_name
 
 
 def _size(mesh: DeviceMesh, axis_name: str) -> int:
@@ -236,6 +254,26 @@ def _placement(dt: DTensor):
     raise ValueError(f"DTensor is not sharded: {dt.placements}")
 
 
+def rows_of_dtensor(x):
+    """(this rank's rows, global shape, mesh, axis name) of a DTensor with
+    ``Shard(0)`` on a 1-D mesh, the sharded path of the functions without
+    ``mesh=``; None for anything that is not a DTensor. Any other placement
+    raises ``ValueError`` naming it."""
+    if not isinstance(x, DTensor):
+        return None
+    mesh = x.device_mesh
+    if mesh.ndim != 1 or tuple(x.placements) != (Shard(0),):
+        raise ValueError(
+            f"a DTensor argument must be row-sharded (Shard(0)) on a 1-D "
+            f"mesh, got placements {tuple(x.placements)} on a mesh of "
+            f"shape {tuple(mesh.mesh.shape)}")
+    # the local tensor itself: ``to_local()`` is an autograd.Function that
+    # torch.func's transforms refuse, and a loss differentiated with them
+    # (an MLE's BFGS) may read its data here
+    return (x._local_tensor.contiguous(), tuple(x.shape), mesh,
+            mesh.mesh_dim_names[0])
+
+
 def _full(x):
     """The whole of a DTensor (every rank of its mesh calls), gathered
     along its sharded dim by ``_all_gather``; anything else comes back as
@@ -251,12 +289,101 @@ def _full(x):
     return _all_gather(local, mesh, axis).movedim(0, dim)
 
 
+# where record_traffic() collects (op, bytes) of every collective
+_TRAFFIC: list | None = None
+
+
+@contextlib.contextmanager
+def record_traffic():
+    """Collect ``(op, bytes)`` for every ``_psum``/``_pmax``/
+    ``_all_gather`` of this process inside the block: the bytes of each
+    collective's result, as the JAX package's never-gathers tests read
+    them off the compiled program."""
+    global _TRAFFIC
+    prev, _TRAFFIC = _TRAFFIC, []
+    try:
+        yield _TRAFFIC
+    finally:
+        _TRAFFIC = prev
+
+
+def _note(op: str, t: torch.Tensor) -> None:
+    if _TRAFFIC is not None:
+        _TRAFFIC.append((op, t.numel() * t.element_size()))
+
+
+def _reduce(t: torch.Tensor, mesh, axis_name: str, op, name: str):
+    """All-reduce over the axis, in place on ``t`` (a fresh temporary);
+    complex tensors go as their real view."""
+    t = t.contiguous()
+    _note(name, t)
+    flat = torch.view_as_real(t) if t.is_complex() else t
+    dist.all_reduce(flat, op=op, group=_group(mesh, axis_name))
+    return t
+
+
 def _psum(t: torch.Tensor, mesh, axis_name: str) -> torch.Tensor:
     """All-reduce sum over the axis, in place on ``t`` (a fresh
     temporary); returns it."""
-    t = t.contiguous()
-    dist.all_reduce(t, op=dist.ReduceOp.SUM, group=_group(mesh, axis_name))
-    return t
+    return _reduce(t, mesh, axis_name, dist.ReduceOp.SUM, "psum")
+
+
+def _pmax(t: torch.Tensor, mesh, axis_name: str) -> torch.Tensor:
+    """All-reduce max over the axis, in place on ``t``; returns it."""
+    return _reduce(t, mesh, axis_name, dist.ReduceOp.MAX, "pmax")
+
+
+# Gradients of a loss that every rank computes alike (replicated) from
+# rank-local work joined by collectives, as a Megatron-style pair:
+# ``_psum_grad`` leaves the local work with the identity as its backward,
+# since every rank already holds the gradient of the sum; ``_to_local``
+# marks a replicated tensor entering the local work, and its backward sums
+# the ranks' shares of the gradient, so what flows on into the replicated
+# part is the whole gradient, equal on every rank.
+# (``torch.distributed.nn.functional.all_reduce`` all-reduces the gradient
+# on the way back, which multiplies it by the world size here.)
+
+
+class _PsumReplicated(torch.autograd.Function):
+    """``_psum`` whose backward passes the gradient through."""
+
+    @staticmethod
+    def forward(t, mesh, axis_name):
+        return _psum(t.clone(), mesh, axis_name)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        pass
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad, None, None
+
+
+def _psum_grad(t: torch.Tensor, mesh, axis_name: str) -> torch.Tensor:
+    """``_psum`` with the pass-through gradient of ``_PsumReplicated``."""
+    return _PsumReplicated.apply(t, mesh, axis_name)
+
+
+class _ToLocal(torch.autograd.Function):
+    """The identity, whose backward is ``_psum`` of the gradient."""
+
+    @staticmethod
+    def forward(t, mesh, axis_name):
+        return t.view_as(t)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.where = inputs[1:]
+
+    @staticmethod
+    def backward(ctx, grad):
+        return _psum(grad.clone(), *ctx.where), None, None
+
+
+def _to_local(t: torch.Tensor, mesh, axis_name: str) -> torch.Tensor:
+    """A replicated tensor entering rank-local work (see above)."""
+    return _ToLocal.apply(t, mesh, axis_name)
 
 
 # all_gather_into_tensor was renamed; take the name this torch has
@@ -269,5 +396,7 @@ def _all_gather(t: torch.Tensor, mesh, axis_name: str) -> torch.Tensor:
     ``all_gather(tiled=True)``)."""
     t = t.contiguous()
     out = t.new_empty((_size(mesh, axis_name) * t.shape[0],) + t.shape[1:])
+    _note("all_gather", out)
     _gather_into(out, t, group=_group(mesh, axis_name))
     return out
+

@@ -90,22 +90,27 @@ def _chol_qr2(y_l, y_t, mesh, axis_name):
     return y_l, y_t
 
 
-def _tsqr(y_l, y_t, mesh, axis_name):
+def _tsqr_factors(y_l, y_t, mesh, axis_name):
     """Exact thin QR of [y_l sharded; y_t replicated] (one-level TSQR).
 
     Local Householder QR of each shard's (n_local, k) panel, an all-gather
     of the R factors, one replicated Householder QR of their stack (with
     the tail's rows below it), then Q_l @ (this rank's block of Q_r).
     Backward stable like Householder, so it is the final orthonormalization
-    of the range finder. Returns (Q_l, Q_tail)."""
+    of the range finder. Returns (Q_l, Q_tail, R), R replicated."""
     q_l, r_l = torch.linalg.qr(y_l, mode="reduced")
     r_all = _all_gather(r_l, mesh, axis_name)
     stacked = r_all if y_t is None else torch.cat([r_all, y_t])
-    q_r = torch.linalg.qr(stacked, mode="reduced").Q
+    q_r, r = torch.linalg.qr(stacked, mode="reduced")
     kk = r_l.shape[0]
     idx = _coord(mesh, axis_name)
     q_l = q_l @ q_r[idx * kk:(idx + 1) * kk]
-    return q_l, None if y_t is None else q_r[r_all.shape[0]:]
+    return q_l, None if y_t is None else q_r[r_all.shape[0]:], r
+
+
+def _tsqr(y_l, y_t, mesh, axis_name):
+    """``_tsqr_factors`` without R: (Q_l, Q_tail)."""
+    return _tsqr_factors(y_l, y_t, mesh, axis_name)[:2]
 
 
 def _power_iter_sharded(a_l, a_t, omega, n_iter, stabilize, mesh, axis_name):
@@ -175,6 +180,61 @@ def _sharded_svd(a_l, a_t, m, omega_rank, n_iter, n_oversamples, key,
     u_b = u_b[:, :rank]
     return (q_l @ u_b, None if q_t is None else q_t @ u_b, s[:rank],
             vt[:rank, :])
+
+
+def _col_sharded_svd(a_l, n, m, omega_rank, n_iter, n_oversamples, key,
+                     stabilize, mesh, axis_name):
+    """The randomized SVD of a tall (n, m) matrix whose COLUMNS are
+    sharded, ``a_l`` this rank's (n, m_local) block: the panel Y (n, k) is
+    replicated, each product with A a psum of the blocks' products, and
+    its QRs are ``ops.random_svd``'s own; B^T = A^T Q (m, k) comes out
+    row-sharded and is factored by ``_tsqr_factors``, B = R^T Qb^T, so
+    B's SVD is that of the small R^T. Returns (U, s, Vt_local) truncated
+    to the rank: U and s replicated, Vt's columns this rank's block."""
+    sketch_rank = min(int(omega_rank) + int(n_oversamples), m)
+    rank = min(int(omega_rank), sketch_rank)
+    stabilize = _resolve(stabilize, a_l.dtype)
+    qr_method = "cholesky" if stabilize == "always" else "householder"
+    m_l = a_l.shape[1]
+    lo = _coord(mesh, axis_name) * m_l
+    omega = _rsvd._draw_sketch(key, (m, sketch_rank), a_l.dtype,
+                               a_l.device)[lo:lo + m_l]
+    y = _psum(a_l @ omega, mesh, axis_name)
+    for i in range(int(n_iter)):
+        if stabilize == "always" or i > 2:
+            y = _rsvd._thin_qr(y, qr_method)
+        y = _psum(a_l @ (a_l.mT @ y), mesh, axis_name)
+        y = y / torch.linalg.vector_norm(y).clamp_min(1e-30)
+    q = _rsvd._householder_qr(y)
+    qb_l, _, r = _tsqr_factors(a_l.mT @ q, None, mesh, axis_name)
+    u_r, s, w_t = torch.linalg.svd(r.mT, full_matrices=False)
+    return ((q @ u_r)[:, :rank], s[:rank],
+            (qb_l @ w_t.mT)[:, :rank].mT)
+
+
+def _svd_of_sharded(a_l, shape, dim, omega_rank, n_iter, n_oversamples,
+                    key, mesh, axis_name, stabilize="auto"):
+    """``ops.random_svd.random_svd`` of the matrix of global ``shape``
+    whose rows (``dim`` 0) or columns (``dim`` 1) are sharded, ``a_l``
+    this rank's block. Like random_svd, a fat matrix is factored through
+    its transpose, so each of the four cases is a row-sharded
+    (``_sharded_svd``) or a column-sharded (``_col_sharded_svd``) tall
+    one. Returns (U, s, Vt) truncated to the rank: the factor along the
+    sharded dimension (U for rows, Vt for columns) as this rank's block,
+    the rest replicated."""
+    rows, cols = shape
+    fat = rows < cols
+    aa_l = a_l.mT if fat else a_l
+    n, m = (cols, rows) if fat else (rows, cols)
+    if (dim == 0) != fat:
+        u, _, s, vt = _sharded_svd(aa_l, None, m, omega_rank, n_iter,
+                                   n_oversamples, key, stabilize, mesh,
+                                   axis_name)
+    else:
+        u, s, vt = _col_sharded_svd(aa_l, n, m, omega_rank, n_iter,
+                                    n_oversamples, key, stabilize, mesh,
+                                    axis_name)
+    return (vt.mT, s, u.mT) if fat else (u, s, vt)
 
 
 def sharded_random_svd(a, omega_rank: int, n_iter: int, n_oversamples: int,

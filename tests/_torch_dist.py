@@ -200,9 +200,10 @@ def case_mesh(n):
     m2 = pm.make_mesh_2d(MeshConfig(rows=n // 2, chains=2),
                          device_type="cpu")
     out["mesh2d"] = (tuple(m2.mesh.shape), m2.mesh_dim_names)
+    # more ranks than the world: the mesh over all of them (JAX: devs[:n])
+    out["over"] = pm.make_mesh(n + 1, device_type="cpu").size()
     errors = []
     for fn in (lambda: pm.make_mesh_2d(rows=n, chains=2, device_type="cpu"),
-               lambda: pm.make_mesh(n + 1, device_type="cpu"),
                lambda: pm.shard_rows(torch.ones(2 * n + 1, 2), mesh)):
         try:
             fn()
@@ -535,6 +536,291 @@ def case_checkpoint(path_prefix, x, p, t, snaps, u, table):
                 "dmdc_roll": models["dmdc"].predict_multiple(
                     snaps[:, :1], u[:, :6], method="modes"),
                 "wrote": os.path.exists(f"{path_prefix}_pca.npz")})
+
+
+# ---------------------------------------------------------------------------
+# row-sharded data (tests/test_torch_parallel_rows.py)
+
+
+def _same_on_ranks(x):
+    """A digest of a (nested) result that the test compares across ranks:
+    the bytes of every tensor, so equal means bitwise equal."""
+    import hashlib
+
+    h = hashlib.sha256()
+
+    def add(v):
+        if isinstance(v, torch.Tensor):
+            h.update(v.detach().cpu().contiguous().numpy().tobytes())
+        elif isinstance(v, (tuple, list)):
+            for w in v:
+                add(w)
+        elif isinstance(v, dict):
+            for k in sorted(v):
+                add(v[k])
+        else:
+            h.update(repr(v).encode())
+
+    add(x)
+    return h.hexdigest()
+
+
+def _replicated(out, *names):
+    """``out`` with "digest": the digest of its entries ``names`` (taken
+    before any gathering, so they are each rank's own tensors)."""
+    out["digest"] = _same_on_ranks([out[k] for k in names])
+    return out
+
+
+def _shard(a):
+    from corrla_rs_tpu_torch.parallel.mesh import shard_rows
+
+    return shard_rows(torch.as_tensor(a), _mesh())
+
+
+def case_mesh_faults():
+    """The mesh helpers' three faults, each now an answer."""
+    from corrla_rs_tpu_torch.parallel import mesh as pm
+
+    mesh = _mesh()
+    out = {"big": pm.make_mesh(9, device_type=_DEVICE[0]).size()}
+    for name, fn in (("row_sharding", lambda: pm.row_sharding(mesh,
+                                                              "bogus")),
+                     ("axis", lambda: pm._axis(mesh, "bogus"))):
+        try:
+            fn()
+            out[name] = None
+        except ValueError as e:
+            out[name] = str(e)
+    return out
+
+
+def case_stats_rows(x):
+    from torch.distributed.tensor import DTensor, Replicate
+
+    from corrla_rs_tpu_torch.ops.stats_corr import mat_cov_centered, \
+        pearson_corr
+
+    dt = _shard(x)
+    out = _replicated({"pearson": pearson_corr(dt),
+                       "cov": mat_cov_centered(dt)}, "pearson", "cov")
+    rep = DTensor.from_local(torch.as_tensor(x), _mesh(), (Replicate(),))
+    try:
+        pearson_corr(rep)
+        out["error"] = None
+    except ValueError as e:
+        out["error"] = str(e)
+    return _np(out)
+
+
+def case_nll_rows(x, kde_support):
+    from corrla_rs_tpu_torch.ops.univariate_rv import BetaRv, ExponentialRv, \
+        KdeRv, NormalRv
+
+    dt = _shard(x)
+    xt = torch.as_tensor(x)
+    rvs = {"normal": NormalRv(2.0, 3.0), "exponential": ExponentialRv(0.5),
+           "beta": BetaRv(2.0, 3.0, -20.0, 20.0),
+           "kde": KdeRv(0.7, kde_support)}
+    # the exponential's support is x >= 0
+    data = {name: (np.abs(x) if name == "exponential" else x)
+            for name in rvs}
+    out = {name: rv.nll(_shard(data[name])) for name, rv in rvs.items()}
+    out["single"] = {name: rv.nll(torch.as_tensor(data[name]))
+                     for name, rv in rvs.items()}
+    # the gradient through the psum is the single-device one
+    p = torch.tensor([2.5, 2.0], dtype=torch.float64)
+    out["grad"] = torch.func.grad(lambda q: rvs["normal"].nll(dt, q))(p)
+    out["grad_single"] = torch.func.grad(
+        lambda q: rvs["normal"].nll(xt, q))(p)
+    return _np(_replicated(out, "normal", "kde", "grad"))
+
+
+def case_single_pass_rows(a, table):
+    from corrla_rs_tpu_torch.ops.random_svd import single_pass_svd
+
+    with _sketches(table):
+        u, s, vt = single_pass_svd(_shard(a), 9, 8, key=5)
+        single = single_pass_svd(torch.as_tensor(a), 9, 8, key=5)
+    out = {"s": s, "vt": vt, "u": u, "single": single,
+           "placements": [str(p) for p in u.placements],
+           "local": tuple(u.to_local().shape)}
+    return _np(_replicated(out, "s", "vt"))
+
+
+def _inducing_seam(idx):
+    from corrla_rs_tpu_torch.ops import gp
+
+    return _inject((gp, "_draw_inducing",
+                    lambda key, n, m, device: torch.as_tensor(
+                        idx, device=device)))
+
+
+def case_sparse_gp_rows(x, y, xq, idx, fixed):
+    """The sharded fit (hyperparameters optimized, and at ``fixed`` ones)
+    against the single-device fit, its predictions and its ELBO's gradient
+    at a few log-parameters."""
+    from corrla_rs_tpu_torch.ops import gp
+    from corrla_rs_tpu_torch.ops.interp import pairwise_dists
+    from corrla_rs_tpu_torch.parallel.mesh import _all_gather
+
+    xs, ys = _shard(x), _shard(y)
+    xt, yt = torch.as_tensor(x), torch.as_tensor(y)
+    out = {}
+    with _inducing_seam(idx):
+        for name, kw in (("opt", {}), ("fixed", dict(fixed))):
+            opt = not kw
+            sh = gp.SparseGpRegressor("rbf", inducing=24, key=3, **kw).fit(
+                xs, ys, optimize_hypers=opt)
+            one = gp.SparseGpRegressor("rbf", inducing=24, key=3, **kw).fit(
+                xt, yt, optimize_hypers=opt)
+            out[name] = {"pred": sh.predict(torch.as_tensor(xq)),
+                         "single": one.predict(torch.as_tensor(xq)),
+                         "hypers": (sh.length_scale, sh.signal_var,
+                                    sh.noise_var),
+                         "elbo": sh.elbo(), "elbo_single": one.elbo()}
+        # the ELBO's gradient: the replicated loss through the psums
+        x_ind = sh.x_ind
+        r_mm = pairwise_dists(x_ind, x_ind)
+        r_mn = pairwise_dists(x_ind, xs.to_local())
+        yc = sh._yc
+        r_mn1 = pairwise_dists(x_ind, xt)
+        yc1 = _all_gather(yc, _mesh(), "rows")
+        grads, grads1 = [], []
+        for lp in ([0.0, 0.0, -4.0], [-0.7, 0.3, -2.0], [0.4, -0.5, -6.0]):
+            p = torch.tensor(lp, dtype=torch.float64)
+            grads.append(torch.func.grad(lambda q: gp._sgpr_neg_elbo(
+                q, r_mm, r_mn, yc, "rbf", sh._sharded))(p))
+            grads1.append(torch.func.grad(lambda q: gp._sgpr_neg_elbo(
+                q, r_mm, r_mn1, yc1, "rbf"))(p))
+    out["grad"] = torch.stack(grads)
+    out["grad_single"] = torch.stack(grads1)
+    out["x_ind"] = x_ind
+    return _np(_replicated(out, "grad", "x_ind"))
+
+
+def case_lstsq_rows(a, b, table):
+    from corrla_rs_tpu_torch.ops.sketch_solve import sketched_lstsq
+
+    with _sketches(table):
+        x, hist = sketched_lstsq(a, b, key=7, mesh=_mesh())
+        x_dt, _ = sketched_lstsq(_shard(a), _shard(b), key=7, mesh=_mesh())
+    return _np(_replicated({"x": x, "hist": hist, "x_dt": x_dt}, "x",
+                           "hist"))
+
+
+def case_completion_rows(m_in, mask, n_sweeps, table):
+    from corrla_rs_tpu_torch.ops.completion import matrix_complete
+
+    with _sketches(table):
+        m_hat, u, v, hist = matrix_complete(m_in, mask, 4, n_sweeps=n_sweeps,
+                                            key=2, mesh=_mesh())
+        single = matrix_complete(torch.as_tensor(m_in), torch.as_tensor(mask),
+                                 4, n_sweeps=n_sweeps, key=2)
+    out = {"m_hat": m_hat, "v": v, "hist": hist, "single": single[0],
+           "placements": [str(p) for p in m_hat.placements]}
+    return _np(_replicated(out, "v", "hist"))
+
+
+def case_spod_rows(x, weights):
+    from corrla_rs_tpu_torch.models.spod import spod
+
+    out = {}
+    for name, w in (("plain", None), ("weighted", weights)):
+        f = spod(x, n_fft=128, overlap=0.5, n_modes=4, weights=w,
+                 mesh=_mesh())
+        g = spod(torch.as_tensor(x), n_fft=128, overlap=0.5, n_modes=4,
+                 weights=w)
+        out[name] = {"energies": f.energies, "re": f.modes_re,
+                     "im": f.modes_im, "single_energies": g.energies,
+                     "single_re": g.modes_re, "single_im": g.modes_im,
+                     "placements": [str(p) for p in f.modes_re.placements]}
+    out["digest"] = _same_on_ranks([out["plain"]["energies"],
+                                    out["weighted"]["energies"]])
+    return _np(out)
+
+
+def case_cp_rows(t, table, init):
+    from corrla_rs_tpu_torch.ops.cp import cp_als, cp_reconstruct
+    from corrla_rs_tpu_torch.parallel.mesh import _full
+
+    with _sketches(table):
+        w, f, fits = cp_als(t, 3, n_sweeps=30, key=1, init=init,
+                            mesh=_mesh())
+        w1, f1, fits1 = cp_als(torch.as_tensor(t), 3, n_sweeps=30, key=1,
+                               init=init)
+    out = _replicated({"w": w, "fits": fits, "f1": f[1]}, "w", "fits", "f1")
+    rec = cp_reconstruct(w, [_full(f[0])] + f[1:])
+    out.update(rec=rec, rec1=cp_reconstruct(w1, f1), w1=w1,
+               placements=[str(p) for p in f[0].placements])
+    return _np(out)
+
+
+def case_nmf_rows(x, table):
+    from corrla_rs_tpu_torch.ops.nmf import nmf
+    from corrla_rs_tpu_torch.parallel.mesh import _full
+
+    with _sketches(table):
+        w, h, errs = nmf(x, 4, n_sweeps=100, key=2, mesh=_mesh())
+        w1, h1, _ = nmf(torch.as_tensor(x), 4, n_sweeps=100, key=2)
+    out = _replicated({"h": h, "errs": errs}, "h", "errs")
+    out.update(wh=_full(w) @ h, wh1=w1 @ h1, w=w)
+    return _np(out)
+
+
+def case_rpca_rows(m):
+    from corrla_rs_tpu_torch.ops.robust_pca import robust_pca
+
+    l_mat, s, info = robust_pca(m, max_iter=120, mesh=_mesh())
+    out = {"l": l_mat, "s": s, "info": info,
+           "placements": [str(p) for p in l_mat.placements],
+           "digest": _same_on_ranks(info)}
+    return _np(out)
+
+
+def case_gmm_rows(x, first, gumbel):
+    from corrla_rs_tpu_torch.ops import gmm
+
+    seam = _inject((gmm, "_draw_kmeanspp",
+                    lambda key, n, k, dtype, device: (
+                        first, torch.as_tensor(gumbel, dtype=dtype))))
+    with seam:
+        f = gmm.gmm_fit(x, 3, key=2, n_iter=60, mesh=_mesh())
+        f1 = gmm.gmm_fit(torch.as_tensor(x), 3, key=2, n_iter=60)
+    n = _mesh().size()
+    try:
+        gmm.gmm_fit(x[:n + 1], 2, mesh=_mesh())
+        err = None
+    except ValueError as e:
+        err = str(e)
+    out = {"fit": tuple(f[:5]), "single": tuple(f1[:5]),
+           "resp": f.responsibilities, "bic": f.bic(), "error": err}
+    out["digest"] = _same_on_ranks(out["fit"])
+    return _np(out)
+
+
+def case_traffic(a, t, x, m, k):
+    """The bytes of every collective of the sharded factorizations: the
+    largest, and what the matrix's shard on one rank holds."""
+    from corrla_rs_tpu_torch.models.pca import PcaRsvd
+    from corrla_rs_tpu_torch.ops.cp import cp_als
+    from corrla_rs_tpu_torch.ops.nmf import nmf
+    from corrla_rs_tpu_torch.ops.robust_pca import robust_pca
+    from corrla_rs_tpu_torch.parallel.mesh import record_traffic
+    from corrla_rs_tpu_torch.parallel.sharded_rsvd import sharded_random_svd
+
+    mesh = _mesh()
+    runs = {"rsvd": lambda: sharded_random_svd(a, k, 4, 4, key=0, mesh=mesh),
+            "pca": lambda: PcaRsvd(a, k, mesh=mesh),
+            "cp": lambda: cp_als(t, 3, n_sweeps=5, key=1, mesh=mesh),
+            "nmf": lambda: nmf(x, 4, n_sweeps=5, key=2, mesh=mesh),
+            "robust_pca": lambda: robust_pca(m, max_iter=10, mesh=mesh)}
+    out = {}
+    for name, fn in runs.items():
+        with record_traffic() as log:
+            fn()
+        out[name] = max(nbytes for _op, nbytes in log), len(log)
+    return out
 
 
 CASES = {name[len("case_"):]: fn for name, fn in dict(globals()).items()

@@ -226,7 +226,7 @@ def test_sketched_lstsq_conditioning_and_many_rhs(cpu_device, rng):
         port_ls.sketched_lstsq(a, bb, sketch_factor=1.0)
     with pytest.raises(ValueError, match="rows"):
         port_ls.sketched_lstsq(a, np.ones(5))
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(TypeError, match="DeviceMesh"):
         port_ls.sketched_lstsq(a, bb, mesh=object())
 
 

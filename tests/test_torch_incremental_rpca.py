@@ -174,5 +174,5 @@ def test_robust_pca_recovers_and_validates(cpu_device, rng):
         port_rpca.robust_pca(np.ones((4, 4)), lam=-1.0)
     with pytest.raises(ValueError, match="max_iter"):
         port_rpca.robust_pca(np.ones((4, 4)), max_iter=0)
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(TypeError, match="DeviceMesh"):
         port_rpca.robust_pca(np.ones((4, 4)), mesh=object())

@@ -257,9 +257,9 @@ def test_spod_matches_jax(cpu_device, kw):
                                   j.peak_frequencies(2))
 
 
-def test_spod_mesh_raises_and_validation(cpu_device):
+def test_spod_mesh_type_and_validation(cpu_device):
     x = _spod_data(n_t=256)
-    with pytest.raises(NotImplementedError, match="item 18"):
+    with pytest.raises(TypeError, match="DeviceMesh"):
         port.spod(x, n_fft=32, mesh=object())
     for kw in (dict(n_fft=2), dict(overlap=1.0), dict(window="hamming")):
         with pytest.raises(ValueError):

@@ -64,8 +64,22 @@ def test_mesh_and_sharding(n, world2, world4):
         assert r["replicated"] == ["R"]
         assert r["mesh2d"] == ((n // 2, 2), ("rows", "chains"))
         assert r["errors"][0] == f"mesh {n}x2 needs {2 * n} devices, have {n}"
-        assert "needs" in r["errors"][1]
-        assert "must divide the mesh axis size" in r["errors"][2]
+        assert r["over"] == n
+        assert "must divide the mesh axis size" in r["errors"][1]
+
+
+@pytest.mark.parametrize("n", [2, 4])
+def test_mesh_helpers_faults(n, world2, world4):
+    # make_mesh(9) is the mesh over every device, as the JAX package's on
+    # its 8 virtual ones; an axis the mesh lacks is a ValueError that names
+    # the mesh's axes, from _axis and from row_sharding (which returned a
+    # replicated "row sharding" for one)
+    assert make_mesh(9).devices.size == len(jax.devices())
+    for r in {2: world2, 4: world4}[n].run("mesh_faults"):
+        assert r["big"] == n
+        for name in ("axis", "row_sharding"):
+            assert r[name] == ("mesh has no axis 'bogus'; its axes are "
+                               "('rows',)")
 
 
 def test_mesh_needs_a_process_group():

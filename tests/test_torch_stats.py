@@ -167,12 +167,12 @@ def test_gmm_logpdf_sample_select_match_jax(jax_draws):
         port.gmm_select(x, [1], criterion="waic")
 
 
-def test_gmm_validates_and_mesh_raises(cpu_device):
+def test_gmm_validates_and_mesh_type(cpu_device):
     with pytest.raises(ValueError, match="n_components"):
         port.gmm_fit(np.zeros((5, 2)), 9)
     with pytest.raises(ValueError, match="cov_type"):
         port.gmm_fit(np.zeros((5, 2)), 2, cov_type="spherical")
-    with pytest.raises(NotImplementedError, match="mesh"):
+    with pytest.raises(TypeError, match="DeviceMesh"):
         port.gmm_fit(np.zeros((8, 2)), 2, mesh=object(), axis_name="rows")
 
 

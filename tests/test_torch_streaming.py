@@ -13,6 +13,7 @@ so the two agree to rounding, held at 1e-10 of the largest singular value
 """
 import logging
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -155,22 +156,28 @@ def test_row_block_source_and_memmap(cpu_device, rng, tmp_path):
         pst.streamed_gram(bad, block_rows=64)
 
 
-def test_devices_take_one_device(cpu_device, rng):
+def test_devices_take_one_device(same_sketch, rng):
     a = rng.standard_normal((200, 8))
     want = _np(pst.streamed_gram(a, block_rows=64)[0])
     for devices in ("cpu", torch.device("cpu"), [torch.device("cpu")]):
         got = pst.streamed_gram(a, block_rows=64, devices=devices)[0]
         assert got.device.type == "cpu"
         assert np.abs(_np(got) - want).max() == 0.0
-    two = [torch.device("cpu"), torch.device("cpu")]
-    for fn in (pst.streamed_gram, pst.streamed_cov,
-               pst.streamed_pearson_corr):
-        with pytest.raises(NotImplementedError, match="item 18"):
-            fn(a, devices=two)
-    with pytest.raises(NotImplementedError, match="item 18"):
-        pst.streamed_random_svd(a, 2, 1, 2, devices=two)
-    with pytest.raises(NotImplementedError, match="item 18"):
-        pst.streamed_pca(a, 2, devices=two)
+    # two slots on one device against JAX's two (virtual) devices
+    two, jdevs = [torch.device("cpu"), torch.device("cpu")], jax.devices()[:2]
+    for p_fn, j_fn in ((lambda *x, **k: pst.streamed_gram(*x, **k)[0],
+                        lambda *x, **k: jst.streamed_gram(*x, **k)[0]),
+                       (pst.streamed_cov, jst.streamed_cov),
+                       (pst.streamed_pearson_corr, jst.streamed_pearson_corr)):
+        got = _np(p_fn(a, block_rows=64, devices=two))
+        want2 = np.asarray(j_fn(a, block_rows=64, devices=jdevs))
+        assert np.abs(got - want2).max() <= 1e-12 * np.abs(want2).max()
+    s2 = pst.streamed_random_svd(a, 2, 1, 2, block_rows=64, devices=two)[1]
+    s_j = jst.streamed_random_svd(a, 2, 1, 2, block_rows=64, devices=jdevs)[1]
+    np.testing.assert_allclose(_np(s2), np.asarray(s_j), rtol=1e-10)
+    p2 = pst.streamed_pca(a, 2, block_rows=64, devices=two)[0]
+    p_j = jst.streamed_pca(a, 2, block_rows=64, devices=jdevs)[0]
+    np.testing.assert_allclose(_np(p2), np.asarray(p_j), rtol=1e-10)
     with pytest.raises(ValueError, match="empty"):
         pst.streamed_gram(a, devices=[])
     with pytest.raises(ValueError, match="requires method='gram'"):

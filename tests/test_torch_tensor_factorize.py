@@ -187,7 +187,7 @@ def test_cp_validation_and_degenerate_inputs(cpu_device, rng):
         port_cp.cp_als(t, 0)
     with pytest.raises(ValueError, match="init must be"):
         port_cp.cp_als(t, 2, init="zeros")
-    with pytest.raises(NotImplementedError, match="mesh"):
+    with pytest.raises(TypeError, match="DeviceMesh"):
         port_cp.cp_als(t, 2, mesh=object())
     w, f, fits = port_cp.cp_als(np.zeros((3, 4, 5)), 2, n_sweeps=4)
     assert float(w.abs().sum()) == 0.0 and fits.tolist() == [1.0] * 4
@@ -225,7 +225,7 @@ def test_nmf_recovers_planted_factors_and_validates(cpu_device, rng):
         port_nmf.nmf(-x, 2)
     with pytest.raises(ValueError, match="rank must be in"):
         port_nmf.nmf(x, 46)
-    with pytest.raises(NotImplementedError, match="mesh"):
+    with pytest.raises(TypeError, match="DeviceMesh"):
         port_nmf.nmf(x, 2, mesh=object())
 
 
@@ -270,5 +270,5 @@ def test_matrix_complete_recovers_heldout_and_validates(cpu_device, rng):
         port_mc.matrix_complete(truth, mask, 0)
     with pytest.raises(ValueError, match="no observed entries"):
         port_mc.matrix_complete(truth, np.zeros_like(mask), 2)
-    with pytest.raises(NotImplementedError, match="mesh"):
+    with pytest.raises(TypeError, match="DeviceMesh"):
         port_mc.matrix_complete(truth, mask, 2, mesh=object())
