@@ -164,11 +164,16 @@ time, and any failure raises (exit code != 0):
     8 row-sharded points (its K_mm, K_mn and K_mq launch the kernel
     matrix: 3 launches; K_mn's launch is timed after the path),
     sketched_lstsq, matrix_complete, spod, cp_als, nmf, robust_pca and
-    gmm_fit with mesh=. Then a world of 2 gloo ranks on the same card
-    (NCCL refuses two ranks on one device; its processes start while the
-    NCCL world works) runs the reduced shapes of PARALLEL_SMALL and
-    ROWS_SMALL, held to the world of one (PARALLEL_2RANK_TOL,
-    ROWS_2RANK_TOL);
+    gmm_fit with mesh=. Then the member- and chain-sharded paths at
+    MEMBERS_FULL: hmc_run, nuts_run, smc_sample, enkf_filter (both
+    methods), esmda, particle_filter and cma_es with mesh=, and the DMDc
+    ensemble on a member-sharded DTensor, each held to the single-device
+    port on the same draws (MEMBERS_TOL), with the warm medians of 3
+    alternated runs of each side. Then a world of 2 gloo ranks on the
+    same card (NCCL refuses two ranks on one device; its processes start
+    while the NCCL world works) runs the reduced shapes of
+    PARALLEL_SMALL, ROWS_SMALL and MEMBERS_SMALL, held to the world of one
+    (PARALLEL_2RANK_TOL, ROWS_2RANK_TOL, MEMBERS_2RANK_TOL);
 24. export: PcaRsvd.apply_tr and the DMDc reduced rollout exported on the
     card in f32 and f64 with utils.export, served from one fresh process
     that imports only torch (1e-6 / 1e-12 relative; its import, load and
@@ -4390,15 +4395,18 @@ def par_small(port, pm, dev, seed):
     hist, _, ar = demc_run_sharded(heads, ln_prob, gens, 0.8, 1e-6,
                                    key=seed,
                                    mesh=pm.make_mesh(axis_name="chains"))
-    keep = {}
+    keep, kept = {}, {}
     lines = [fn() for _, fn in rows_paths(port, pm, dev, seed + 1,
                                           ROWS_SMALL, keep)]
+    member_lines = [fn() for _, fn in members_paths(
+        port, pm, dev, seed + 2, MEMBERS_SMALL, kept)]
     # numpy, not tensors: a tensor put on a queue is shared through a file
     # descriptor that dies with the rank's process
     return {"sigma": s.cpu().numpy(), "pred": pred.cpu().numpy(),
             "demc": pm._full(hist).cpu().numpy(), "demc_ar": ar,
             "rows": {k: v for k, v in keep.items()
-                     if isinstance(v, np.ndarray)}, "rows_lines": lines}
+                     if isinstance(v, np.ndarray)}, "rows_lines": lines,
+            "members": kept, "members_lines": member_lines}
 
 
 # the row-sharded paths: the world of one runs them at ROWS_FULL,
@@ -4969,7 +4977,9 @@ def par_full(port, pm, rk, dev, seed):
     for path, fn in (("rsvd", rsvd), ("pca", pca), ("PodI", podi),
                      ("dmdc", dmdc), ("active_ss", active),
                      ("hosvd", hosvd), ("samplers", samplers),
-                     *rows_paths(port, pm, dev, seed + 1, ROWS_FULL, keep)):
+                     *rows_paths(port, pm, dev, seed + 1, ROWS_FULL, keep),
+                     *members_paths(port, pm, dev, seed + 2, MEMBERS_FULL,
+                                    keep)):
         window(path, fn)
     check(all(counts["PodI"][k] > 0 for k in names),
           f"PodI(mesh=) did not launch both kernels: {counts['PodI']}")
@@ -4992,6 +5002,341 @@ def par_full(port, pm, rk, dev, seed):
                f"holds the single-device time of this shape)")
     del x_ind, x_rows
     return out, counts
+
+
+# the member- and chain-sharded paths: the world of one runs them at
+# MEMBERS_FULL, the widths of the single-device phases with their depth cut
+# (PERF.md §4), and both worlds at MEMBERS_SMALL; each is held to the
+# single-device port on the same draws (MEMBERS_TOL)
+MEMBERS_FULL = {
+    # chains, dims, warmup, kept, leapfrog steps (warmup 150 -> 50, kept
+    # 200 -> 100)
+    "hmc": (SIZES["hmc"][0], SIZES["gauss16"], 50, 100, SIZES["hmc"][3]),
+    # chains, dims, warmup, kept, max depth (warmup 100 -> 20)
+    "nuts": (SIZES["nuts"][0], SIZES["gauss16"], 20, 100, SIZES["nuts"][3]),
+    "smc": SIZES["smc"],                       # particles, dims, mutations
+    "enkf": (SIZES["enkf"][0], 100),           # members, steps (500 -> 100)
+    "pf": (SIZES["pf"], 100),                  # particles, steps (500 -> 100)
+    "esmda": SIZES["esmda"],                   # members, params, data, stages
+    # dims, population, generations (1800 -> 600), condition
+    "cma": SIZES["cma_ellipsoid"][:2] + (600, SIZES["cma_ellipsoid"][3]),
+    # members, states, snapshots
+    "ensemble": SIZES["ensemble"] + (SIZES["dmdc"][1],),
+}
+MEMBERS_SMALL = {
+    # without warmup, so that the worlds' histories can be held alike
+    "hmc": (256, SIZES["gauss16"], 0, 100, 16),
+    "nuts": (128, SIZES["gauss16"], 0, 100, 4),
+    "smc": (1024, 4, 5),
+    "enkf": (128, 50),
+    "pf": (2048, 50),
+    "esmda": (1024, 32, 64, 4),
+    "cma": (16, 64, 200, 1e3),
+    "ensemble": (4, 2000, 201),
+}
+MEMBERS_TOL = {
+    "exact": (1e-10, "relative to the largest entry: the paths that are "
+                     "deterministic given their draws, against single-device "
+                     "on the same draws"),
+    "chains": (1e-5, "abs over the first 100 generations of HMC and NUTS "
+                     "(f32) on the same draws, as the samplers in PERF.md "
+                     "§2"),
+}
+# how far the 2 gloo ranks' results at MEMBERS_SMALL may sit from the world
+# of one's, relative to each result's largest entry
+MEMBERS_2RANK_TOL = {"hmc": 1e-5, "nuts": 1e-5}
+MEMBERS_2RANK_DEFAULT = 1e-7
+
+
+def members_paths(port, pm, dev, seed, sizes, keep):
+    """The member- and chain-sharded paths at ``sizes``: (name, fn) pairs.
+    Each fn runs the sharded path on the world's 1-D mesh, checks it
+    against the single-device port on the same draws (MEMBERS_TOL) and
+    returns its result line, with the walls of both and, for the samplers,
+    their ms a generation; ``keep`` gathers, on every rank, the numpy the
+    2-rank comparison reads."""
+    import torch.distributed as dist
+
+    mesh = pm.make_mesh()
+    chains = pm.make_mesh(axis_name="chains")
+    f64 = torch.float64
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    exact, tol_chains = MEMBERS_TOL["exact"][0], MEMBERS_TOL["chains"][0]
+
+    def held(name, got, want, tol=exact):
+        err = rel_max(pm._full(got).double(), want.double())
+        check(err <= tol, f"{name} with mesh= against single-device on the "
+              f"same draws {err:.3e} (tol {tol})")
+        return err
+
+    def alternate(fn):
+        """The medians of 3 alternated walls of ``fn(True)`` (sharded) and
+        ``fn(False)`` (single-device), both sides already warm."""
+        walls = {True: [], False: []}
+        for _ in range(3):
+            for side in walls:
+                walls[side].append(wall(lambda: fn(side))[1])
+        return (statistics.median(walls[True]),
+                statistics.median(walls[False]))
+
+    def timed(fn):
+        """(sharded result, single-device result, their warm walls): the
+        checked pair runs first and warms both sides (NCCL's set-up, the
+        first traces of each shape), then ``alternate``."""
+        res, one = fn(True), fn(False)
+        return (res, one) + alternate(fn)
+
+    def chain_sampler(name):
+        n, d, n_warm, n_keep, depth = sizes[name]
+        ln_prob, _ = gauss16(dev)
+        x0 = torch.randn(n, d, generator=gen, device=dev) * 3.0
+
+        def run(sharded, warm=n_warm, kept=n_keep, step=0.1):
+            m = chains if sharded else None
+            if name == "hmc":
+                return port.hmc_run(x0, ln_prob, kept, warm, depth,
+                                    key=seed, init_step_size=step,
+                                    jitter_steps=True, mesh=m)
+            return port.nuts_run(x0, ln_prob, kept, warm, depth, key=seed,
+                                 init_step_size=step, mesh=m)
+
+        res, one = run(True), run(False)
+        # timed: sampling generations at the adapted step size
+        t_gens = 20 if name == "hmc" else 5
+        sec, sec1 = alternate(lambda sh: run(sh, 0, t_gens, one.step_size))
+        check(res.history.placements[0].is_shard(1)
+              and res.final.placements[0].is_shard(0),
+              f"{name}_run(mesh=) history / final sharding")
+        hist = pm._full(res.history)
+        diff = (hist[:100] - one.history[:100]).abs().max().item()
+        steps = abs(res.step_size / one.step_size - 1.0)
+        check(diff <= tol_chains and steps <= tol_chains
+              and bool(torch.isfinite(hist).all()),
+              f"{name}_run(mesh=): first 100 generations {diff:.3e}, step "
+              f"size {steps:.3e} off the single-device run")
+        keep[name] = hist[:100].cpu().numpy()
+        return (f"{name}_run(mesh=) {n} chains x {d} dims, {n_warm} warmup + "
+                f"{n_keep} kept ({'1-' if name == 'hmc' else 'max depth '}"
+                f"{depth}{' leapfrog steps' if name == 'hmc' else ''}) f32: "
+                f"first 100 generations {diff:.1e} off the single-device run "
+                f"on the same draws (tol {tol_chains}), step size "
+                f"{res.step_size:.4f}, acceptance {res.accept_ratio:.4f}; "
+                f"{t_gens} sampling generations at that step size, warm, "
+                f"medians of 3 alternated runs: {sec / t_gens * 1e3:.4f} / "
+                f"{sec1 / t_gens * 1e3:.4f} ms a generation sharded / "
+                f"single-device")
+
+    def smc():
+        n, d_s, n_mcmc = sizes["smc"]
+        s0, s = 2.0, 0.5
+        y = torch.linspace(-1.0, 1.5, d_s, dtype=f64, device=dev)
+
+        def ln_prior(x):
+            return -0.5 * torch.sum(x ** 2) / s0 ** 2
+
+        def ln_like(x):
+            return -0.5 * torch.sum((x - y) ** 2) / s ** 2
+
+        init = s0 * torch.randn(n, d_s, generator=gen, device=dev, dtype=f64)
+        res, one, sec, sec1 = timed(lambda sh: port.smc_sample(
+            ln_like, ln_prior, init, n_mcmc=n_mcmc, key=seed,
+            mesh=chains if sh else None))
+        check(res.n_stages == one.n_stages
+              and res.particles.placements[0].is_shard(0),
+              f"smc_sample(mesh=): {res.n_stages} stages against "
+              f"{one.n_stages}, or particles not sharded")
+        err = held("smc_sample particles", res.particles, one.particles)
+        dz = abs(res.log_evidence - one.log_evidence)
+        db = (res.betas - one.betas).abs().max().item()
+        check(dz <= exact and db <= exact, f"smc_sample(mesh=): log Z "
+              f"{dz:.3e}, betas {db:.3e} off single-device")
+        keep["smc"] = pm._full(res.particles).cpu().numpy()
+        return (f"smc_sample(mesh=) {n} particles x {d_s} dims f64, {n_mcmc} "
+                f"mutation steps, {res.n_stages} stages: particles {err:.1e}, "
+                f"log Z {dz:.1e}, betas {db:.1e} off the single-device run on "
+                f"the same draws (tol {exact}); {sec:.4f} s sharded, "
+                f"{sec1:.4f} s single-device (warm, medians of 3 alternated "
+                f"runs): {sec / res.n_stages * 1e3:.4f} / "
+                f"{sec1 / res.n_stages * 1e3:.4f} ms a stage")
+
+    def linear_record(n, p, steps):
+        """The filters phase's model and a record of ``steps`` from a state
+        of the stationary law."""
+        a, c, q_var, r_var, rng = state_space_model(seed, n, p)
+        x = rng.standard_normal(n)
+        ys = []
+        for _ in range(steps):
+            ys.append(c @ x + math.sqrt(r_var) * rng.standard_normal(p))
+            x = a @ x + math.sqrt(q_var) * rng.standard_normal(n)
+        return a, c, q_var, r_var, rng, np.stack(ys)
+
+    def enkf():
+        n_ens, steps = sizes["enkf"]
+        n, p, _ = SIZES["ssm"]
+        a, c, q_var, r_var, rng, ys = linear_record(n, p, steps)
+        a_t = torch.as_tensor(a, device=dev)
+        ens0 = rng.standard_normal((n_ens, n))
+        parts = []
+        for method in ("stochastic", "etkf"):
+            res, one, sec, sec1 = timed(lambda sh: port.enkf_filter(
+                ens0, ys, lambda v: a_t @ v, c, r_var, seed, method=method,
+                q=q_var, mesh=mesh if sh else None))
+            check(res["ensemble"].placements[0].is_shard(0),
+                  f"enkf_filter {method} ensemble not sharded")
+            err = max(held(f"enkf_filter {method} means", res["means"],
+                           one["means"]),
+                      held(f"enkf_filter {method} ensemble", res["ensemble"],
+                           one["ensemble"]),
+                      held(f"enkf_filter {method} spread", res["spread"],
+                           one["spread"]))
+            keep["enkf_" + method] = res["means"].cpu().numpy()
+            parts.append(f"{method} {err:.1e} in {sec:.4f} s ({sec1:.4f} s "
+                         f"single-device; warm medians)")
+        return (f"enkf_filter(mesh=) {n_ens} members, {n} states, {p} "
+                f"observed, {steps} steps f64: means, ensemble and spread "
+                f"off the single-device run on the same draws (tol {exact}): "
+                + ", ".join(parts))
+
+    def esmda():
+        n_ens, d_th, p_d, n_mda = sizes["esmda"]
+        rng = np.random.default_rng(seed)
+        g = rng.standard_normal((p_d, d_th)) / math.sqrt(d_th)
+        y_obs = g @ rng.standard_normal(d_th) + 0.5 * rng.standard_normal(p_d)
+        g_t = torch.as_tensor(g, device=dev)
+        x0 = rng.standard_normal((n_ens, d_th))
+        res, one, sec, sec1 = timed(lambda sh: port.esmda(
+            x0, lambda th: g_t @ th, y_obs, 0.25, seed, n_mda=n_mda,
+            mesh=mesh if sh else None))
+        check(res["ensemble"].placements[0].is_shard(0)
+              and res["predicted"].placements[0].is_shard(0),
+              "esmda(mesh=) ensemble / predictions not sharded")
+        err = max(held("esmda ensemble", res["ensemble"], one["ensemble"]),
+                  held("esmda predicted", res["predicted"],
+                       one["predicted"]))
+        mis = float(np.max(np.abs(res["data_misfit"] / one["data_misfit"]
+                                  - 1.0)))
+        check(mis <= exact, f"esmda(mesh=) misfits {mis:.3e} off")
+        keep["esmda"] = pm._full(res["ensemble"]).cpu().numpy()
+        return (f"esmda(mesh=) {n_ens} members, {d_th} parameters, {p_d} "
+                f"data, {n_mda} stages f64: ensemble and predictions "
+                f"{err:.1e}, misfits {mis:.1e} off the single-device run on "
+                f"the same draws (tol {exact}); {sec:.4f} s sharded, "
+                f"{sec1:.4f} s single-device (warm, medians of 3 alternated "
+                f"runs)")
+
+    def pf():
+        n_part, steps = sizes["pf"]
+        n, p, _ = SIZES["ssm"]
+        a, c, q_var, r_var, rng, ys = linear_record(n, p, steps)
+        a_t = torch.as_tensor(a, device=dev)
+        c_t = torch.as_tensor(c, device=dev)
+        # the process noise as one table, so that each particle sees the
+        # same noise however the cloud is split (a rank's propagate gets
+        # its own rows and a generator of its own)
+        noise = math.sqrt(q_var) * torch.randn(
+            steps, n_part, n, generator=gen, device=dev, dtype=f64)
+        n_local = n_part // mesh.size()
+        mine = slice(dist.get_rank() * n_local,
+                     (dist.get_rank() + 1) * n_local)
+
+        def propagator(rows):
+            step = [0]
+
+            def propagate(g, cloud):
+                z = noise[step[0], rows]
+                step[0] += 1
+                return cloud @ a_t.mT + z
+
+            return propagate
+
+        def loglik(xp, y):
+            return -0.5 * torch.sum((y - c_t @ xp) ** 2) / r_var
+
+        cloud = rng.standard_normal((n_part, n))
+        res, one, sec, sec1 = timed(lambda sh: port.particle_filter(
+            cloud, ys, propagator(mine if sh else slice(None)), loglik, seed,
+            mesh=mesh if sh else None))
+        check(res["particles"].placements[0].is_shard(0),
+              "particle_filter(mesh=) particles not sharded")
+        err = max(held("particle_filter means", res["means"], one["means"]),
+                  held("particle_filter particles", res["particles"],
+                       one["particles"]),
+                  held("particle_filter ESS", res["ess"], one["ess"]))
+        dl = abs(res["loglik"] / one["loglik"] - 1.0)
+        check(dl <= exact, f"particle_filter(mesh=) loglik {dl:.3e} off")
+        keep["pf"] = res["means"].cpu().numpy()
+        del noise
+        return (f"particle_filter(mesh=) {n_part} particles, {n} states, "
+                f"{steps} steps f64: means, particles and ESS {err:.1e}, "
+                f"loglik {dl:.1e} off the single-device run on the same "
+                f"noise (tol {exact}); mean ESS "
+                f"{res['ess'].mean().item():.0f}; {sec:.4f} s sharded, "
+                f"{sec1:.4f} s single-device (warm, medians of 3 alternated "
+                f"runs): {sec / steps * 1e3:.4f} / "
+                f"{sec1 / steps * 1e3:.4f} ms a step")
+
+    def cma():
+        d_e, pop, gens, cond = sizes["cma"]
+        rot = torch.linalg.qr(torch.randn(d_e, d_e, generator=gen,
+                                          device=dev, dtype=f64)).Q
+        scales = cond ** (torch.arange(d_e, dtype=f64, device=dev)
+                          / (d_e - 1))
+
+        def ellipsoid(v):
+            y = rot.mT @ v
+            return torch.sum(scales * y * y)
+
+        res, one, sec, sec1 = timed(lambda sh: port.cma_es(
+            ellipsoid, np.ones(d_e), sigma0=0.5, n_gens=gens, pop_size=pop,
+            key=seed, device=dev, mesh=mesh if sh else None))
+        err = max(held("cma_es x_best", res.x_best, one.x_best),
+                  held("cma_es history", res.history, one.history))
+        keep["cma"] = res.history.cpu().numpy()
+        return (f"cma_es(mesh=) rotated ellipsoid {d_e}-D (cond {cond:.0e}), "
+                f"population {pop}, {gens} generations: f_best "
+                f"{res.f_best:.3e}; x_best and the history {err:.1e} off the "
+                f"single-device run (tol {exact}); {sec:.4f} s sharded, "
+                f"{sec1:.4f} s single-device (warm, medians of 3 alternated "
+                f"runs): {sec / gens * 1e3:.4f} / "
+                f"{sec1 / gens * 1e3:.4f} ms a generation")
+
+    def ensemble():
+        n_b, n_xe, n_t = sizes["ensemble"]
+        n_modes, n_iters = SIZES["dmdc"][2:]
+        z, u = latent_system(n_t, seed)
+        xb = lifted(z, n_xe, gen, dev, batch=n_b, dtype=f64)
+        u = u.to(dev)
+        ub = u.expand(n_b, -1, -1).contiguous()
+        res, one, sec, sec1 = timed(lambda sh: port.dmdc_fit_ensemble(
+            pm.shard_rows(xb, mesh) if sh else xb,
+            pm.shard_rows(ub, mesh) if sh else ub, n_modes, n_iters,
+            key=seed))
+        check(all(v.placements[0].is_shard(0) for v in res.values()),
+              "dmdc_fit_ensemble on a DTensor: the fit is not sharded")
+        err = held("dmdc_fit_ensemble lambdas_re", res["lambdas_re"],
+                   one["lambdas_re"])
+        x0 = xb[:, :, :1]
+        pred, roll_s = wall(lambda: port.rollout_ensemble(
+            res, pm.shard_rows(x0, mesh), u[:, :n_t - 1], "reduced"))
+        check(pred.placements[0].is_shard(0), "rollout_ensemble not sharded")
+        err_r = held("rollout_ensemble", pred, port.rollout_ensemble(
+            one, x0, u[:, :n_t - 1], "reduced"))
+        traj = max(traj_err(pm._full(pred)[i], xb[i]) for i in range(n_b))
+        check(traj <= 1e-3, f"rollout_ensemble(DTensor) err {traj:.3e}")
+        keep["ensemble"] = pm._full(res["lambdas_re"]).cpu().numpy()
+        del xb, ub, pred
+        return (f"dmdc_fit_ensemble on a member-sharded DTensor {n_b} x "
+                f"{n_xe} x {n_t} f64, {n_modes} modes: lambdas {err:.1e}, "
+                f"reduced rollout {err_r:.1e} off single-device (tol "
+                f"{exact}), rollout err / max|x| {traj:.3e} (tol 1e-3); fit "
+                f"{sec:.4f} s sharded, {sec1:.4f} s single-device (warm, "
+                f"medians of 3 alternated runs); rollout "
+                f"{roll_s:.4f} s")
+
+    return [("hmc", lambda: chain_sampler("hmc")),
+            ("nuts", lambda: chain_sampler("nuts")), ("smc", smc),
+            ("enkf", enkf), ("esmda", esmda), ("pf", pf), ("cma", cma),
+            ("ensemble", ensemble)]
 
 
 def parallel_child(rank, world, backend, store, seed, full, go, queue):
@@ -5132,6 +5477,22 @@ def phase_parallel(seed):
           + ", ".join(f"{k} {v:.3e}" for k, v in rows.items()),
           flush=True)
     for line in b["rows_lines"]:
+        print(f"      2 gloo ranks: {line}", flush=True)
+    members = {k: float(np.max(np.abs(b["members"][k] - v))
+                        / max(np.max(np.abs(v)), 1e-300))
+               for k, v in a["members"].items()}
+    check(set(members) == set(b["members"]) and all(
+        v <= MEMBERS_2RANK_TOL.get(k, MEMBERS_2RANK_DEFAULT)
+        for k, v in members.items()),
+        f"2 gloo ranks' member-sharded paths against the world of one: "
+        f"{members}")
+    print(f"    the member- and chain-sharded paths at MEMBERS_SMALL, 2 gloo "
+          f"ranks against the world of one (tol {MEMBERS_2RANK_DEFAULT} of "
+          f"each result's largest entry, HMC and NUTS "
+          f"{MEMBERS_2RANK_TOL['hmc']}): "
+          + ", ".join(f"{k} {v:.3e}" for k, v in members.items()),
+          flush=True)
+    for line in b["members_lines"]:
         print(f"      2 gloo ranks: {line}", flush=True)
     print(f"    walls: NCCL world of 1 {wall1:.2f} s (from spawn to its last "
           f"result), gloo world of 2 {wall2:.2f} s (from its go, its start "

@@ -447,16 +447,32 @@ def dmdc_fit_ensemble(x_batch, u_batch, n_modes: int, n_iters: int, key=0,
     tensors: ``lambdas_re/lambdas_im`` (B, r), ``modes_re/modes_im``
     (B, n_x, r), ``a_til`` (B, r, r), ``b_op`` (B, n_x, n_u), ``u_hat``
     (B, n_x, r), ``w_re/w_im`` (B, r, n_x), ready for ``rollout_ensemble``.
+
+    ``x_batch`` a DTensor sharded along the members (``Shard(0)`` on a 1-D
+    mesh; every rank calls): each rank fits its own members, member b
+    still seeded by the b-th child of ``key``, with no collective; the
+    batched ``eig`` runs over the rank's members. ``u_batch`` is then a
+    DTensor sharded alike or the full batch every rank holds, and every
+    tensor of the fit comes back a DTensor with ``Shard(0)``.
     """
     cfg = config or DmdConfig()
-    x_batch = as_tensor(x_batch, device=device)
-    u_batch = as_tensor(u_batch, device=x_batch.device, dtype=x_batch.dtype)
+    sh = _ensemble_members(x_batch)
+    if sh is not None:
+        x_batch = sh.local
+        u_batch = _member_rows(u_batch, sh, x_batch)
+    else:
+        x_batch = as_tensor(x_batch, device=device)
+        u_batch = as_tensor(u_batch, device=x_batch.device,
+                            dtype=x_batch.dtype)
     if x_batch.ndim != 3 or u_batch.ndim != 3:
         raise ValueError(
             f"expected (B, n_x, n_t) and (B, n_u, n_t) batches, got "
             f"{tuple(x_batch.shape)} and {tuple(u_batch.shape)}"
         )
-    keys = _split_seed(key, x_batch.shape[0], x_batch.device)
+    keys = _split_seed(key, x_batch.shape[0] if sh is None else sh.n,
+                       x_batch.device)
+    if sh is not None:
+        keys = keys[sh.rows]
     parts = [_dmdc_reduce(x, u, int(n_modes), int(n_iters),
                           int(cfg.n_oversamples), k)
              for x, u, k in zip(x_batch, u_batch, keys)]
@@ -468,9 +484,32 @@ def dmdc_fit_ensemble(x_batch, u_batch, n_modes: int, n_iters: int, key=0,
     modes_re = tmp_modes_scale @ v.real.to(dt)
     modes_im = tmp_modes_scale @ v.imag.to(dt)
     w_re, w_im = _factored(lam_re, lam_im, modes_re, modes_im)
-    return dict(lambdas_re=lam_re, lambdas_im=lam_im, modes_re=modes_re,
-                modes_im=modes_im, a_til=a_til, b_op=b_op, u_hat=u_hat,
-                w_re=w_re, w_im=w_im)
+    fit = dict(lambdas_re=lam_re, lambdas_im=lam_im, modes_re=modes_re,
+               modes_im=modes_im, a_til=a_til, b_op=b_op, u_hat=u_hat,
+               w_re=w_re, w_im=w_im)
+    return fit if sh is None else {k: sh.dtensor(v) for k, v in fit.items()}
+
+
+def _ensemble_members(x):
+    """The ``parallel.mesh._Members`` of a batch given as a DTensor sharded
+    along the members (any other placement raises), else None."""
+    if not _is_dtensor(x):
+        return None
+    from corrla_rs_tpu_torch.parallel.mesh import _Members, rows_of_dtensor
+
+    _, _, mesh, axis = rows_of_dtensor(x)
+    return _Members(x, mesh, axis, "the ensemble size")
+
+
+def _member_rows(a, sh, like):
+    """This rank's members of ``a``: a DTensor sharded like the ensemble,
+    or the full batch every rank holds."""
+    from corrla_rs_tpu_torch.parallel.mesh import _local
+
+    if int(a.shape[0]) != sh.n:
+        raise ValueError(f"expected {sh.n} members, got {tuple(a.shape)}")
+    return _local(a, sh.mesh, sh.axis, device=like.device,
+                  dtype=like.dtype)[0]
 
 
 def rollout_ensemble(fit, x0_batch, u_seq, method: str = "reduced"):
@@ -480,18 +519,34 @@ def rollout_ensemble(fit, x0_batch, u_seq, method: str = "reduced"):
     (n_u, n_times) shared controls or (B, n_u, n_times) per member.
     method: 'reduced' (POD-basis rollout) or 'modes' (factored
     eigendynamics). Returns (B, n_x, n_times).
+
+    A fit whose tensors are DTensors sharded along the members (a
+    member-sharded ``dmdc_fit_ensemble``) rolls each rank's members on
+    that rank: ``x0_batch`` and per-member controls are DTensors sharded
+    alike or full batches, and the result is a DTensor with ``Shard(0)``.
     """
+    if method not in ("reduced", "modes"):
+        raise ValueError(
+            f"method must be 'reduced' or 'modes', got {method!r}")
+    sh = _ensemble_members(fit["b_op"])
+    if sh is not None:
+        fit = {k: v.to_local() for k, v in fit.items()}
     b_op = fit["b_op"]
-    x0 = as_tensor(x0_batch, device=b_op.device, dtype=b_op.dtype)
-    u = as_tensor(u_seq, device=b_op.device, dtype=b_op.dtype)
+    if sh is None:
+        x0 = as_tensor(x0_batch, device=b_op.device, dtype=b_op.dtype)
+    else:
+        x0 = _member_rows(x0_batch, sh, b_op)
+    u = (u_seq if sh is None or len(u_seq.shape) == 2
+         else _member_rows(u_seq, sh, b_op))
+    u = as_tensor(u, device=b_op.device, dtype=b_op.dtype)
     if u.ndim == 2:
         u = u.expand((x0.shape[0],) + u.shape)
     if method == "reduced":
-        return _rollout_reduced(fit["u_hat"], fit["a_til"], b_op, x0, u)
-    if method == "modes":
-        return _rollout_factored(fit["modes_re"], fit["modes_im"],
-                                 fit["w_re"], fit["w_im"], b_op, x0, u)
-    raise ValueError(f"method must be 'reduced' or 'modes', got {method!r}")
+        out = _rollout_reduced(fit["u_hat"], fit["a_til"], b_op, x0, u)
+    else:
+        out = _rollout_factored(fit["modes_re"], fit["modes_im"],
+                                fit["w_re"], fit["w_im"], b_op, x0, u)
+    return out if sh is None else sh.dtensor(out)
 
 
 # ---------------------------------------------------------------------------

@@ -17,6 +17,14 @@ vmap cannot trace (the errors ``ops.quadrature._UNTRACEABLE`` names, and
 JAX package falls back to its eager loop; any other error propagates. The
 normals of every generation come from one seam, ``_draw_normals``, which the
 parity tests fill with the JAX package's draws from its split keys.
+
+On a mesh (``mesh=``) the population is sharded and every rank makes the
+same call: each generation's candidates come from the normals drawn whole
+on every rank, each rank evaluates its rows with ``vmap(fn)``, the (pop,)
+fitness vector is all-gathered, and the distribution update runs
+replicated on the whole population, so the sharded run is the
+single-device one. An objective that vmap cannot trace is refused there:
+its host loop would evaluate every candidate on every rank.
 """
 from __future__ import annotations
 
@@ -67,15 +75,21 @@ def _params(d: int, pop: int):
             float(c_c), float(c_1), float(c_mu), float(chi_n))
 
 
-def _population_evaluator(fn, xs):
+def _population_evaluator(fn, xs, traced_only: bool = False):
     """(evaluate, fs of ``xs``): ``torch.func.vmap(fn)`` where vmap can
-    trace ``fn``, else a loop over float64 host rows."""
+    trace ``fn``, else a loop over float64 host rows (``traced_only``:
+    a ``ValueError`` instead)."""
     batched = torch.func.vmap(fn)
     try:
         return batched, as_tensor(batched(xs), device=xs.device).reshape(-1)
     except (RuntimeError, TypeError) as err:
         if not _untraceable(err):
             raise
+        if traced_only:
+            raise ValueError(
+                "cma_es(mesh=) needs an objective that torch.func.vmap "
+                "can trace (vmap-traceable): the per-point host loop "
+                "would evaluate every candidate on every rank") from err
 
     def one_by_one(points):
         vals = [float(fn(p)) for p in points.detach().cpu().numpy()]
@@ -95,16 +109,20 @@ def cma_es(fn: Callable, x0, sigma0: float = 0.5, n_gens: int = 200,
     in float64 on ``x0``'s device (numpy ``x0`` goes to ``device``).
     bounds: optional (d, 2) box; candidates are clipped before evaluation
     (the distribution itself is unconstrained). ``mesh``/``axis_name``:
-    the JAX package's population sharding, not ported (a mesh other than
-    None raises; ROADMAP queue 1 item 18).
+    shard the candidate evaluations over the mesh axis (see the module
+    docstring; the axis size must divide the population, and ``fn`` must
+    be vmap-traceable); every result is replicated.
     """
-    if mesh is not None:
-        raise NotImplementedError("cma_es(mesh=...) is not ported")
     x0 = as_tensor(x0, device=device, dtype=torch.float64)
     dev, dtype = x0.device, x0.dtype
     d = x0.shape[0]
     pop = int(pop_size) if pop_size else 4 + int(3 * np.log(d))
     pop = max(pop, 4)
+    rows = slice(None)
+    if mesh is not None:
+        from corrla_rs_tpu_torch.parallel.mesh import _all_gather, _members
+
+        axis, rows = _members(mesh, axis_name, pop, "pop_size")
     (mu, w_host, mu_eff, c_sigma, d_sigma, c_c, c_1, c_mu,
      chi_n) = _params(d, pop)
     w = torch.as_tensor(w_host, dtype=dtype, device=dev)
@@ -137,10 +155,13 @@ def cma_es(fn: Callable, x0, sigma0: float = 0.5, n_gens: int = 200,
             xs = torch.clamp(xs, lo[None, :], hi[None, :])
             y = (xs - mean[None, :]) / sigma
         if evaluate is None:
-            evaluate, fs = _population_evaluator(fn, xs)
+            evaluate, fs = _population_evaluator(fn, xs[rows],
+                                                 mesh is not None)
         else:
-            fs = evaluate(xs)
+            fs = evaluate(xs[rows])
         fs = fs.to(dtype)
+        if mesh is not None:
+            fs = _all_gather(fs, mesh, axis)
         order = torch.argsort(fs, stable=True)
         y_sel = y[order[:mu]]                              # (mu, d)
         y_w = w @ y_sel                                    # (d,)

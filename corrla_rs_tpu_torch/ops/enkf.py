@@ -32,6 +32,21 @@ point is drawn at once through the one seam ``_draw_normals``. ``propagate``,
 ``forward`` and a callable ``h`` take one member's (n,) state and are batched
 with ``torch.func.vmap``. An ensemble runs where it is: a numpy ensemble
 goes to ``utils.device.default_device()`` whatever its size.
+
+On a mesh (``mesh=``) the ensemble is sharded along the members and every
+rank makes the same call with the same arguments; the ensemble is a
+DTensor sharded so, or the full array every rank holds. The normals are
+drawn for the whole ensemble from the one key on every rank and each rank
+keeps its rows, so a sharded analysis is the single-device one up to the
+order of its sums. Forecasts and forward evaluations run on the rank's
+rows with no collective. The stochastic update all-reduces the member-axis
+means and Grams, O(p (p + n)) numbers, and never moves a member. The ETKF
+all-gathers the (N, p) observation anomalies, builds the (N, N) transform
+on every rank, and applies it to the state in a column-sharded layout: one
+all-to-all there and one back, each moving (W - 1)/W of a rank's block
+(``parallel.mesh._rows_to_cols``). What JAX returns sharded (the ensemble,
+ES-MDA's predictions) comes back a DTensor with ``Shard(0)``; the rest is
+replicated.
 """
 from __future__ import annotations
 
@@ -60,9 +75,13 @@ def _draw_normals(key, n_steps, n_ens, n_state, p, dtype, device):
                                 dtype=dtype, device=device)
 
 
-def _no_mesh(mesh, what: str) -> None:
-    if mesh is not None:
-        raise NotImplementedError(f"{what}(mesh=...) is not ported")
+def _ensemble(x_ens, mesh, axis_name):
+    """(this rank's members, all of them without a mesh; their
+    ``parallel.mesh._Members``, or its ``_Whole`` without a mesh)."""
+    from corrla_rs_tpu_torch.parallel.mesh import _member_view
+
+    sh = _member_view(x_ens, mesh, axis_name, "the ensemble size")
+    return sh.local, sh
 
 
 def _as_r_matrix(r, p, like):
@@ -91,74 +110,88 @@ def _obs_ensemble(x_ens, h):
     return x_ens @ as_tensor(h, device=x_ens.device, dtype=x_ens.dtype).mT
 
 
-def _center(x):
-    return x - torch.mean(x, dim=0)
+def _center(x, sh):
+    return x - sh.mean(x)
 
 
 def _perturbations(z, r_diag, r_chol, scale: float = 1.0):
     """Centered observation perturbations from standard normals ``z``
-    (N, p): exact zero-mean noise, so that the ENSEMBLE MEAN sees the
-    unperturbed innovation. ``scale`` multiplies R."""
+    (N, p), the whole ensemble's: exact zero-mean noise, so that the
+    ENSEMBLE MEAN sees the unperturbed innovation. ``scale`` multiplies
+    R."""
     if r_diag is not None:
-        return _center(torch.sqrt(scale * r_diag) * z)
-    return _center(z @ (math.sqrt(scale) * r_chol).mT)
+        e = torch.sqrt(scale * r_diag) * z
+    else:
+        e = z @ (math.sqrt(scale) * r_chol).mT
+    return e - torch.mean(e, dim=0)
 
 
-def _enkf_obs_space(x_ens, y_ens, d_pert, r_mat):
-    """Perturbed-obs update with the (p, p) solve: good when p <= N."""
-    n_ens = x_ens.shape[0]
-    xa, ya = _center(x_ens), _center(y_ens)               # (N, n), (N, p)
-    c_yy = ya.mT @ ya / (n_ens - 1) + r_mat               # (p, p)
+def _enkf_obs_space(x_ens, y_ens, d_pert, r_mat, sh):
+    """Perturbed-obs update with the (p, p) solve: good when p <= N. The
+    rows are the rank's members (``sh``) and the member-axis Grams are
+    summed over the ranks."""
+    n_ens = sh.n
+    xa, ya = _center(x_ens, sh), _center(y_ens, sh)       # (N, n), (N, p)
+    c_yy, c_yx = sh.sum(ya.mT @ ya), sh.sum(ya.mT @ xa)
+    c_yy = c_yy / (n_ens - 1) + r_mat                     # (p, p)
     # X_a = X + (D - Y) C_yy^{-1} C_yx, with C_yx = Ya^T Xa / (N-1)
-    w = torch.linalg.solve(c_yy, ya.mT @ xa / (n_ens - 1))    # (p, n)
+    w = torch.linalg.solve(c_yy, c_yx / (n_ens - 1))      # (p, n)
     return x_ens + (d_pert - y_ens) @ w
 
 
-def _enkf_ens_space(x_ens, y_ens, d_pert, r_inv_diag):
+def _enkf_ens_space(x_ens, y_ens, d_pert, r_inv_diag, sh):
     """Perturbed-obs update via Woodbury in ensemble space (an N x N
     solve): good when p >> N and R is diagonal.
 
     (S S^T/(N-1) + R)^{-1} = R^-1 - R^-1 S ((N-1) I + S^T R^-1 S)^{-1}
-    S^T R^-1  with S = Ya^T (p, N)."""
-    n_ens = x_ens.shape[0]
-    xa, ya = _center(x_ens), _center(y_ens)
-    yr = ya * r_inv_diag                                  # Ya R^-1
+    S^T R^-1  with S = Ya^T (p, N).
+
+    On a mesh (``sh``) the (N, p) anomalies are all-gathered, the rank's
+    rows of the (N, N) solve stay its own, and the state update goes
+    through the (p, n) Gram Ya^T Xa summed over the ranks, so no member
+    moves."""
+    n_ens = sh.n
+    xa, ya = _center(x_ens, sh), _center(y_ens, sh)
+    ya_all = sh.gather(ya)
+    yr = ya_all * r_inv_diag                              # Ya R^-1
     inner = (n_ens - 1) * torch.eye(n_ens, dtype=x_ens.dtype,
-                                    device=x_ens.device) + yr @ ya.mT
+                                    device=x_ens.device) + yr @ ya_all.mT
     t1 = (d_pert - y_ens) * r_inv_diag                    # resid R^-1
-    t3 = torch.linalg.solve(inner.mT, (t1 @ ya.mT).mT).mT     # (N, N)
+    t3 = torch.linalg.solve(inner.mT, (t1 @ ya_all.mT).mT).mT  # (N, N)
     coeff = t1 - t3 @ yr                   # (N, p): resid C_yy^{-1}
-    return x_ens + (coeff @ ya.mT) @ xa / (n_ens - 1)
+    return x_ens + coeff @ sh.sum(ya.mT @ xa) / (n_ens - 1)
 
 
-def _inflate(x_ens, inflation: float):
+def _inflate(x_ens, inflation: float, sh):
     if inflation == 1.0:
         return x_ens
-    mean = torch.mean(x_ens, dim=0)
+    mean = sh.mean(x_ens)
     return mean + inflation * (x_ens - mean)
 
 
-def _analysis_inputs(x_ens, y_obs, h, r, inflation, mesh, what):
-    """The checks and the forecast observations both analyses share."""
-    _no_mesh(mesh, what)
-    x_ens = as_tensor(x_ens)
+def _analysis_inputs(x_ens, y_obs, h, r, inflation, mesh, axis_name):
+    """The checks and the forecast observations both analyses share:
+    (members, y_obs, their observations, r_mat, r_diag, their view)."""
+    if mesh is None:
+        x_ens = as_tensor(x_ens)
     if x_ens.ndim != 2:
         raise ValueError(f"x_ens must be (N, n), got {tuple(x_ens.shape)}")
     n_ens = int(x_ens.shape[0])
     if n_ens < 2:
         raise ValueError("need at least 2 ensemble members")
+    x_ens, sh = _ensemble(x_ens, mesh, axis_name)
     y_obs = as_tensor(y_obs, device=x_ens.device,
                       dtype=x_ens.dtype).reshape(-1)
     p = int(y_obs.shape[0])
     r_mat, r_diag = _as_r_matrix(r, p, x_ens)
-    x_ens = _inflate(x_ens, inflation)
+    x_ens = _inflate(x_ens, inflation, sh)
     y_ens = _obs_ensemble(x_ens, h)
-    if y_ens.shape != (n_ens, p):
+    if y_ens.shape != (x_ens.shape[0], p):
         raise ValueError(
             f"observation operator produced {tuple(y_ens.shape)}, expected "
-            f"({n_ens}, {p})"
+            f"({x_ens.shape[0]}, {p})"
         )
-    return x_ens, y_obs, y_ens, r_mat, r_diag
+    return x_ens, y_obs, y_ens, r_mat, r_diag, sh
 
 
 def enkf_analysis(x_ens, y_obs, h, r, key, inflation: float = 1.0,
@@ -176,26 +209,33 @@ def enkf_analysis(x_ens, y_obs, h, r, key, inflation: float = 1.0,
     is taken when p > N and R is diagonal, so megapixel observation vectors
     never trigger a (p, p) solve.
 
-    mesh / axis_name: the JAX package's member sharding, not ported (a mesh
-    other than None raises).
+    mesh / axis_name: shard the ensemble along the members over the mesh
+    axis (see the module docstring; the axis size must divide N); the
+    analysis ensemble then comes back a DTensor with ``Shard(0)``.
     """
-    x_ens, y_obs, y_ens, r_mat, r_diag = _analysis_inputs(
-        x_ens, y_obs, h, r, inflation, mesh, "enkf_analysis")
-    n_ens, p = y_ens.shape
+    x_ens, y_obs, y_ens, r_mat, r_diag, sh = _analysis_inputs(
+        x_ens, y_obs, h, r, inflation, mesh, axis_name)
+    p = y_ens.shape[1]
+    n_ens = sh.n
     _, z = _draw_normals(key, 1, n_ens, 0, p, x_ens.dtype, x_ens.device)
     r_chol = None if r_diag is not None else torch.linalg.cholesky(r_mat)
-    d_pert = y_obs + _perturbations(z[0], r_diag, r_chol)
+    d_pert = y_obs + _perturbations(z[0], r_diag, r_chol)[sh.rows]
     if r_diag is not None and p > n_ens:
-        return _enkf_ens_space(x_ens, y_ens, d_pert, 1.0 / r_diag)
-    return _enkf_obs_space(x_ens, y_ens, d_pert, r_mat)
+        x_a = _enkf_ens_space(x_ens, y_ens, d_pert, 1.0 / r_diag, sh)
+    else:
+        x_a = _enkf_obs_space(x_ens, y_ens, d_pert, r_mat, sh)
+    return sh.dtensor(x_a)
 
 
-def _etkf_update(x_ens, y_ens, y_obs, r_inv_diag):
-    """Hunt 2007 ensemble-space square-root update (diagonal R)."""
-    n_ens = x_ens.shape[0]
-    xbar = torch.mean(x_ens, dim=0)
-    ybar = torch.mean(y_ens, dim=0)
-    ya = y_ens - ybar                                     # (N, p)
+def _etkf_update(x_ens, y_ens, y_obs, r_inv_diag, sh):
+    """Hunt 2007 ensemble-space square-root update (diagonal R). On a mesh
+    (``sh``) the (N, p) anomalies are all-gathered, the (N, N) transform
+    is built on every rank, and it mixes the members' state anomalies in
+    the column-sharded layout."""
+    n_ens = sh.n
+    xbar = sh.mean(x_ens)
+    ybar = sh.mean(y_ens)
+    ya = sh.gather(y_ens - ybar)                          # (N, p)
     c = ya * r_inv_diag                                   # Ya R^-1 (N, p)
     inner = (n_ens - 1) * torch.eye(n_ens, dtype=x_ens.dtype,
                                     device=x_ens.device) + c @ ya.mT
@@ -205,7 +245,8 @@ def _etkf_update(x_ens, y_ens, y_obs, r_inv_diag):
     pa_half = (evecs * torch.rsqrt(evals)) @ evecs.mT * math.sqrt(n_ens - 1)
     wbar = (evecs * (1.0 / evals)) @ (evecs.mT @ (c @ (y_obs - ybar)))
     # rows of wbar + pa_half: the per-member weights
-    return xbar + (wbar + pa_half) @ (x_ens - xbar)
+    cols_block, cols = sh.to_cols(x_ens - xbar)
+    return xbar + sh.to_rows((wbar + pa_half) @ cols_block, cols)
 
 
 def etkf_analysis(x_ens, y_obs, h, r, inflation: float = 1.0,
@@ -220,11 +261,10 @@ def etkf_analysis(x_ens, y_obs, h, r, inflation: float = 1.0,
     Monte-Carlo noise, which is why ETKF dominates the stochastic EnKF at
     small N.
 
-    mesh / axis_name: the JAX package's member sharding, not ported (a mesh
-    other than None raises).
+    mesh / axis_name: as in :func:`enkf_analysis`.
     """
-    x_ens, y_obs, y_ens, r_mat, r_diag = _analysis_inputs(
-        x_ens, y_obs, h, r, inflation, mesh, "etkf_analysis")
+    x_ens, y_obs, y_ens, r_mat, r_diag, sh = _analysis_inputs(
+        x_ens, y_obs, h, r, inflation, mesh, axis_name)
     if r_diag is None:
         # whiten a full R: solve L z = y, so that the whitened problem has
         # identity noise covariance
@@ -236,7 +276,7 @@ def etkf_analysis(x_ens, y_obs, h, r, inflation: float = 1.0,
         r_inv_diag = torch.ones_like(y_obs)
     else:
         r_inv_diag = 1.0 / r_diag
-    return _etkf_update(x_ens, y_ens, y_obs, r_inv_diag)
+    return sh.dtensor(_etkf_update(x_ens, y_ens, y_obs, r_inv_diag, sh))
 
 
 def enkf_filter(x0_ens, y_seq, propagate, h, r, key,
@@ -255,12 +295,14 @@ def enkf_filter(x0_ens, y_seq, propagate, h, r, key,
     the final analysis ensemble, ``spread`` (T,) the mean analysis std, the
     filter-health diagnostic (collapse => inflate).
 
-    mesh / axis_name: the JAX package's member sharding, not ported (a mesh
-    other than None raises).
+    mesh / axis_name: shard the ensemble along the members for the whole
+    record (see the module docstring; the axis size must divide N): the
+    forecasts run on each rank's members, ``ensemble`` comes back a
+    DTensor with ``Shard(0)``, ``means`` and ``spread`` replicated.
     """
-    _no_mesh(mesh, "enkf_filter")
-    x_ens = as_tensor(x0_ens)
-    n_ens, n_state = int(x_ens.shape[0]), int(x_ens.shape[1])
+    x_ens, sh = _ensemble(x0_ens, mesh, axis_name)
+    n_ens = sh.n
+    n_state = int(x_ens.shape[1])
     y_seq = as_tensor(y_seq, device=x_ens.device, dtype=x_ens.dtype)
     if y_seq.ndim == 1:
         y_seq = y_seq[:, None]
@@ -291,18 +333,19 @@ def enkf_filter(x0_ens, y_seq, propagate, h, r, key,
     for t in range(n_steps):
         x_f = prop_v(x_ens)
         if q_diag is not None:
-            x_f = x_f + torch.sqrt(q_diag) * z_q[t]
-        x_f = _inflate(x_f, infl)
+            x_f = x_f + torch.sqrt(q_diag) * z_q[t][sh.rows]
+        x_f = _inflate(x_f, infl, sh)
         y_ens = _obs_ensemble(x_f, h)
         if method == "etkf":
-            x_ens = _etkf_update(x_f, y_ens, y_seq[t], 1.0 / r_diag)
+            x_ens = _etkf_update(x_f, y_ens, y_seq[t], 1.0 / r_diag, sh)
         else:
             x_ens = _enkf_obs_space(
-                x_f, y_ens, y_seq[t] + _perturbations(z_r[t], r_diag, r_chol),
-                r_mat)
-        means[t] = torch.mean(x_ens, dim=0)
-        spreads[t] = torch.mean(torch.std(x_ens, dim=0, correction=0))
-    return {"means": means, "ensemble": x_ens, "spread": spreads}
+                x_f, y_ens, y_seq[t] + _perturbations(
+                    z_r[t], r_diag, r_chol)[sh.rows], r_mat, sh)
+        means[t] = sh.mean(x_ens)
+        spreads[t] = torch.mean(torch.sqrt(sh.mean((x_ens - means[t]) ** 2)))
+    return {"means": means, "ensemble": sh.dtensor(x_ens),
+            "spread": spreads}
 
 
 def esmda(x_ens, forward, y_obs, r, key, n_mda: int = 4,
@@ -324,12 +367,13 @@ def esmda(x_ens, forward, y_obs, r, key, n_mda: int = 4,
     (n_mda+1,) the mean normalized misfit per stage as a host array, read
     once at the end (a monotone decrease is the convergence diagnostic).
 
-    mesh / axis_name: the JAX package's member sharding, not ported (a mesh
-    other than None raises).
+    mesh / axis_name: shard the ensemble along the members once (see the
+    module docstring; the axis size must divide N): the forward
+    evaluations run on each rank's members, ``ensemble`` and ``predicted``
+    come back DTensors with ``Shard(0)``, ``mean`` replicated.
     """
-    _no_mesh(mesh, "esmda")
-    x_ens = as_tensor(x_ens)
-    n_ens = int(x_ens.shape[0])
+    x_ens, sh = _ensemble(x_ens, mesh, axis_name)
+    n_ens = sh.n
     y_obs = as_tensor(y_obs, device=x_ens.device,
                       dtype=x_ens.dtype).reshape(-1)
     p = int(y_obs.shape[0])
@@ -350,28 +394,30 @@ def esmda(x_ens, forward, y_obs, r, key, n_mda: int = 4,
     def misfit(y_ens):
         resid = y_ens - y_obs
         if r_diag is not None:
-            return torch.mean(torch.sum(resid ** 2 / r_diag, dim=1))
-        return torch.mean(torch.sum(
-            resid * torch.linalg.solve(r_mat, resid.mT).mT, dim=1))
+            per_member = torch.sum(resid ** 2 / r_diag, dim=1)
+        else:
+            per_member = torch.sum(
+                resid * torch.linalg.solve(r_mat, resid.mT).mT, dim=1)
+        return sh.mean(per_member)
 
     _, z = _draw_normals(key, len(alphas), n_ens, 0, p, x_ens.dtype,
                          x_ens.device)
     for i, alpha in enumerate(alphas):
         y_ens = fwd_v(x_ens)
-        if y_ens.shape != (n_ens, p):
+        if y_ens.shape != (x_ens.shape[0], p):
             raise ValueError(
                 f"forward produced {tuple(y_ens.shape)}, expected "
-                f"({n_ens}, {p})"
+                f"({x_ens.shape[0]}, {p})"
             )
         misfits.append(misfit(y_ens))
-        d_pert = y_obs + _perturbations(z[i], r_diag, r_chol, alpha)
+        d_pert = y_obs + _perturbations(z[i], r_diag, r_chol, alpha)[sh.rows]
         if r_diag is not None and p > n_ens:
             x_ens = _enkf_ens_space(x_ens, y_ens, d_pert,
-                                    1.0 / (alpha * r_diag))
+                                    1.0 / (alpha * r_diag), sh)
         else:
-            x_ens = _enkf_obs_space(x_ens, y_ens, d_pert, alpha * r_mat)
+            x_ens = _enkf_obs_space(x_ens, y_ens, d_pert, alpha * r_mat, sh)
     y_final = fwd_v(x_ens)
     misfits.append(misfit(y_final))
-    return {"ensemble": x_ens, "mean": torch.mean(x_ens, dim=0),
-            "predicted": y_final,
+    return {"ensemble": sh.dtensor(x_ens), "mean": sh.mean(x_ens),
+            "predicted": sh.dtensor(y_final),
             "data_misfit": torch.stack(misfits).double().cpu().numpy()}

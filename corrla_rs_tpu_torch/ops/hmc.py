@@ -25,6 +25,15 @@ once through the one seam ``_draw_hmc``, the jittered trajectory lengths as
 a host table, so a generation runs exactly its own number of leapfrog steps
 and nothing in the loop reads the device: the step size, the dual-averaging
 state and the counters stay 0-d device tensors, read once at the end.
+
+On a mesh (``mesh=``) the chains are sharded and every rank makes the same
+call. The chains are independent, so the leapfrog runs on the rank's chains
+with no collective; each chunk's table is drawn for all chains from the one
+key on every rank and sliced. What crosses ranks is the cross-chain mean of
+the acceptance statistic (one scalar all-reduce a generation, while the
+step size adapts), the (d,) moments of the mass matrix (two all-reduces,
+once) and the counters, once at the end. The history comes back a DTensor
+sharded along the chains (``Shard(1)``), the final chains ``Shard(0)``.
 """
 from __future__ import annotations
 
@@ -113,22 +122,28 @@ def _warmup_split(n_warmup: int, adapt_mass: bool):
     return ((2 * n_warmup) // 3 if do_mass else n_warmup), do_mass
 
 
-def _mass_from(warm_hist: torch.Tensor) -> torch.Tensor:
+def _mass_from(warm_hist: torch.Tensor, sh) -> torch.Tensor:
     """Diagonal inverse mass from the settled half of the unit-metric
-    warmup's draws."""
+    warmup's draws of the chains of ``sh`` (``parallel.mesh._Members`` or
+    ``_Whole``): the two (d,) moments summed over the ranks."""
     n1, _, d = warm_hist.shape
     tail = warm_hist[n1 // 2:].reshape(-1, d)
-    return torch.var(tail, dim=0, correction=0) + 1e-6
+    count = (n1 - n1 // 2) * sh.n
+    mean = sh.sum(torch.sum(tail, dim=0)) / count
+    return sh.sum(torch.sum((tail - mean) ** 2, dim=0)) / count + 1e-6
 
 
-def _check_chains(init_chains, mesh, what: str) -> torch.Tensor:
-    if mesh is not None:
-        raise NotImplementedError(f"{what}(mesh=...) is not ported")
-    x0 = as_tensor(init_chains)
+def _check_chains(init_chains, mesh, axis_name):
+    """(this rank's chains, all of them without a mesh; their
+    ``parallel.mesh._Members``, or its ``_Whole`` without a mesh)."""
+    from corrla_rs_tpu_torch.parallel.mesh import _member_view
+
+    x0 = as_tensor(init_chains) if mesh is None else init_chains
     if x0.ndim != 2:
         raise ValueError(f"init_chains must be (n_chains, d), got "
                          f"{tuple(x0.shape)}")
-    return x0
+    sh = _member_view(x0, mesh, axis_name, "n_chains")
+    return sh.local, sh
 
 
 def hmc_run(init_chains, ln_prob_fn: Callable, n_steps: int,
@@ -151,11 +166,15 @@ def hmc_run(init_chains, ln_prob_fn: Callable, n_steps: int,
     breaks the periodicity resonances a fixed length has on targets whose
     oscillation period divides eps * n_leapfrog.
 
-    mesh / axis_name: the JAX package's chain sharding, not ported (a mesh
-    other than None raises).
+    mesh / axis_name: shard the chains over the mesh axis (see the module
+    docstring); ``init_chains`` is a DTensor sharded along the chains or
+    the full array every rank holds, and the axis size must divide
+    n_chains. ``history`` and ``final`` then come back DTensors sharded
+    along the chains; the rest is replicated.
     """
-    x = _check_chains(init_chains, mesh, "hmc_run")
-    n_chains, d = x.shape
+    x, sh = _check_chains(init_chains, mesh, axis_name)
+    d = x.shape[1]
+    n_chains = sh.n
     dtype, dev = x.dtype, x.device
     gen = as_generator(key, dev)
     n_steps, n_warmup, n_leapfrog = int(n_steps), int(n_warmup), int(n_leapfrog)
@@ -183,7 +202,7 @@ def hmc_run(init_chains, ln_prob_fn: Callable, n_steps: int,
         lnp_x = torch.where(accept, lnp_new, lnp_x)
         g_x = torch.where(accept[:, None], g, g_x)
         # mean Metropolis probability (the dual-averaging statistic)
-        return (x, lnp_x, g_x, torch.mean(torch.exp(log_alpha)),
+        return (x, lnp_x, g_x, sh.mean(torch.exp(log_alpha)),
                 torch.sum(divergent))
 
     g_x, lnp_x = value_and_grad(x)
@@ -201,9 +220,10 @@ def hmc_run(init_chains, ln_prob_fn: Callable, n_steps: int,
         def advance(i, eps_i):
             j = i % chunk
             if j == 0:
-                rand[0] = _draw_hmc(gen, phase, i, min(chunk, n_gens - i),
-                                    n_chains, d, n_leapfrog, jitter_steps,
-                                    dtype)
+                r = _draw_hmc(gen, phase, i, min(chunk, n_gens - i),
+                              n_chains, d, n_leapfrog, jitter_steps, dtype)
+                rand[0] = _GenRand(r.z[:, sh.rows], r.n_leap,
+                                   r.u_acc[:, sh.rows])
             r = rand[0]
             x_i, lnp_i, g_i, a_stat, n_div = transition(
                 *state, eps_i, inv_mass, r.z[j], r.n_leap[j], r.u_acc[j])
@@ -222,7 +242,7 @@ def hmc_run(init_chains, ln_prob_fn: Callable, n_steps: int,
 
     n1, do_mass = _warmup_split(n_warmup, adapt_mass)
     inv_mass = torch.ones((d,), dtype=dtype, device=dev)
-    warm_hist = x.new_empty((n1, n_chains, d)) if do_mass else None
+    warm_hist = x.new_empty((n1,) + tuple(x.shape)) if do_mass else None
     eps = run_phase(WARMUP_UNIT, n1, inv_mass,
                     eps0=torch.as_tensor(init_step_size, dtype=dtype,
                                          device=dev), keep=warm_hist)
@@ -230,15 +250,17 @@ def hmc_run(init_chains, ln_prob_fn: Callable, n_steps: int,
         # metric from the settled half of phase 1, then RE-ADAPT eps under
         # the new metric (a unit-metric eps is wrong for it: Stan's windowed
         # warmup re-tunes after every metric update)
-        inv_mass = _mass_from(warm_hist)
+        inv_mass = _mass_from(warm_hist, sh)
         eps = run_phase(WARMUP_METRIC, n_warmup - n1, inv_mass, eps0=eps)
-    history = x.new_empty((n_steps, n_chains, d))
+    history = x.new_empty((n_steps,) + tuple(x.shape))
     acc_sum, div_sum = run_phase(SAMPLING, n_steps, inv_mass, eps=eps,
                                  keep=history)
+    # the acceptance statistic is already the all-chains mean
     acc, eps_f, n_div = torch.stack([
         acc_sum.double() / max(n_steps, 1), eps.double(),
-        div_sum.double()]).tolist()
-    return HmcResult(history=history, final=state[0],
+        sh.sum(div_sum).double()]).tolist()
+    return HmcResult(history=sh.dtensor(history, 1),
+                     final=sh.dtensor(state[0]),
                      accept_ratio=acc if n_steps else math.nan,
                      step_size=eps_f, inv_mass=inv_mass,
                      n_divergent=int(n_div))

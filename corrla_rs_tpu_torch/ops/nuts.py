@@ -30,6 +30,12 @@ The trap of a masked loop: a dead chain's arithmetic still runs and may
 meet NaN or inf (a diverged trajectory keeps integrating); every carried
 quantity is therefore selected by the mask, never blended with it.
 
+On a mesh (``mesh=``) the chains are sharded as in ``ops/hmc.py``, with the
+same draws sliced by chain and the same reductions, and one more: "any
+chain still live" is a max over all ranks, read once a doubling, so every
+rank takes the same doublings and the same collectives, also a rank whose
+own chains have all stopped.
+
 The randomness of a chunk of generations is drawn at once through the one
 seam ``_draw_nuts``: a table a generation of the momenta (C, d), the
 directions and the across-doubling accept uniforms (C, max_depth), and the
@@ -177,9 +183,10 @@ def _build_subtree(value_and_grad, live, x, p, g, v_eps, inv_mass, h0,
 
 
 def _nuts_generation(value_and_grad, x_cur, eps, inv_mass, max_depth: int,
-                     z, go_right, u_acc, u_leaf):
-    """One NUTS generation for all chains. Returns (x_new (C, d), a_stat
-    (C,), divergent (C,), depth (C,))."""
+                     z, go_right, u_acc, u_leaf, sh):
+    """One NUTS generation for the chains of ``sh`` (on a mesh, the
+    rank's).
+    Returns (x_new (C, d), a_stat (C,), divergent (C,), depth (C,))."""
     p0 = z / torch.sqrt(inv_mass)
     g0, lnp0 = value_and_grad(x_cur)
     h0 = -lnp0 + 0.5 * torch.sum(p0 * p0 * inv_mass, dim=-1)
@@ -195,7 +202,7 @@ def _nuts_generation(value_and_grad, x_cur, eps, inv_mass, max_depth: int,
     last_depth = torch.zeros((n_chains,), dtype=torch.int64,
                              device=x_cur.device)
     for depth in range(max_depth):
-        if depth and not bool(live.any()):
+        if depth and not bool(sh.max(live.any().to(torch.int32))):
             break
         right = go_right[:, depth]
         (x_e, p_e, g_e, x_psub, lsw_sub, rho_sub, turn_sub, div_sub, s_a2,
@@ -234,10 +241,12 @@ def nuts_run(init_chains, ln_prob_fn: Callable, n_steps: int,
     minus the trajectory-length knob NUTS exists to remove).
 
     key: int seed or ``torch.Generator`` on the chains' device.
-    mesh / axis_name: the JAX package's chain sharding, not ported (a mesh
-    other than None raises)."""
-    x = _check_chains(init_chains, mesh, "nuts_run")
-    n_chains, d = x.shape
+    mesh / axis_name: shard the chains over the mesh axis, as in
+    ``hmc_run`` (see the module docstring); ``history`` and ``final`` then
+    come back DTensors sharded along the chains."""
+    x, sh = _check_chains(init_chains, mesh, axis_name)
+    d = x.shape[1]
+    n_chains = sh.n
     dtype, dev = x.dtype, x.device
     gen = as_generator(key, dev)
     n_steps, n_warmup, max_depth = int(n_steps), int(n_warmup), int(max_depth)
@@ -260,16 +269,18 @@ def nuts_run(init_chains, ln_prob_fn: Callable, n_steps: int,
             if j == 0:
                 rand[0] = _draw_nuts(gen, phase, i, min(chunk, n_gens - i),
                                      n_chains, d, max_depth, dtype)
+                rand[0] = _GenRand(*(r[:, sh.rows] for r in rand[0]))
             x_new, a_stat, divergent, depth = _nuts_generation(
                 value_and_grad, chains[0], eps_i, inv_mass, max_depth,
-                *(r[j] for r in rand[0]))
+                *(r[j] for r in rand[0]), sh=sh)
             chains[0] = x_new
             if keep is not None:
                 keep[i] = x_new
-            a_mean = torch.mean(a_stat)
+            a_mean = sh.mean(a_stat)
             totals[0] = totals[0] + a_mean
             totals[1] = totals[1] + torch.sum(divergent)
-            totals[2] = totals[2] + torch.mean(depth.to(dtype))
+            # the summed depths; over all chains at the end
+            totals[2] = totals[2] + torch.sum(depth.to(dtype))
             return a_mean
 
         if eps0 is not None:
@@ -280,21 +291,23 @@ def nuts_run(init_chains, ln_prob_fn: Callable, n_steps: int,
 
     n1, do_mass = _warmup_split(n_warmup, adapt_mass)
     inv_mass = torch.ones((d,), dtype=dtype, device=dev)
-    warm_hist = x.new_empty((n1, n_chains, d)) if do_mass else None
+    warm_hist = x.new_empty((n1,) + tuple(x.shape)) if do_mass else None
     eps = run_phase(WARMUP_UNIT, n1, inv_mass,
                     eps0=torch.as_tensor(init_step_size, dtype=dtype,
                                          device=dev), keep=warm_hist)
     if do_mass:
         # phase 2 RE-ADAPTS eps under the new metric (as in ops/hmc.py)
-        inv_mass = _mass_from(warm_hist)
+        inv_mass = _mass_from(warm_hist, sh)
         eps = run_phase(WARMUP_METRIC, n_warmup - n1, inv_mass, eps0=eps)
-    history = x.new_empty((n_steps, n_chains, d))
+    history = x.new_empty((n_steps,) + tuple(x.shape))
     acc, dv, dp = run_phase(SAMPLING, n_steps, inv_mass, eps=eps,
                             keep=history)
+    dv, dp = sh.sum(dv), sh.sum(dp) / n_chains
     acc_f, eps_f, dv_f, dp_f = torch.stack(
         [acc.double(), eps.double(), dv.double(), dp.double()]).tolist()
     n = n_steps if n_steps else math.nan
-    return NutsResult(history=history, final=chains[0],
+    return NutsResult(history=sh.dtensor(history, 1),
+                      final=sh.dtensor(chains[0]),
                       accept_ratio=acc_f / n, step_size=eps_f,
                       inv_mass=inv_mass, n_divergent=int(dv_f),
                       mean_tree_depth=dp_f / n)

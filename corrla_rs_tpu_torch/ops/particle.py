@@ -28,6 +28,19 @@ x)`` is called once a step with the run's ``torch.Generator`` and the whole
 (N, n) cloud, and returns the propagated (N, n) cloud, drawing its process
 noise from ``gen`` on the cloud's device. ``loglik_obs(x, y)`` stays per
 particle and is batched with ``torch.func.vmap``.
+
+On a mesh (``mesh=``) the cloud is sharded along the particles and every
+rank makes the same call. ``propagate`` gets the rank's (N/W, n) rows and
+a generator of the rank's own: coordinate 0 the run's generator, so that
+a world of one is the single-device run, and coordinate c > 0
+``prng.fold_seed`` of it with c, taken after the resampling offsets are
+drawn, so those stay the same on every rank (a difference by design:
+JAX's per-particle keys do not depend on the mesh). The likelihoods run on
+the rank's rows; the (N,) log-weights are all-gathered once a step, so the
+evidence, the ESS and the resampling indices come from the whole vector
+as on one device; the filtered mean all-reduces an (n,) vector. The
+resample moves only the distinct ancestor rows that change rank
+(``parallel.mesh._take_rows``), never the (N, n) cloud.
 """
 from __future__ import annotations
 
@@ -38,7 +51,7 @@ import torch
 from corrla_rs_tpu_torch.ops.kalman import _cov, _ndim
 from corrla_rs_tpu_torch.ops.smc import _systematic_resample
 from corrla_rs_tpu_torch.utils.device import as_tensor
-from corrla_rs_tpu_torch.utils.prng import as_generator
+from corrla_rs_tpu_torch.utils.prng import as_generator, fold_seed
 
 __all__ = ["particle_filter", "ukf_filter"]
 
@@ -66,8 +79,11 @@ def particle_filter(x0_particles, y_seq, propagate, loglik_obs, key,
     cloud's device; resample_threshold: resample when ESS < threshold * N
     (1.0 = always, 0.0 = never).
 
-    mesh / axis_name: the JAX package's particle sharding, not ported (a
-    mesh other than None raises).
+    mesh / axis_name: shard the cloud along the particles over the mesh
+    axis (see the module docstring); ``x0_particles`` is a DTensor sharded
+    so or the full array every rank holds, and the axis size must divide
+    N. ``particles`` and ``log_weights`` then come back DTensors with
+    ``Shard(0)``; the rest is replicated.
 
     Returns a dict: ``means`` (T, n) posterior-weighted filtered means,
     ``loglik``, the log marginal likelihood estimate log p(y_{1:T})
@@ -75,13 +91,15 @@ def particle_filter(x0_particles, y_seq, propagate, loglik_obs, key,
     model-comparison number), ``ess`` (T,) the effective sample size per
     step, ``particles`` / ``log_weights``, the final posterior cloud.
     """
-    if mesh is not None:
-        raise NotImplementedError("particle_filter(mesh=...) is not ported")
-    parts = as_tensor(x0_particles)
+    from corrla_rs_tpu_torch.parallel.mesh import _member_view
+
+    parts = as_tensor(x0_particles) if mesh is None else x0_particles
     if parts.ndim != 2:
         raise ValueError(f"x0_particles must be (N, n), got "
                          f"{tuple(parts.shape)}")
     n_part = int(parts.shape[0])
+    sh = _member_view(parts, mesh, axis_name, "the particle count")
+    parts = sh.local
     y_seq = as_tensor(y_seq, device=parts.device, dtype=parts.dtype)
     if y_seq.ndim == 1:
         y_seq = y_seq[:, None]
@@ -93,30 +111,34 @@ def particle_filter(x0_particles, y_seq, propagate, loglik_obs, key,
     log_n = math.log(float(n_part))
     n_steps = int(y_seq.shape[0])
     offsets = _draw_offsets(gen, n_steps, parts.dtype)
+    if sh.coord:
+        gen = fold_seed(gen, sh.coord, parts.device)
     stay = torch.arange(n_part, device=parts.device)
+    # the whole (N,) vector, also on a mesh
     log_w = parts.new_full((n_part,), -log_n)
     ll = parts.new_zeros(())
     means = parts.new_empty((n_steps, parts.shape[1]))
     ess_hist = parts.new_empty((n_steps,))
     for t in range(n_steps):
         parts = propagate(gen, parts)
-        lw_new = log_w + lik_v(parts, y_seq[t])
+        lw_new = sh.gather(log_w[sh.rows] + lik_v(parts, y_seq[t]))
         # evidence increment: log sum_i w_i p(y|x_i) with normalized w
         inc = torch.logsumexp(lw_new, dim=0)
         log_w = lw_new - inc
         ess = 1.0 / torch.sum(torch.exp(2.0 * log_w))
-        means[t] = torch.exp(log_w) @ parts
+        means[t] = sh.sum(torch.exp(log_w[sh.rows]) @ parts)
         ess_hist[t] = ess
         # adaptive resampling without a branch: the indices are computed
         # every step and selected by the ESS predicate
         take = ess < thresh
         idx = torch.where(take, _systematic_resample(offsets[t], log_w,
                                                      n_part), stay)
-        parts = parts[idx]
+        parts = sh.take(parts, idx)
         log_w = torch.where(take, torch.full_like(log_w, -log_n), log_w)
         ll = ll + inc
     return {"means": means, "loglik": float(ll), "ess": ess_hist,
-            "particles": parts, "log_weights": log_w}
+            "particles": sh.dtensor(parts),
+            "log_weights": sh.dtensor(log_w[sh.rows])}
 
 
 def _ut_weights(n, alpha, beta, kappa, like):

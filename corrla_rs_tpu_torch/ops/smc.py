@@ -26,6 +26,16 @@ host and reads the stage's four scalars (beta, evidence increment, ESS,
 acceptance) in one transfer a stage. A stage's randomness is drawn at once
 through the one seam ``_draw_smc``. ``ln_like`` and ``ln_prior`` take one
 (d,) point and are batched with ``torch.func.vmap``.
+
+On a mesh (``mesh=``) the population is sharded along the particles and
+every rank makes the same call. The likelihoods and the mutation's
+log-probabilities run on the rank's rows; the (n,) log-likelihoods are
+all-gathered once a stage, so the temperature, the evidence and the ESS
+come from the whole vector, as on one device; each stage's table is drawn
+whole on every rank and sliced. The resample moves only the distinct
+ancestor rows that change rank (``parallel.mesh._take_rows``), and each
+DEMC step all-gathers the (n, d) population its proposals read, as the
+JAX package's GSPMD program does.
 """
 from __future__ import annotations
 
@@ -35,7 +45,6 @@ from typing import Callable, NamedTuple
 import torch
 
 from corrla_rs_tpu_torch.ops.samplers import pick_others_batched
-from corrla_rs_tpu_torch.utils.device import as_tensor
 from corrla_rs_tpu_torch.utils.prng import as_generator
 
 __all__ = ["SmcResult", "smc_sample"]
@@ -99,15 +108,18 @@ def _systematic_resample(u, log_w, n):
     return torch.searchsorted(torch.cumsum(w, dim=0), pos).clamp(0, n - 1)
 
 
-def _mutate(rand: _StageRand, x, lnp_x, ln_target, gamma):
+def _mutate(rand: _StageRand, x, lnp_x, ln_target, gamma, population):
     """DEMC steps on the tempered target from pre-drawn randomness; returns
-    (particles, log-probs, acceptance ratio)."""
-    n_mcmc, n = rand.u_acc.shape
+    (particles, log-probs, accepted count). ``population(x)`` gives the
+    whole population the partners index (``x`` itself without a mesh; on a
+    mesh, ``rand`` holds the rank's rows and this is the all-gather)."""
+    n_mcmc = rand.u_acc.shape[0]
     n_acc = torch.zeros((), dtype=torch.int64, device=x.device)
     batched = torch.func.vmap(ln_target)
     for s in range(n_mcmc):
         pairs = rand.pairs[s]
-        prop = x + gamma * (x[pairs[:, 0]] - x[pairs[:, 1]]) + rand.eps[s]
+        pop = population(x)
+        prop = x + gamma * (pop[pairs[:, 0]] - pop[pairs[:, 1]]) + rand.eps[s]
         lnp_p = batched(prop)
         alpha = torch.exp(torch.clamp_max(lnp_p - lnp_x, 0.0))
         alpha = torch.where(torch.isnan(alpha), torch.zeros_like(alpha),
@@ -116,7 +128,7 @@ def _mutate(rand: _StageRand, x, lnp_x, ln_target, gamma):
         x = torch.where(acc[:, None], prop, x)
         lnp_x = torch.where(acc, lnp_p, lnp_x)
         n_acc = n_acc + torch.sum(acc)
-    return x, lnp_x, n_acc / (n_mcmc * n)
+    return x, lnp_x, n_acc
 
 
 def smc_sample(ln_like: Callable, ln_prior: Callable, init_particles,
@@ -136,13 +148,16 @@ def smc_sample(ln_like: Callable, ln_prior: Callable, init_particles,
     log int exp(ln_prior) exp(ln_like) dx (so with a normalized prior it is
     the marginal likelihood).
 
-    mesh / axis_name: the JAX package's particle sharding, not ported (a
-    mesh other than None raises).
+    mesh / axis_name: shard the population along the particles over the
+    mesh axis (see the module docstring); ``init_particles`` is a DTensor
+    sharded so, or the full array every rank holds, and the axis size must
+    divide n. ``particles`` then comes back a DTensor with ``Shard(0)``;
+    the rest is replicated.
     """
-    if mesh is not None:
-        raise NotImplementedError("smc_sample(mesh=...) is not ported")
-    particles = as_tensor(init_particles)
-    n, d = particles.shape
+    from corrla_rs_tpu_torch.parallel.mesh import _member_view
+
+    sh = _member_view(init_particles, mesh, axis_name, "the particle count")
+    particles, (n, d) = sh.local, sh.shape
     if gamma is None:
         gamma = 2.38 / (2.0 * d) ** 0.5
     gen = as_generator(key, particles.device)
@@ -153,7 +168,7 @@ def smc_sample(ln_like: Callable, ln_prior: Callable, init_particles,
     log_z = 0.0
     beta = particles.new_zeros(())
     for stage in range(max_stages):
-        lnl = like_b(particles)
+        lnl = sh.gather(like_b(particles))
         new_beta = _next_beta(beta, lnl, ess_target, n)
         dbeta = new_beta - beta
         lw = dbeta * lnl
@@ -162,14 +177,18 @@ def smc_sample(ln_like: Callable, ln_prior: Callable, init_particles,
         ess = _ess_fraction(dbeta, lnl, n) * n
         rand = _draw_smc(gen, stage, n, d, int(n_mcmc), jitter,
                          particles.dtype)
-        resampled = particles[_systematic_resample(rand.u_res, lw, n)]
+        resampled = sh.take(particles,
+                            _systematic_resample(rand.u_res, lw, n))
+        rand = _StageRand(rand.u_res, rand.pairs[:, sh.rows],
+                          rand.eps[:, sh.rows], rand.u_acc[:, sh.rows])
 
         def ln_target(x, b=new_beta):
             return ln_prior(x) + b * ln_like(x)
 
-        particles, _, ar = _mutate(
+        particles, _, n_acc = _mutate(
             rand, resampled, torch.func.vmap(ln_target)(resampled),
-            ln_target, gamma)
+            ln_target, gamma, sh.gather)
+        ar = sh.sum(n_acc) / (int(n_mcmc) * n)
         beta = new_beta
         # the stage's one read
         beta_f, inc_f, ess_f, ar_f = torch.stack([
@@ -188,7 +207,7 @@ def smc_sample(ln_like: Callable, ln_prior: Callable, init_particles,
             "check the likelihood for pathologies")
     dev = particles.device
     return SmcResult(
-        particles=particles,
+        particles=sh.dtensor(particles),
         log_evidence=log_z,
         betas=torch.tensor(betas, dtype=torch.float64, device=dev),
         ess=torch.tensor(esses, dtype=torch.float64, device=dev),

@@ -37,8 +37,15 @@ autograd runs through it),
 ``pmax`` -> ``_pmax``, ``all_gather(tiled=True)`` -> ``_all_gather``
 (all-gather along dim 0), ``axis_index`` -> ``_coord`` (the rank's
 coordinate on the axis). ``_full`` gathers a DTensor whole through
-``_all_gather``. ``record_traffic()`` records the bytes each of them
-moves.
+``_all_gather``. What GSPMD does for a gather of rows by index or a
+change of layout is explicit here: ``_take_rows`` moves the rows a
+resample or a proposal needs between ranks through ``_all_to_all``
+(uneven all-to-all along dim 0), and ``_rows_to_cols``/``_cols_to_rows``
+turn a row-sharded matrix into a column-sharded one and back.
+``record_traffic()`` records the bytes each of them moves. A member-,
+chain- or particle-parallel loop sees its rows through ``_member_view``:
+a ``_Members`` on a mesh, a ``_Whole`` (every reduction the identity)
+without one, so that it writes each reduction once.
 """
 from __future__ import annotations
 
@@ -178,6 +185,112 @@ def _axis(mesh: DeviceMesh, axis_name: str | None) -> str:
         raise ValueError(f"mesh has no axis {axis_name!r}; its axes are "
                          f"{names}")
     return axis_name
+
+
+def _members(mesh: DeviceMesh, axis_name: str | None, n: int,
+              what: str):
+    """(axis, this rank's slice of the ``n`` members, chains or particles)
+    of a member-sharded call, after the check that the axis size divides
+    ``n``."""
+    axis = _axis(mesh, axis_name)
+    n_dev = _size(mesh, axis)
+    if n % n_dev:
+        raise ValueError(f"mesh axis size ({n_dev}) must divide {what} "
+                         f"({n})")
+    n_local = n // n_dev
+    coord = _coord(mesh, axis)
+    return axis, slice(coord * n_local, (coord + 1) * n_local)
+
+
+class _Whole:
+    """A member-, chain- or particle-parallel call's view of its rows
+    without a mesh: all ``n`` rows here, every reduction the identity. It
+    has ``_Members``'s methods, so each reduction is written once (sum
+    the local rows, then ``sum``, then divide by ``n``) and a world of one
+    is the single-device run bit for bit."""
+
+    coord = 0
+    rows = slice(None)
+
+    def __init__(self, x):
+        self.local = x
+        self.shape = tuple(x.shape)
+        self.n = self.shape[0]
+
+    def sum(self, t):
+        return t
+
+    def max(self, t):
+        return t
+
+    def mean(self, x):
+        """The mean over all members of ``x``, the rank's rows."""
+        return self.sum(torch.sum(x, dim=0)) / self.n
+
+    def gather(self, x):
+        return x
+
+    def to_cols(self, x):
+        return x, None
+
+    def to_rows(self, x, cols):
+        return x
+
+    def take(self, x, want):
+        return x[want]
+
+    def dtensor(self, local, dim: int = 0):
+        return local
+
+
+class _Members(_Whole):
+    """A member-sharded call's view of its members, chains or particles
+    (the rows of ``x``, a DTensor sharded along them or the full array
+    every rank holds): the mesh, the axis, this rank's ``rows`` of the
+    ``n`` and its block ``local``; the reductions over all of them and
+    the way back to a DTensor."""
+
+    def __init__(self, x, mesh, axis_name, what: str):
+        self.mesh = mesh
+        self.axis, self.rows = _members(mesh, axis_name, int(x.shape[0]),
+                                        what)
+        self.local, self.shape = _local(x, mesh, self.axis)
+        self.n = self.shape[0]
+        self.coord = _coord(mesh, self.axis)
+
+    def sum(self, t):
+        return _psum(t, self.mesh, self.axis)
+
+    def max(self, t):
+        return _pmax(t, self.mesh, self.axis)
+
+    def gather(self, x):
+        return _all_gather(x, self.mesh, self.axis)
+
+    def to_cols(self, x):
+        return _rows_to_cols(x, self.mesh, self.axis)
+
+    def to_rows(self, x, cols):
+        return _cols_to_rows(x, cols, self.mesh, self.axis)
+
+    def take(self, x, want):
+        return _take_rows(x, want.reshape(_size(self.mesh, self.axis), -1),
+                          self.mesh, self.axis)
+
+    def dtensor(self, local, dim: int = 0):
+        """``local``, the rank's block along ``dim`` (its members), as a
+        DTensor sharded so."""
+        shape = list(local.shape)
+        shape[dim] = self.n
+        return _dtensor(local, self.mesh, self.axis, dim, shape)
+
+
+def _member_view(x, mesh, axis_name, what: str):
+    """The ``_Members`` of ``x`` on ``mesh``, or without one the
+    ``_Whole`` of ``as_tensor(x)``."""
+    if mesh is None:
+        return _Whole(as_tensor(x))
+    return _Members(x, mesh, axis_name, what)
 
 
 def _size(mesh: DeviceMesh, axis_name: str) -> int:
@@ -400,3 +513,82 @@ def _all_gather(t: torch.Tensor, mesh, axis_name: str) -> torch.Tensor:
     _gather_into(out, t, group=_group(mesh, axis_name))
     return out
 
+
+def _all_to_all(t: torch.Tensor, send: list, recv: list, mesh,
+                axis_name: str) -> torch.Tensor:
+    """Uneven all-to-all along dim 0: the first ``send[0]`` rows of ``t``
+    go to coordinate 0, the next ``send[1]`` to coordinate 1, and so on;
+    returns the rows received, ``recv[c]`` from coordinate c, in axis
+    order."""
+    t = t.contiguous()
+    out = t.new_empty((sum(recv),) + t.shape[1:])
+    _note("all_to_all", out)
+    dist.all_to_all_single(out, t, recv, send,
+                           group=_group(mesh, axis_name))
+    return out
+
+
+def _take_rows(local: torch.Tensor, want: torch.Tensor, mesh,
+               axis_name: str) -> torch.Tensor:
+    """``full[want[c]]`` on coordinate c, where ``full`` is the row-sharded
+    array whose block on this rank is ``local`` (every block has the same
+    rows) and ``want`` (W, k) holds global row indices, the same on every
+    rank. Only distinct rows that another rank holds move, each once to
+    each rank that needs it, through one ``_all_to_all``; ``want`` is read
+    to the host once. A resample's ancestors or a proposal's partners
+    reach their rank this way, and the whole array is never gathered."""
+    n_dev, me = _size(mesh, axis_name), _coord(mesh, axis_name)
+    m = local.shape[0]
+    want = want.cpu()
+    # uniq[c]: the sorted distinct rows coordinate c wants; counts[c][s]:
+    # how many of them coordinate s holds
+    uniq = [torch.unique(w) for w in want]
+    counts = [torch.bincount(u // m, minlength=n_dev).tolist()
+              for u in uniq]
+    send = [0 if c == me else counts[c][me] for c in range(n_dev)]
+    recv = [0 if s == me else counts[me][s] for s in range(n_dev)]
+    mine = uniq[me]
+    owner = mine // m
+    own = local[(mine[owner == me] - me * m).to(local.device)]
+    if any(counts[c][s] for c in range(n_dev) for s in range(n_dev)
+           if s != c):
+        out = [uniq[c][uniq[c] // m == me] - me * m
+               for c in range(n_dev) if c != me]
+        got = _all_to_all(local[torch.cat(out).to(local.device)], send,
+                          recv, mesh, axis_name)
+        # the rows of ``mine`` in its order: the owners' blocks ascend
+        pieces = list(torch.split(got, recv))
+        pieces[me] = own
+        own = torch.cat(pieces)
+    return own[torch.searchsorted(mine, want[me]).to(local.device)]
+
+
+def _rows_to_cols(local: torch.Tensor, mesh, axis_name: str):
+    """A row-sharded (N, n) matrix, this rank's (N/W, n) block ``local``,
+    as a column-sharded one: returns (the rank's columns of all N rows,
+    (N, n_c), and the column counts of the ranks, which
+    ``_cols_to_rows`` takes back). The columns are split as evenly as
+    they go; each rank sends and receives (W - 1)/W of its block."""
+    n_dev = _size(mesh, axis_name)
+    m, n = local.shape
+    cols = [n // n_dev + (c < n % n_dev) for c in range(n_dev)]
+    me = _coord(mesh, axis_name)
+    got = _all_to_all(local.mT, cols, [cols[me]] * n_dev, mesh, axis_name)
+    # (W * n_c, m): coordinate s's rows of my columns, in axis order
+    return got.reshape(n_dev, cols[me], m).permute(0, 2, 1).reshape(
+        n_dev * m, cols[me]), cols
+
+
+def _cols_to_rows(cols_block: torch.Tensor, cols: list, mesh,
+                  axis_name: str) -> torch.Tensor:
+    """The inverse of ``_rows_to_cols``: this rank's (N/W, n) rows from
+    its (N, n_c) columns of all rows."""
+    n_dev = _size(mesh, axis_name)
+    me = _coord(mesh, axis_name)
+    n_rows, n_c = cols_block.shape
+    m = n_rows // n_dev
+    # to coordinate c: my columns of its rows, as (n_c, m)
+    blocks = cols_block.reshape(n_dev, m, n_c).permute(0, 2, 1)
+    got = _all_to_all(blocks.reshape(n_dev * n_c, m), [n_c] * n_dev, cols,
+                      mesh, axis_name)
+    return got.mT.contiguous()

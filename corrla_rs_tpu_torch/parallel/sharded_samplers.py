@@ -31,12 +31,10 @@ from corrla_rs_tpu_torch.ops import samplers as _samplers
 from corrla_rs_tpu_torch.parallel.mesh import (
     CHAINS_AXIS,
     _all_gather,
-    _axis,
-    _coord,
     _dtensor,
     _local,
+    _members,
     _psum,
-    _size,
     make_mesh,
 )
 from corrla_rs_tpu_torch.utils.device import as_tensor
@@ -49,14 +47,7 @@ def _setup(mesh, axis_name, n_rows, what="n_chains"):
     """(mesh, axis, this rank's slice of the ``n_rows`` chains) after the
     divisibility check."""
     mesh = mesh if mesh is not None else make_mesh(axis_name=CHAINS_AXIS)
-    axis = _axis(mesh, axis_name)
-    n_dev = _size(mesh, axis)
-    if n_rows % n_dev != 0:
-        raise ValueError(
-            f"mesh axis size ({n_dev}) must divide {what} ({n_rows})")
-    n_local = n_rows // n_dev
-    coord = _coord(mesh, axis)
-    return mesh, axis, slice(coord * n_local, (coord + 1) * n_local)
+    return (mesh,) + _members(mesh, axis_name, n_rows, what)
 
 
 def _results(hist_l, heads_l, n_acc, mesh, axis, n_steps, n_chains):

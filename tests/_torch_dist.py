@@ -823,5 +823,424 @@ def case_traffic(a, t, x, m, k):
     return out
 
 
+# ---------------------------------------------------------------------------
+# member- and chain-sharded inference (tests/test_torch_parallel_members.py)
+
+
+def _error(fn):
+    """The message of the ``ValueError`` ``fn()`` raises (None if none)."""
+    try:
+        fn()
+    except ValueError as e:
+        return str(e)
+    return None
+
+
+def _placements(x):
+    return [str(p) for p in x.placements]
+
+
+def _normals_seam(z_state, z_obs):
+    """``enkf._draw_normals`` handing out the given tables."""
+    from corrla_rs_tpu_torch.ops import enkf
+
+    def draw(key, n_steps, n_ens, n_state, p, dtype, device):
+        zs = None if z_state is None else torch.as_tensor(z_state,
+                                                          dtype=dtype)
+        return zs, torch.as_tensor(z_obs, dtype=dtype)
+
+    return _inject((enkf, "_draw_normals", draw))
+
+
+def case_enkf_analysis_members(setups):
+    """Both analyses on the member-sharded ensemble of each setup (a dict
+    of x, y, h, r and JAX's perturbations z), the first also from a
+    DTensor, with the single-device port on the same draws."""
+    from corrla_rs_tpu_torch.ops import enkf
+
+    mesh = _mesh()
+    out = []
+    for st in setups:
+        x, y, h, r = st["x"], st["y"], st["h"], st["r"]
+        with _normals_seam(None, st["z"][None]):
+            sto = enkf.enkf_analysis(x, y, h, r, 5, mesh=mesh)
+            dt = enkf.enkf_analysis(_shard(x), y, h, r, 5, mesh=mesh)
+            single = enkf.enkf_analysis(torch.as_tensor(x), y, h, r, 5)
+        etkf = enkf.etkf_analysis(x, y, h, r, inflation=1.05, mesh=mesh)
+        out.append({"enkf": sto, "dtensor": dt, "single": single,
+                    "etkf": etkf, "local": tuple(sto.to_local().shape),
+                    "etkf_single": enkf.etkf_analysis(
+                        torch.as_tensor(x), y, h, r, inflation=1.05),
+                    "placements": _placements(sto) + _placements(etkf)})
+    x, y, h, r = (setups[0][k] for k in "xyhr")
+    n = x.shape[0]
+    errors = [_error(lambda: enkf.enkf_analysis(x[:n - 1], y, h, r, 5,
+                                                mesh=mesh)),
+              _error(lambda: enkf.etkf_analysis(x, y, h, r, mesh=mesh,
+                                                axis_name="bogus"))]
+    return _np({"runs": out, "errors": errors})
+
+
+def case_enkf_filter_members(x0, ys, a, h, r, q, method, z_q, z_r):
+    from corrla_rs_tpu_torch.ops import enkf
+
+    a_t = torch.as_tensor(a)
+
+    def prop(v):
+        return torch.tanh(a_t @ v)
+
+    with _normals_seam(z_q, z_r):
+        res = enkf.enkf_filter(x0, ys, prop, h, r, 9, method=method,
+                               inflation=1.02, q=q, mesh=_mesh())
+        single = enkf.enkf_filter(torch.as_tensor(x0), ys, prop, h, r, 9,
+                                  method=method, inflation=1.02, q=q)
+    out = _replicated({"means": res["means"], "spread": res["spread"],
+                       "ensemble": res["ensemble"], "single": single,
+                       "placements": _placements(res["ensemble"])},
+                      "means", "spread")
+    return _np(out)
+
+
+def case_esmda_members(x0, g, y, r, z):
+    from corrla_rs_tpu_torch.ops import enkf
+
+    g_t = torch.as_tensor(g)
+
+    def fwd(th):
+        return g_t @ th + 0.1 * th[0] ** 2
+
+    with _normals_seam(None, z):
+        res = enkf.esmda(x0, fwd, y, r, 11, n_mda=4, mesh=_mesh())
+        single = enkf.esmda(torch.as_tensor(x0), fwd, y, r, 11, n_mda=4)
+    out = _replicated({"ensemble": res["ensemble"], "mean": res["mean"],
+                       "predicted": res["predicted"],
+                       "misfit": torch.as_tensor(res["data_misfit"]),
+                       "single": single,
+                       "placements": _placements(res["ensemble"])
+                       + _placements(res["predicted"])}, "mean", "misfit")
+    return _np(out)
+
+
+def _smc_fns(mu):
+    mu = torch.as_tensor(mu)
+
+    def ln_like(x):
+        return -0.5 * torch.sum((x - mu) ** 2) / 0.3 ** 2
+
+    def ln_prior(x):
+        return -0.5 * torch.sum(x ** 2 / 4.0)
+
+    return ln_like, ln_prior
+
+
+def case_smc_members(init, mu, stages):
+    """smc_sample on JAX's stage tables (``stages``: one (u_res, pairs,
+    eps, u_acc) a stage), the single-device port on the same tables, and
+    the divisibility error."""
+    from corrla_rs_tpu_torch.ops import smc
+
+    tables = [smc._StageRand(*(torch.as_tensor(t) for t in st))
+              for st in stages]
+
+    def seam():
+        pending = list(tables)
+        return _inject((smc, "_draw_smc", lambda *a: pending.pop(0)))
+
+    fns = _smc_fns(mu)
+    with seam():
+        res = smc.smc_sample(*fns, init, n_mcmc=3, key=7,
+                             mesh=_mesh(None, "chains"))
+    with seam():
+        single = smc.smc_sample(*fns, torch.as_tensor(init), n_mcmc=3, key=7)
+    out = {"particles": res.particles, "betas": res.betas,
+           "log_z": res.log_evidence, "ess": res.ess,
+           "ar": res.accept_ratios, "n_stages": res.n_stages,
+           "single": {"particles": single.particles, "betas": single.betas,
+                      "log_z": single.log_evidence},
+           "placements": _placements(res.particles),
+           "error": _error(lambda: smc.smc_sample(
+               *fns, init[:init.shape[0] - 1], key=7,
+               mesh=_mesh(None, "chains")))}
+    return _np(_replicated(out, "betas", "log_z", "ess", "ar"))
+
+
+def _lnp_sig(sig):
+    sig = torch.as_tensor(sig)
+
+    def lnp(x):
+        return -0.5 * torch.sum((x / sig) ** 2)
+
+    return lnp
+
+
+def case_chains_members(x0, sig, n_steps, n_warmup, seed, sampler,
+                        jax_tables):
+    """hmc_run or nuts_run on chain-sharded chains, on the JAX package's
+    draws (``jax_tables``: {phase: the columns of the sampler's draw table
+    for every generation}; HMC's trajectory lengths a list); and 100
+    generations without warmup against the single-device port on the same
+    torch draws."""
+    from corrla_rs_tpu_torch.ops import hmc, nuts
+
+    mod = {"hmc": hmc, "nuts": nuts}[sampler]
+    run = {"hmc": hmc.hmc_run, "nuts": nuts.nuts_run}[sampler]
+    lnp = _lnp_sig(sig)
+    mesh = _mesh(None, "chains")
+
+    def draw(gen, phase, start, n_gens, *args):
+        stop = start + n_gens
+        return mod._GenRand(*(
+            list(col[start:stop]) if isinstance(col, list)
+            else torch.as_tensor(col[start:stop])
+            for col in jax_tables[phase]))
+
+    with _inject((mod, "_draw_" + sampler, draw)):
+        res = run(x0, lnp, n_steps, n_warmup, key=seed, mesh=mesh)
+    # without warmup no cross-chain sum reaches the dynamics (a step size
+    # near the adapted ones keeps NUTS's trees shallow, and HMC's
+    # trajectories short)
+    kw = {"init_step_size": 0.8, "key": seed}
+    if sampler == "hmc":
+        kw["n_leapfrog"] = 8
+    cold = (run(x0, lnp, 100, 0, mesh=mesh, **kw).history,
+            run(torch.as_tensor(x0), lnp, 100, 0, **kw).history)
+    out = {"history": res.history, "step": res.step_size,
+           "inv_mass": res.inv_mass, "accept": res.accept_ratio,
+           "n_div": res.n_divergent, "cold": cold,
+           "placements": _placements(res.history) + _placements(res.final),
+           "error": _error(lambda: run(x0[:x0.shape[0] - 1], lnp, 5,
+                                       mesh=mesh))}
+    return _np(_replicated(out, "step", "inv_mass", "accept", "n_div"))
+
+
+def case_chain_reductions(warm_hist, a_stat):
+    """The warmup's cross-chain reductions on a fixed warm history (n1, C,
+    d) and acceptance vector (C,): ``hmc._mass_from`` and the mean of the
+    dual-averaging statistic on the rank's chains, summed over the ranks,
+    and on all chains without a mesh."""
+    from corrla_rs_tpu_torch.ops.hmc import _mass_from
+    from corrla_rs_tpu_torch.parallel.mesh import _member_view
+
+    hist, acc = torch.as_tensor(warm_hist), torch.as_tensor(a_stat)
+    sh = _member_view(hist[0], _mesh(None, "chains"), None, "n_chains")
+    whole = _member_view(hist[0], None, None, "n_chains")
+    return _np(_replicated({
+        "inv_mass": _mass_from(hist[:, sh.rows], sh),
+        "a_mean": sh.mean(acc[sh.rows]),
+        "single": (_mass_from(hist, whole), whole.mean(acc))},
+        "inv_mass", "a_mean"))
+
+
+def case_warmup_trace(x0, sig, n_steps, n_warmup, seed, sampler,
+                      nudged=True):
+    """Every warmup generation's step size and acceptance statistic, and
+    the adapted inverse mass and step size, of the chain-sharded run, of
+    the single-device one on the same torch draws and, with ``nudged``, of
+    the single-device one with its first acceptance statistic moved up by
+    one ulp."""
+    from corrla_rs_tpu_torch.ops import hmc, nuts
+
+    run = {"hmc": hmc.hmc_run, "nuts": nuts.nuts_run}[sampler]
+    dual_averaging = hmc._dual_averaging
+
+    def traced(x, nudge=False):
+        trace = []
+
+        def recording(advance, n_gens, eps0, target_accept):
+            def step(i, eps):
+                a_stat = advance(i, eps)
+                if nudge and not trace:
+                    a_stat = torch.nextafter(a_stat, a_stat + 1.0)
+                trace.append((eps.item(), a_stat.item()))
+                return a_stat
+
+            return dual_averaging(step, n_gens, eps0, target_accept)
+
+        with _inject((hmc, "_dual_averaging", recording),
+                     (nuts, "_dual_averaging", recording)):
+            res = run(x, _lnp_sig(sig), n_steps, n_warmup, key=seed,
+                      **({"mesh": _mesh(None, "chains")}
+                         if not isinstance(x, torch.Tensor) else {}))
+        return {"trace": np.array(trace), "inv_mass": res.inv_mass,
+                "step": res.step_size, "history": res.history}
+
+    out = {"sharded": traced(x0), "single": traced(torch.as_tensor(x0))}
+    if nudged:
+        out["nudged"] = traced(torch.as_tensor(x0), nudge=True)
+    return _np(out)
+
+
+def case_particle_members(x0, ys, noise, offsets):
+    """particle_filter on a particle-sharded cloud: each rank's propagate
+    pops its rows of JAX's per-particle noise; the offsets are JAX's."""
+    import torch.distributed as dist
+
+    from corrla_rs_tpu_torch.ops import particle
+
+    mesh = _mesh()
+    n_local = x0.shape[0] // mesh.size()
+    rows = slice(dist.get_rank() * n_local, (dist.get_rank() + 1) * n_local)
+
+    def propagator(rows):
+        pending = [torch.as_tensor(z[rows]) for z in noise]
+
+        def prop(gen, cloud):
+            assert isinstance(gen, torch.Generator)
+            return 0.8 * cloud + 0.3 * pending.pop(0)
+
+        return prop
+
+    def loglik(x, y):
+        return -0.5 * torch.sum((y - x) ** 2) / 0.25
+
+    seam = _inject((particle, "_draw_offsets",
+                    lambda gen, n_steps, dtype: torch.as_tensor(
+                        offsets, dtype=dtype)))
+    out = {}
+    with seam:
+        for thresh in (0.5, 1.0):
+            res = particle.particle_filter(x0, ys, propagator(rows), loglik,
+                                           3, resample_threshold=thresh,
+                                           mesh=mesh)
+            single = particle.particle_filter(
+                torch.as_tensor(x0), ys, propagator(slice(None)), loglik, 3,
+                resample_threshold=thresh)
+            out[thresh] = _replicated(
+                {"means": res["means"], "loglik": res["loglik"],
+                 "ess": res["ess"], "particles": res["particles"],
+                 "log_weights": res["log_weights"], "single": single,
+                 "placements": _placements(res["particles"])},
+                "means", "loglik", "ess")
+    out["error"] = _error(lambda: particle.particle_filter(
+        x0[:x0.shape[0] - 1], ys, propagator(rows), loglik, 3, mesh=mesh))
+    return _np(out)
+
+
+def case_particle_generator(x0, ys):
+    """The generator each rank's propagate draws from: coordinate 0 the
+    run's, so a world of one is the single-device run; the others their
+    own."""
+    from corrla_rs_tpu_torch.ops.particle import particle_filter
+
+    def prop(gen, cloud):
+        return 0.8 * cloud + 0.3 * torch.randn(cloud.shape, generator=gen,
+                                               dtype=cloud.dtype)
+
+    def loglik(x, y):
+        return -0.5 * torch.sum((y - x) ** 2) / 0.25
+
+    res = particle_filter(x0, ys, prop, loglik, 3, mesh=_mesh())
+    single = particle_filter(torch.as_tensor(x0), ys, prop, loglik, 3)
+    return _np({"particles": res["particles"], "means": res["means"],
+                "single": single["particles"],
+                "single_means": single["means"]})
+
+
+def _canonical_eigh(a):
+    """``torch.linalg.eigh`` with each eigenvector's largest entry made
+    positive: the sign rule the CMA-ES parity test gives both packages."""
+    w, v = _EIGH(a)
+    idx = torch.argmax(v.abs(), dim=-2, keepdim=True)
+    return w, v * torch.sign(torch.gather(v, -2, idx))
+
+
+_EIGH = torch.linalg.eigh
+
+
+def case_cma_members(x0, draws, n_gens, pop):
+    from corrla_rs_tpu_torch.ops import cma
+
+    def rosen(x):
+        return torch.sum(100.0 * (x[1:] - x[:-1] ** 2) ** 2
+                         + (1.0 - x[:-1]) ** 2)
+
+    mesh = _mesh()
+    seam = _inject((cma, "_draw_normals",
+                    lambda key, n, p, d, dtype, device: torch.as_tensor(
+                        draws, dtype=dtype)),
+                   (torch.linalg, "eigh", _canonical_eigh))
+    with seam:
+        res = cma.cma_es(rosen, x0, sigma0=0.4, n_gens=n_gens, pop_size=pop,
+                         key=5, mesh=mesh)
+        single = cma.cma_es(rosen, x0, sigma0=0.4, n_gens=n_gens,
+                            pop_size=pop, key=5, device="cpu")
+    out = {"x_best": res.x_best, "f_best": res.f_best, "mean": res.mean,
+           "sigma": res.sigma, "history": res.history,
+           "single": (single.x_best, single.f_best, single.history),
+           "errors": [
+               _error(lambda: cma.cma_es(rosen, x0, n_gens=2,
+                                         pop_size=2 * mesh.size() + 1,
+                                         mesh=mesh)),
+               _error(lambda: cma.cma_es(
+                   lambda p: (p ** 2).sum().item(), x0, n_gens=2,
+                   pop_size=2 * mesh.size(), mesh=mesh))]}
+    return _np(_replicated(out, "x_best", "f_best", "history"))
+
+
+def case_ensemble_members(x, u, table):
+    """dmdc_fit_ensemble and rollout_ensemble on a member-sharded DTensor
+    (JAX's sketches in the seam), with the single-device port."""
+    from corrla_rs_tpu_torch.models.dmd import dmdc_fit_ensemble, \
+        rollout_ensemble
+
+    x_dt, u_dt = _shard(x), _shard(u)
+    with _sketches(table):
+        fit = dmdc_fit_ensemble(x_dt, u_dt, 6, 15, key=4)
+        single = dmdc_fit_ensemble(torch.as_tensor(x), torch.as_tensor(u), 6,
+                                   15, key=4)
+    out = {"placements": {k: _placements(v) for k, v in fit.items()},
+           "lambdas_re": fit["lambdas_re"], "single": single["lambdas_re"]}
+    x0 = x[:, :, :1]
+    for method in ("reduced", "modes"):
+        roll = rollout_ensemble(fit, _shard(x0), u_dt, method)
+        out[method] = roll
+        out[method + "_placements"] = _placements(roll)
+        out[method + "_single"] = rollout_ensemble(single, x0, u, method)
+        # shared controls and a full x0 every rank holds
+        out[method + "_shared"] = rollout_ensemble(fit, x0, u[0], method)
+    return _np(out)
+
+
+def case_traffic_members(enkf_args, pf_args, cma_args, chains_args):
+    """The bytes of every collective of the member- and chain-sharded
+    paths: (op, bytes) for each."""
+    from corrla_rs_tpu_torch.ops import cma, enkf, particle
+    from corrla_rs_tpu_torch.ops.hmc import hmc_run
+    from corrla_rs_tpu_torch.ops.nuts import nuts_run
+    from corrla_rs_tpu_torch.parallel.mesh import record_traffic
+
+    mesh = _mesh()
+    x, y, h = enkf_args
+    x0, ys = pf_args
+
+    def prop(gen, cloud):
+        return 0.8 * cloud + 0.3 * torch.randn(cloud.shape, generator=gen,
+                                               dtype=cloud.dtype)
+
+    def loglik(v, obs):
+        return -0.5 * torch.sum((obs - v) ** 2) / 0.25
+
+    def sphere(v):
+        return torch.sum(v ** 2)
+
+    c0, sig = chains_args
+    runs = {"enkf": lambda: enkf.enkf_analysis(x, y, h, 0.3, 5, mesh=mesh),
+            "etkf": lambda: enkf.etkf_analysis(x, y, h, 0.3, mesh=mesh),
+            "particle": lambda: particle.particle_filter(
+                x0, ys, prop, loglik, 3, resample_threshold=1.0, mesh=mesh),
+            "cma": lambda: cma.cma_es(sphere, cma_args, n_gens=5,
+                                      pop_size=4 * mesh.size(), mesh=mesh),
+            "hmc": lambda: hmc_run(c0, _lnp_sig(sig), 10, 30, n_leapfrog=4,
+                                   mesh=mesh),
+            "nuts": lambda: nuts_run(c0, _lnp_sig(sig), 10, 30, max_depth=4,
+                                     mesh=mesh)}
+    out = {}
+    for name, fn in runs.items():
+        with record_traffic() as log:
+            fn()
+        out[name] = list(log)
+    return out
+
+
 CASES = {name[len("case_"):]: fn for name, fn in dict(globals()).items()
          if name.startswith("case_")}

@@ -10,7 +10,9 @@ For each backend it spawns the world, runs an all-reduce (on a CUDA and on
 a CPU tensor, on the default group), builds the mesh, an all-reduce, an
 all-gather
 along dim 0 (the one ``parallel.mesh._all_gather`` makes), a DTensor
-``full_tensor()`` and the port's sharded randomized SVD on the card, and
+``full_tensor()``, an uneven all-to-all and a resample's row gather
+(``_all_to_all``, ``_take_rows``) and the port's sharded randomized SVD on
+the card, and
 prints one line each with the outcome; then the torch and CUDA versions and
 the card's name and power limit. Each rank logs every step as it starts and
 ends to ``DIR/dist_probe_<backend><world>_rank<r>.log`` (default DIR
@@ -76,6 +78,17 @@ def _probe(rank, world, backend, store, log_dir, queue):
         torch.full((4,), rank + 1.0, device=dev), mesh, "rows").tolist())
     attempt("all_gather", lambda: pm._all_gather(
         torch.full((2, 2), float(rank), device=dev), mesh,
+        "rows")[:, 0].tolist())
+    # the row moves of the member-sharded paths, before full_tensor (which
+    # hangs under gloo): an uneven all-to-all (rank r sends r + 1 rows to
+    # every rank) and a resample's gather
+    attempt("all_to_all", lambda: pm._all_to_all(
+        torch.full(((rank + 1) * world, 2), float(rank), device=dev),
+        [rank + 1] * world, [r + 1 for r in range(world)], mesh,
+        "rows")[:, 0].tolist())
+    attempt("take_rows", lambda: pm._take_rows(
+        torch.arange(4.0, device=dev)[:, None] + 4 * rank,
+        torch.zeros(world, 4, dtype=torch.int64), mesh,
         "rows")[:, 0].tolist())
     attempt("full_tensor", lambda: pm.shard_rows(
         torch.arange(4.0 * world, device=dev).reshape(2 * world, 2),

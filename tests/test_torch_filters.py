@@ -224,7 +224,8 @@ def test_esmda_matches_jax_and_validates(cpu_device, rng, monkeypatch):
     for fn, args in ((port_enkf.enkf_analysis, (x, y, g, 0.2, 5)),
                      (port_enkf.etkf_analysis, (x, y, g, 0.2)),
                      (port_enkf.esmda, (x, lambda th: th, y, 0.2, 5))):
-        with pytest.raises(NotImplementedError, match="mesh"):
+        # mesh= is ported: what is not a DeviceMesh is refused by name
+        with pytest.raises(TypeError, match="DeviceMesh"):
             fn(*args, mesh=object())
 
 
@@ -297,7 +298,7 @@ def test_particle_filter_matches_jax_from_the_same_noise(cpu_device, rng,
     with pytest.raises(ValueError, match="resample_threshold"):
         port_particle.particle_filter(x0, y_seq, prop_torch, lik_torch, 8,
                                       resample_threshold=1.5)
-    with pytest.raises(NotImplementedError, match="mesh"):
+    with pytest.raises(TypeError, match="DeviceMesh"):
         port_particle.particle_filter(x0, y_seq, prop_torch, lik_torch, 8,
                                       mesh=object())
 

@@ -261,7 +261,7 @@ def test_cma_es_other_errors_propagate_and_mesh_raises(cpu_device):
 
     with pytest.raises(RuntimeError, match="not about tracing"):
         port.cma_es(broken, np.zeros(2), n_gens=2)
-    with pytest.raises(NotImplementedError, match="mesh"):
+    with pytest.raises(TypeError, match="DeviceMesh"):
         port.cma_es(_sphere_t, np.zeros(2), mesh=object())
 
 
