@@ -175,12 +175,29 @@ time, and any failure raises (exit code != 0):
     PARALLEL_SMALL, ROWS_SMALL and MEMBERS_SMALL, held to the world of one
     (PARALLEL_2RANK_TOL, ROWS_2RANK_TOL, MEMBERS_2RANK_TOL);
 24. export: PcaRsvd.apply_tr and the DMDc reduced rollout exported on the
-    card in f32 and f64 with utils.export, served from one fresh process
-    that imports only torch (1e-6 / 1e-12 relative; its import, load and
-    run times printed), and PodI.predict's export refused by name (its RBF
-    step is a CUDA kernel).
+    card in f32 and f64 with utils.export; PodI.predict (2,000 x 200,000,
+    20 modes, 512 queries, f32), RbfInterp.predict (16,384 points, 1,048,576
+    queries, f32) and GpRegressor.predict (8,192 x 8 f64, 65,536 queries:
+    two query blocks) exported with their kernels as corrla:: operator
+    nodes, and the kernel matrix alone at PodI's 2000^2 d=1 fit shape.
+    Each kernel program's graph must hold its expected nodes and none of
+    the plain distances, and its loaded module must launch the kernels
+    exactly once a node. One fresh process serves all (the first four with
+    torch alone, then with the operators' module imported; never JAX), each
+    result held to the eager call (1e-6 / 1e-12 relative); the served,
+    loaded and eager times of the kernel programs are printed;
+25. eig_device: the Francis-QR eigensolver (plain PyTorch on the card, its
+    rounds replayed as CUDA graphs) at n = 10, 64 and 200 and on a
+    64 x 10 x 10 stack, f64 and f32: eigenvalues against numpy's (1e-10 /
+    1e-4 of max|lambda|), ||AV - V Lambda|| / ||A|| <= 1e-10 (f64), schur's
+    Q^T Q = I, the card against the CPU port up to n = 64; the warm medians
+    of eig_device, torch.linalg.eig on the card and eig_host;
+26. tracing (run last, after the timing details below: a profiler session
+    may slow later launches): utils.tracing's trace of one warm rsvd at
+    phase 4's shape, annotated, must hold CUDA kernel events and the
+    annotation; timed(rsvd)'s best is printed beside phase 4's warm walls.
 
-After phase 24 come the timing details of phases 7 and 9-10 (RbfInterp's
+After phase 25 come the timing details of phases 7 and 9-10 (RbfInterp's
 fit with its saddle matrix built by concatenation, as before the kernel
 matrix wrote K in place, and built in place; the kNN and grads steps of
 active_ss; a DEMC generation) and the kNN against its plain version. The
@@ -188,11 +205,12 @@ build phase prints ptxas's registers and spills for both kernels'
 instances and fails if any spills. The kernels' launch counts
 are set to 0 before phase 4 and read after phase 7, again before phase 8
 and after phase 10, again before phase 11 and after phase 13, again
-before phase 14 and after phase 16, and around each of phases 17 to 22 and 24 (phase 23 counts in its world
-of one, a path at a time);
-every kernel of a path must have launched on it (phases 11-16, 20 and 22
-reach no kernel, and the run fails if their counts say otherwise; phases
-17 and 19 must launch the kernel matrix, phases 18 and 21 both kernels). The last lines are the kernel table as JSON (every timed shape of each kernel,
+before phase 14 and after phase 16, and around each of phases 17 to 22, 24
+and 25 (phase 23 counts in its world of one, a path at a time);
+every kernel of a path must have launched on it (phases 11-16, 20, 22 and
+25 reach no kernel, and the run fails if their counts say otherwise;
+phases 17 and 19 must launch the kernel matrix, phases 18, 21 and 24 both
+kernels). The last lines are the kernel table as JSON (every timed shape of each kernel,
 with its bound and, where one exists, a one-call PyTorch equivalent's
 time), the nvidia-smi line, and the result JSON. Nothing of JAX is
 imported. Without a CUDA device it exits with code 2 and prints no result.
@@ -204,7 +222,9 @@ import contextlib
 import json
 import logging
 import math
+import os
 import re
+import shutil
 import statistics
 import subprocess
 import sys
@@ -5507,38 +5527,139 @@ EXPORT_RTOL = {torch.float32: 1e-6, torch.float64: 1e-12}
 EXPORT_SIZES = {
     "pca": (20_000, 512, 20, 4096),               # rows, columns, rank, served rows
     "dmdc": (20_000, 201, 10, 50),                # states, snapshots, modes, steps
+    # the kernel-matrix op alone at PodI's fit shape (the op route's dispatch
+    # cost against the eager wrapper): points, calls timed back to back
+    "kmat_op": (2000, 200),
 }
+# the programs that hold kernel nodes, with the nodes each must hold
+# (kernel matrix, matvec): PodI.predict and RbfInterp.predict at their
+# phases' shapes, GpRegressor.predict at the gp phase's (two query blocks)
+EXPORT_NODES = {"pod_f32": (0, 1), "rbf_f32": (0, 1), "gp_f64": (2, 0),
+                "kmat_op_f32": (1, 0)}
+OP_TARGETS = ("corrla.pairwise_kernel_matrix.default",
+              "corrla.rbf_matvec.default")
+# one fresh process serves everything: first the programs without kernel
+# nodes with torch alone (no corrla module may load), then it imports the
+# module that registers the corrla:: operators and serves the rest, each
+# timed warm (the median of 3 calls, or of 3 windows of `reps` calls)
 SERVE_SCRIPT = (
+    "import statistics\n"
     "import sys\n"
     "import time\n"
     "t0 = time.perf_counter()\n"
     "import torch\n"
     "t1 = time.perf_counter()\n"
-    "args = torch.load(sys.argv[1])\n"
+    "jobs, kernel_jobs = torch.load(sys.argv[1])\n"
     "t2 = time.perf_counter()\n"
-    "calls = {k: torch.export.load(p).module() for k, (p, _) in args.items()}\n"
+    "calls = {k: torch.export.load(p).module() for k, (p, _) in jobs.items()}\n"
     "t3 = time.perf_counter()\n"
-    "outs = {k: calls[k](*x) for k, (_, x) in args.items()}\n"
-    "if torch.cuda.is_available():\n"
-    "    torch.cuda.synchronize()\n"
+    "outs = {k: calls[k](*x) for k, (_, x) in jobs.items()}\n"
+    "torch.cuda.synchronize()\n"
     "t4 = time.perf_counter()\n"
-    "torch.save(outs, sys.argv[2])\n"
     "assert not any(m.startswith('corrla') for m in sys.modules)\n"
+    "import corrla_rs_tpu_torch.ops.rbf_kernels as rk\n"
+    "t5 = time.perf_counter()\n"
+    "kcalls = {k: torch.export.load(p).module()\n"
+    "          for k, (p, _, _) in kernel_jobs.items()}\n"
+    "t6 = time.perf_counter()\n"
+    "launches, served_ms = {}, {}\n"
+    "for k, (_, x, reps) in kernel_jobs.items():\n"
+    "    before = (rk.pairwise_kernel_matrix.launches, rk.rbf_matvec.launches)\n"
+    "    outs[k] = kcalls[k](*x)\n"
+    "    torch.cuda.synchronize()\n"
+    "    launches[k] = (rk.pairwise_kernel_matrix.launches - before[0],\n"
+    "                   rk.rbf_matvec.launches - before[1])\n"
+    "    runs = []\n"
+    "    for _ in range(3):\n"
+    "        s0 = time.perf_counter()\n"
+    "        for _ in range(reps):\n"
+    "            kcalls[k](*x)\n"
+    "        torch.cuda.synchronize()\n"
+    "        runs.append((time.perf_counter() - s0) / reps * 1e3)\n"
+    "    served_ms[k] = statistics.median(runs)\n"
+    "t7 = time.perf_counter()\n"
+    "torch.save({'outs': outs, 'launches': launches, 'served_ms': served_ms},\n"
+    "           sys.argv[2])\n"
+    "assert 'jax' not in sys.modules\n"
+    "assert not any(m == 'corrla_rs_tpu' or m.startswith('corrla_rs_tpu.')\n"
+    "               for m in sys.modules)\n"
     "print('SERVED', len(outs), f'(import torch {t1 - t0:.2f} s, inputs '\n"
-    "      f'onto the card {t2 - t1:.2f} s, load {t3 - t2:.2f} s, run '\n"
-    "      f'{t4 - t3:.2f} s)')\n"
+    "      f'onto the card {t2 - t1:.2f} s, torch-only load {t3 - t2:.2f} s, '\n"
+    "      f'run {t4 - t3:.2f} s; the operators\\' module {t5 - t4:.2f} s, '\n"
+    "      f'kernel programs\\' load {t6 - t5:.2f} s, runs {t7 - t6:.2f} s)')\n"
 )
 
 
-def phase_export(port, dev, seed):
-    """Export PcaRsvd.apply_tr and the DMDc reduced rollout on the card in
-    f32 and f64, serve all four from one fresh process that imports only
-    torch, and check the refusal for PodI.predict (its RBF step is a CUDA
-    kernel)."""
-    import os
-    import shutil
+def eager_ms(fn, reps: int = 1) -> float:
+    """Warm host time of one call of ``fn`` in ms, ending in a device
+    synchronise: the median of 3 windows of ``reps`` back-to-back calls, as
+    the serving process times its programs."""
+    fn()
+    torch.cuda.synchronize()
+    runs = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+        runs.append((time.perf_counter() - t0) / reps * 1e3)
+    return statistics.median(runs)
 
-    from corrla_rs_tpu_torch.utils.export import export_fn, export_model_call
+
+def kernel_programs(port, rk, dev, gen, seed, folder):
+    """Fit PodI, RbfInterp and GpRegressor at their phases' shapes and
+    export their predicts on the card, and the kernel matrix alone at
+    PodI's fit shape. Returns {name: (path, args, reps, eager output, export
+    s, eager ms, program)}."""
+    from corrla_rs_tpu_torch.utils.export import export_fn
+
+    jobs = {}
+
+    def add(name, fn, args, reps=1):
+        path = os.path.join(folder, f"{name}.pt2")
+        program, sec = wall(lambda: export_fn(fn, args, path))
+        jobs[name] = (path, args, reps, fn(*args), sec,
+                      eager_ms(lambda: fn(*args), reps), program)
+
+    n_snap, n_pts, n_modes, n_q = SIZES["podi"]
+    t = torch.linspace(0, 1, n_snap, device=dev)[:, None]
+    s = torch.linspace(0, 1, n_pts, device=dev)[None, :]
+    pod = port.PodI(pod_family(t, s), t, n_modes, key=seed)
+    tq = torch.rand(n_q, 1, generator=gen, device=dev).sort(dim=0).values
+    add("pod_f32", pod.predict, (tq,))
+    n, n_q, _ = SIZES["rbf"]
+    x = torch.rand(n, 3, generator=gen, device=dev)
+    rbf = port.RbfInterp(1, 1.0, dim=3, poly_degree=1).fit(x, rbf_target(x))
+    add("rbf_f32", rbf.predict,
+        (torch.rand(n_q, 3, generator=gen, device=dev),))
+    n, d, n_q, noise = SIZES["gp"]
+    f64 = torch.float64
+    f = gp_family(d, gen, dev)
+    x = torch.rand(n, d, generator=gen, device=dev, dtype=f64) * 2 - 1
+    y = f(x) + noise * torch.randn(n, generator=gen, device=dev, dtype=f64)
+    gp = port.GpRegressor("rbf", 1.0, 1.0, noise ** 2).fit(
+        x, y, optimize_hypers=False)
+    add("gp_f64", gp.predict,
+        (torch.rand(n_q, d, generator=gen, device=dev, dtype=f64) * 2 - 1,))
+    n_k, reps = EXPORT_SIZES["kmat_op"]
+    known = torch.linspace(0, 1, n_k, device=dev)[:, None]
+    add("kmat_op_f32",
+        lambda q: rk.pairwise_kernel_matrix(q, known, "linear"),
+        (torch.rand(n_k, 1, generator=gen, device=dev),), reps)
+    return jobs
+
+
+def phase_export(port, rk, dev, seed):
+    """Export PcaRsvd.apply_tr and the DMDc reduced rollout on the card in
+    f32 and f64, and the predicts that reach the CUDA kernels (their graphs
+    hold corrla:: operator nodes); serve all from one fresh process without
+    JAX, the first four with torch alone; hold every served result to the
+    eager call and each loaded kernel program's launches to its nodes."""
+    from corrla_rs_tpu_torch.utils.export import (
+        export_fn,
+        export_model_call,
+        load_exported,
+    )
 
     folder = os.path.abspath(os.path.join("build", "chip_smoke_export"))
     shutil.rmtree(folder, ignore_errors=True)
@@ -5568,44 +5689,205 @@ def phase_export(port, dev, seed):
         jobs[f"dmdc_{tag}"] = (path, (x0, u_seq))
         refs[f"dmdc_{tag}"] = (model.predict_multiple(x0, u_seq, "reduced"),
                                sec, dtype)
+    del x, xq, pca, xd, model
+    torch.cuda.empty_cache()
+
+    kjobs = kernel_programs(port, rk, dev, gen, seed, folder)
+    loaded_ms = {}
+    for name, (path, args, reps, want, sec, e_ms, program) in kjobs.items():
+        targets = [str(nd.target) for nd in program.graph.nodes
+                   if nd.op == "call_function"]
+        nodes = tuple(targets.count(t) for t in OP_TARGETS)
+        check(nodes == EXPORT_NODES[name],
+              f"exported {name}: corrla nodes (kernel matrix, matvec) "
+              f"{nodes}, expected {EXPORT_NODES[name]}")
+        # nothing of the plain distances (their sqrt of summed squares)
+        check(not any("sqrt" in t or "cdist" in t for t in targets),
+              f"exported {name} holds a plain-version node: {targets}")
+        call = load_exported(path)
+        before = (rk.pairwise_kernel_matrix.launches, rk.rbf_matvec.launches)
+        got = call(*args)
+        torch.cuda.synchronize()
+        moved = (rk.pairwise_kernel_matrix.launches - before[0],
+                 rk.rbf_matvec.launches - before[1])
+        check(moved == nodes, f"loaded {name} launched {moved} kernels "
+              f"(kernel matrix, matvec), its graph holds {nodes}")
+        for g, w in zip(got if isinstance(got, tuple) else (got,),
+                        want if isinstance(want, tuple) else (want,)):
+            err = rel_max(g, w)
+            check(err <= EXPORT_RTOL[w.dtype],
+                  f"loaded {name}: rel err {err:.3e} in process")
+        refs[name] = (want, sec, want[0].dtype if isinstance(want, tuple)
+                      else want.dtype)
+        loaded_ms[name] = eager_ms(lambda: call(*args), reps)
+        del call, got
     args = os.path.join(folder, "args.pt")
     served = os.path.join(folder, "served.pt")
-    torch.save(jobs, args)
+    torch.save((jobs, {k: v[:3] for k, v in kjobs.items()}), args)
     t0 = time.perf_counter()
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["PYTHONPATH"] = os.getcwd()
     proc = subprocess.run([sys.executable, "-c", SERVE_SCRIPT, args, served],
-                          capture_output=True, text=True, timeout=300,
+                          capture_output=True, text=True, timeout=600,
                           env=env, cwd=folder)
     serve_s = time.perf_counter() - t0
     check(proc.returncode == 0 and "SERVED" in proc.stdout,
           f"serving process failed: {proc.stderr[-2000:]}")
-    got = torch.load(served)
+    res = torch.load(served)
     for name, (want, sec, dtype) in refs.items():
-        err = rel_max(got[name].to(dev), want)
+        got = res["outs"][name]
+        pairs = (zip(got, want) if isinstance(want, tuple)
+                 else ((got, want),))
+        err = max(rel_max(g.to(dev), w) for g, w in pairs)
         tol = EXPORT_RTOL[dtype]
-        check(got[name].device.type == "cuda",
-              f"served {name} came back on {got[name].device}, not cuda")
+        check(all(g.device.type == "cuda"
+                  for g in (got if isinstance(got, tuple) else (got,))),
+              f"served {name} came back off the card")
         check(err <= tol, f"served {name}: rel err {err:.3e} > {tol}")
-        out.append(f"{name}: exported in {sec:.2f} s, served rel err "
-                   f"{err:.1e} (tol {tol})")
-    # a method that reaches a CUDA kernel is refused, by name
-    t = torch.linspace(0, 1, 64, device=dev)[:, None]
-    pod = port.PodI(pod_family(t, torch.linspace(0, 1, 4000, device=dev)
-                               [None, :]), t, 4, key=seed)
-    try:
-        export_model_call(pod, "predict", (t[:3],),
-                          os.path.join(folder, "pod.pt2"))
-        refused = None
-    except NotImplementedError as e:
-        refused = str(e)
-    check(refused is not None and "rbf_matvec" in refused
-          and "item 19" in refused,
-          f"PodI.predict export on CUDA was not refused: {refused}")
-    out.append(f"PodI.predict refused: {refused[:60]}...")
+        line = (f"{name}: exported in {sec:.2f} s, served rel err {err:.1e} "
+                f"(tol {tol})")
+        if name in kjobs:
+            nodes = EXPORT_NODES[name]
+            check(tuple(res["launches"][name]) == nodes,
+                  f"served {name} launched {res['launches'][name]}, its "
+                  f"graph holds {nodes}")
+            line += (f", nodes (kernel matrix, matvec) {nodes} = launches; "
+                     f"served {res['served_ms'][name]:.4f} ms a call, "
+                     f"loaded in this process {loaded_ms[name]:.4f}, eager "
+                     f"{kjobs[name][5]:.4f} ms")
+        say(out, line)
     split = proc.stdout.split("SERVED", 1)[1].strip().split(" ", 1)[1]
-    out.append(f"one fresh process (torch only) served {len(jobs)} programs "
-               f"in {serve_s:.2f} s {split}")
+    out.append(f"one fresh process (no JAX; torch alone for the first "
+               f"{len(jobs)}) served {len(refs)} programs in {serve_s:.2f} s "
+               f"{split}")
     return out
+
+
+# ---------------------------------------------------------------------------
+# phase 25: the Francis-QR eigensolver on the card; the tracing helpers
+
+# DMDc's r, a mid size, a large one, and bagged_dmd's 64 members of 10 x 10
+EIG_SHAPES = ((10, 10), (64, 64), (200, 200), (64, 10, 10))
+# eigenvalues against numpy's, of max |lambda| (f64 at the tests' 1e-10 of
+# tests/test_eig_device.py's scale, f32 at its product-backend lane's 1e-4);
+# Q^T Q - I and ||A V - V Lambda|| / ||A|| (f64) likewise
+EIG_TOL = {torch.float64: 1e-10, torch.float32: 1e-4}
+EIG_ORTH = {torch.float64: 1e-12, torch.float32: 1e-5}
+EIG_RESID = 1e-10
+# the CPU port's QR iteration runs hundreds of small host operations a
+# sweep: the card is held to it up to n = 64
+EIG_CPU_MAX_N = 64
+
+
+def spectrum_gap(got, want) -> float:
+    """Largest distance from an eigenvalue of either set to the nearest of
+    the other (no ordering of the two sets needed)."""
+    d = np.abs(got[:, None] - want[None, :])
+    return float(max(d.min(1).max(), d.min(0).max()))
+
+
+def median_s(fn, runs: int = 3) -> float:
+    """Median host seconds of ``runs`` calls of ``fn``, each ending in a
+    device synchronise."""
+    return statistics.median(wall(fn)[1] for _ in range(runs))
+
+
+def phase_eig_device(port, dev, seed):
+    """eig_device (Francis QR, inverse iteration; plain PyTorch on the card)
+    against numpy's eigenvalues, its eigen equation, schur's orthogonality
+    and the CPU port, with the warm medians of eig_device,
+    torch.linalg.eig on the card and eig_host."""
+    from corrla_rs_tpu_torch.ops.eig import eig_host
+
+    rng = np.random.default_rng(seed)
+    out = []
+    for dtype in (torch.float64, torch.float32):
+        for shape in EIG_SHAPES:
+            a_np = rng.standard_normal(shape)
+            a = torch.as_tensor(a_np, dtype=dtype, device=dev)
+            a_np = a.double().cpu().numpy().reshape((-1,) + shape[-2:])
+            (lr, li, vr, vi), cold = wall(lambda: port.eig_device(a))
+            lam = (lr.double() + 1j * li.double()).cpu().numpy().reshape(
+                len(a_np), -1)
+            vec = (vr.double() + 1j * vi.double()).cpu().numpy().reshape(
+                a_np.shape)
+            err = resid = 0.0
+            for m, lm, vm in zip(a_np, lam, vec):
+                want = np.linalg.eigvals(m)
+                err = max(err, spectrum_gap(lm, want) / np.abs(want).max())
+                resid = max(resid, np.linalg.norm(m @ vm - vm * lm[None, :])
+                            / np.linalg.norm(m))
+            check(err <= EIG_TOL[dtype], f"eig_device {shape} {dtype}: "
+                  f"eigenvalues {err:.3e} of max|lambda| from numpy's")
+            check(dtype == torch.float32 or resid <= EIG_RESID,
+                  f"eig_device {shape} f64: ||AV - V Lambda|| / ||A|| "
+                  f"{resid:.3e} > {EIG_RESID}")
+            _, q, ok = port.schur(a)
+            eye = torch.eye(shape[-1], dtype=dtype, device=dev)
+            orth = (q.mT @ q - eye).abs().max().item()
+            check(bool(ok.all()) and orth <= EIG_ORTH[dtype],
+                  f"schur {shape} {dtype}: converged {ok.tolist()}, "
+                  f"|Q^T Q - I| {orth:.3e}")
+            cpu = f"not compared (n > {EIG_CPU_MAX_N})"
+            if shape[-1] <= EIG_CPU_MAX_N:
+                clr, cli = port.eigvals_device(a.cpu())
+                clam = (clr.double() + 1j * cli.double()).numpy().reshape(
+                    lam.shape)
+                gap = max(spectrum_gap(x, y) / np.abs(y).max()
+                          for x, y in zip(lam, clam))
+                check(gap <= EIG_TOL[dtype], f"eig_device {shape} {dtype}: "
+                      f"card against the CPU port {gap:.3e}")
+                cpu = f"{gap:.1e} from the CPU port"
+            ms = median_s(lambda: port.eig_device(a)) * 1e3
+            lib = median_s(lambda: torch.linalg.eig(a)) * 1e3
+            host = median_s(lambda: [eig_host(m) for m in a.reshape(
+                (-1,) + shape[-2:])]) * 1e3
+            say(out, f"eig_device {'x'.join(map(str, shape))} "
+                f"{str(dtype)[6:]}: eigenvalues {err:.1e} of max|lambda| "
+                f"from numpy (tol {EIG_TOL[dtype]}), residual {resid:.1e}, "
+                f"|Q^T Q - I| {orth:.1e}, {cpu}; cold {cold * 1e3:.1f} ms, "
+                f"warm {ms:.2f} ms; torch.linalg.eig {lib:.3f} ms, eig_host "
+                f"{host:.3f} ms")
+    return out
+
+
+def check_tracing(port, dev, gen, rsvd_warm):
+    """utils.tracing on the card: a trace of one warm rsvd at the rsvd
+    phase's shape, annotated, must hold CUDA kernel events and the
+    annotation; timed(rsvd)'s best beside the rsvd phase's warm walls."""
+    import glob
+
+    from corrla_rs_tpu_torch.utils.tracing import annotate, timed, trace
+
+    n, m, rank, n_iter, n_os, _ = SIZES["rsvd"]
+    a, _ = rsvd_matrix(dev, gen)
+
+    def rsvd():
+        return port.rsvd(a, rank, n_iter, n_os, seed=1)
+
+    best, _ = timed(rsvd)
+    folder = os.path.abspath(os.path.join("build", "chip_smoke_trace"))
+    shutil.rmtree(folder, ignore_errors=True)
+    with trace(folder) as prof:
+        with annotate("rsvd"):
+            rsvd()
+            torch.cuda.synchronize()
+    files = glob.glob(os.path.join(folder, "*.pt.trace.json"))
+    check(len(files) == 1, f"trace wrote {files}")
+    with open(files[0]) as f:
+        events = json.load(f)["traceEvents"]
+    kernels = sum(1 for e in events if e.get("cat") == "kernel")
+    marks = [e for e in events if e.get("name") == "rsvd"
+             and e.get("cat") in ("user_annotation", "gpu_user_annotation")]
+    check(kernels > 0 and marks, f"the trace holds {kernels} CUDA kernel "
+          f"events and {len(marks)} 'rsvd' annotations")
+    device_ms = sum(e.device_time_total for e in prof.key_averages()
+                    if e.key == "rsvd") / 1e3
+    return (f"trace of one rsvd {n}x{m}: {kernels} CUDA kernel events, "
+            f"{len(marks)} 'rsvd' annotations (device {device_ms:.2f} ms), "
+            f"{os.path.getsize(files[0]) / 2 ** 20:.1f} MiB; timed(rsvd) best "
+            f"{best:.4f} s against the rsvd phase's warm "
+            f"{', '.join(f'{w:.4f}' for w in rsvd_warm)} s")
 
 
 def main(argv=None) -> int:
@@ -5661,6 +5943,7 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     a, s_true = rsvd_matrix(dev, gen)
     r = phase_rsvd(port, a, s_true)
+    rsvd_warm = r["warm_s"]
     report("rsvd", t0, f"100000x10000 f32 rank 100: max sigma rel err "
            f"{r['sigma_rel_err']:.3e} (tol 1e-3); cold {r['cold_s']:.4f} s, "
            f"warm {', '.join(f'{v:.4f}' for v in r['warm_s'])} s")
@@ -5910,21 +6193,38 @@ def main(argv=None) -> int:
           flush=True)
 
     # 24. export: PcaRsvd.apply_tr and the DMDc rollout served from a fresh
-    # process; the PodI fit for the refusal launches the kernel matrix
+    # process with torch alone, then the kernel-reaching predicts (their
+    # fits, eager calls and loaded programs launch both kernels; each loaded
+    # program's launches are held to its graph's nodes inside the phase)
     rk.pairwise_kernel_matrix.launches = 0
     rk.rbf_matvec.launches = 0
     t0 = time.perf_counter()
-    lines = phase_export(port, dev, args.seed + 17)
+    lines = phase_export(port, rk, dev, args.seed + 17)
     export_s = time.perf_counter() - t0
     report("export", t0, "; ".join(lines))
     twelfth = {"pairwise_kernel_matrix": rk.pairwise_kernel_matrix.launches,
                "rbf_matvec": rk.rbf_matvec.launches}
-    check(twelfth["rbf_matvec"] == 0,
-          f"the refused PodI.predict export launched the matvec: {twelfth}")
+    for name, count in twelfth.items():
+        check(count > 0, f"{name} was not launched by the export phase")
     print(f"[launches] ok  export: {twelfth}", flush=True)
+    torch.cuda.empty_cache()
+
+    # 25. the Francis-QR eigensolver on the card; it reaches no kernel
+    rk.pairwise_kernel_matrix.launches = 0
+    rk.rbf_matvec.launches = 0
+    t0 = time.perf_counter()
+    n_checks = len(phase_eig_device(port, dev, args.seed + 18))
+    eig_s = time.perf_counter() - t0
+    report("eig_device", t0, f"{n_checks} checks, each printed above")
+    thirteenth = {"pairwise_kernel_matrix": rk.pairwise_kernel_matrix.launches,
+                  "rbf_matvec": rk.rbf_matvec.launches}
+    check(not any(thirteenth.values()),
+          f"eig_device launched a kernel: {thirteenth}")
+    print(f"[launches] ok  eig_device (no kernel on this path): "
+          f"{thirteenth}", flush=True)
     print(f"[walls] parallel {par_s:.2f} s (NCCL world of 1 {wall1:.2f} s, "
-          f"gloo world of 2 {wall2:.2f} s), export {export_s:.2f} s | {smi}",
-          flush=True)
+          f"gloo world of 2 {wall2:.2f} s), export {export_s:.2f} s, "
+          f"eig_device {eig_s:.2f} s | {smi}", flush=True)
     torch.cuda.empty_cache()
 
     # timing details and the kNN against its plain version (not counted)
@@ -5948,6 +6248,12 @@ def main(argv=None) -> int:
            f"rel err {knn_r['dist_rel_err']:.3e}; DEMC generation at "
            f"{SIZES['demc'][0]} chains {gen_ms:.4f} ms")
 
+    # 26. utils.tracing: a trace of one rsvd (taken after every per-call
+    # timing: a profiler session may slow later launches)
+    t0 = time.perf_counter()
+    report("tracing", t0, check_tracing(port, dev, gen, rsvd_warm))
+    torch.cuda.empty_cache()
+
     # a kernel's numbers are those of its largest main-path shape (by
     # bound); "shapes" holds every timed shape, "launches" both paths'
     # counts
@@ -5957,7 +6263,7 @@ def main(argv=None) -> int:
              "inference/filters/evidence": fourth, "gp": fifth,
              "rom": sixth, "koopman": seventh, "uq": eighth,
              "streaming": ninth, "stats": tenth, "parallel": eleventh,
-             "export": twelfth}
+             "export": twelfth, "eig_device": thirteenth}
     table = {"kernels": []}
     for name in ("pairwise_kernel_matrix", "rbf_matvec"):
         top = max((row for row in timings[name] if row["main_path"]),

@@ -29,13 +29,16 @@ Morris, Shapley, multilevel and multi-fidelity Monte Carlo):
 - classes ``PcaRsvd``, ``RbfInterp`` (= ``PyRbfInterp``), ``PodI``
   (= ``PyPodI``), ``DMDc`` (``PyDMDc``), ``DMD``, the active-subspace
   classes and ``DeMcSampler``; ``random_svd``, ``power_iter``, ``eig``,
-  ``eig_host``, ``dmdc_fit_ensemble``, ``rollout_ensemble``,
+  ``eig_host``, ``eig_device``/``eigvals_device``/``schur`` (a Francis QR
+  on the tensor's device), ``dmdc_fit_ensemble``, ``rollout_ensemble``,
   ``constr_dirichlet_sample``
 
 The two RBF steps, the kNN distances of ``active_ss`` and the GPs'
 distances (``ops.interp.pairwise_dists``, differentiable) run through
 hand-written CUDA kernels for sm_90a (``csrc/``), built with ``nvcc`` on
-first use. Numpy inputs go to ``utils.device.default_device()`` (``cuda``)
+first use; they are also ``torch.library`` operators, so methods that reach
+them export with ``utils.export``. Numpy inputs go to
+``utils.device.default_device()`` (``cuda``)
 unless a ``device`` is given; TF32 is off. ``utils.convert`` carries fitted
 JAX state across.
 """
@@ -98,6 +101,7 @@ from corrla_rs_tpu_torch.ops.diagnostics import (
 )
 from corrla_rs_tpu_torch.ops.dream import DreamSampler, dream_run
 from corrla_rs_tpu_torch.ops.eig import eig, eig_host
+from corrla_rs_tpu_torch.ops.eig_device import eig_device, eigvals_device, schur
 from corrla_rs_tpu_torch.ops.enkf import (
     enkf_analysis,
     enkf_filter,
@@ -272,6 +276,9 @@ __all__ = [
     "constr_dirichlet_sample",
     "eig",
     "eig_host",
+    "eig_device",
+    "eigvals_device",
+    "schur",
     "dmdc_fit_ensemble",
     "rollout_ensemble",
     "set_debug",

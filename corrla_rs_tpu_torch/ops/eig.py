@@ -9,18 +9,43 @@ Counterpart of ``corrla_rs_tpu/ops/eig.py``. Two entry points:
 - ``eig_host(a)`` runs LAPACK on the host and returns numpy complex arrays
   (``complex64`` for f32 input, ``complex128`` for f64).
 
-The JAX package's probe ``jittable_eig_supported`` has no meaning in eager
-torch, and its fully on-device Francis-QR solver (``eig_device``) is not
-ported: both are listed as not ported in the coverage test.
+The fully on-device Francis-QR solver of ``ops.eig_device`` (real and
+imaginary parts as real tensors, no complex dtype) is re-exported here:
+``eig_device``, ``eigvals_device``, ``schur``.
+
+``jittable_eig_supported(platform)`` answers the JAX package's question
+for the port: whether ``eig`` returns complex results on that device
+without the host route. torch has ``linalg.eig`` with complex outputs on
+the CPU and on CUDA, so it is True for ``"cpu"`` and ``"cuda"`` and False
+for any other device type.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
-from corrla_rs_tpu_torch.utils.device import as_tensor
+from corrla_rs_tpu_torch.ops.eig_device import (  # noqa: F401 (re-exports)
+    eig_device,
+    eigvals_device,
+    schur,
+)
+from corrla_rs_tpu_torch.utils.device import as_tensor, default_device
 
-__all__ = ["eig", "eig_host"]
+__all__ = [
+    "eig", "eig_host", "jittable_eig_supported",
+    "eig_device", "eigvals_device", "schur",
+]
+
+# device types on which torch.linalg.eig returns complex tensors itself
+_EIG_DEVICE_TYPES = ("cpu", "cuda")
+
+
+def jittable_eig_supported(platform: str | None = None) -> bool:
+    """Whether ``eig`` returns complex results on ``platform`` (a device
+    type; default: that of ``utils.device.default_device()``) without the
+    host route."""
+    platform = platform or default_device().type
+    return platform in _EIG_DEVICE_TYPES
 
 
 def eig_host(a):

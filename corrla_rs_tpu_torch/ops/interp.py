@@ -70,15 +70,8 @@ class _PairwiseDists(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, grad):
-        xa, xb, r = ctx.saved_tensors
-        live = r > 0
-        w = torch.where(live, grad / torch.where(live, r, 1.0), 0.0)
-        dxa = dxb = None
-        if ctx.needs_input_grad[0]:
-            dxa = w.sum(1, keepdim=True) * xa - w @ xb
-        if ctx.needs_input_grad[1]:
-            dxb = w.sum(0)[:, None] * xb - w.mT @ xa
-        return dxa, dxb
+        return rbf_kernels._dists_grad(grad, *ctx.saved_tensors,
+                                       ctx.needs_input_grad)
 
     @staticmethod
     def vmap(info, in_dims, xa, xb):

@@ -37,9 +37,22 @@ Each wrapper checks its operands, and then, for CUDA tensors, launches its
 kernel on the current stream without synchronising and adds one to its
 ``launches`` count; a failed launch raises. For CPU tensors it runs the
 plain PyTorch version (``pairwise_kernel_matrix_ref``, ``rbf_matvec_ref``),
-which nothing on the CUDA path calls. A CUDA call under ``torch.export``
-raises ``NotImplementedError`` naming the kernel: the launch needs real
-data pointers (``utils.export``).
+which nothing on the CUDA path calls.
+
+The kernels are also ``torch.library`` custom operators, registered when
+this module is imported: ``corrla::pairwise_kernel_matrix``,
+``corrla::pairwise_kernel_matrix_into`` (writes into ``out``) and
+``corrla::rbf_matvec``. Each has the kernel's launch as its CUDA
+implementation (the same C entry point and ``launches`` count), the plain
+version as its CPU implementation, and a fake implementation for tracing
+(shapes and dtypes only); the kernel matrix with phi = linear, the
+distance matrix, has the distance gradient of ``interp.pairwise_dists``.
+A wrapper given CUDA tensors calls its operator while ``torch.export`` or
+``torch.compile`` traces it (``torch.compiler.is_compiling()``), so an
+exported program holds ``corrla.*`` nodes where the eager call launches the
+kernel, never the plain version; eager CUDA calls launch directly, without
+the operator's dispatch. A process that loads such a program must have
+imported this module first (``utils.export``).
 """
 from __future__ import annotations
 
@@ -239,23 +252,6 @@ def _entry(name: str, dtype: torch.dtype):
     return fn
 
 
-# torch.export sets this while it traces (a torch without it: compiling)
-_exporting = getattr(torch.compiler, "is_exporting",
-                     torch.compiler.is_compiling)
-
-
-def _refuse_export(name: str) -> None:
-    """Raise where a CUDA launch is being exported rather than run: the
-    ctypes launch needs real data pointers, and quietly tracing the plain
-    version instead would ship a program that never runs the kernel."""
-    if _exporting():
-        raise NotImplementedError(
-            f"{name}: the CUDA kernel cannot be traced or exported yet (it "
-            "launches through ctypes on real data pointers); making the "
-            "kernels torch.library custom ops is ROADMAP queue 1 item 19. "
-            "Export on the CPU, where the plain version traces")
-
-
 def _launch(device: torch.device, fn, *args) -> int:
     """``fn(*args, stream)`` on the current stream of ``device``, under
     ``torch.cuda.device`` only when that is not the current device."""
@@ -291,7 +287,6 @@ def _kernel_matrix_operands(name: str, xa: torch.Tensor,
 def _launch_kernel_matrix(out: torch.Tensor, xa: torch.Tensor,
                           xb: torch.Tensor, phi: int, eps: float) -> None:
     """One launch of the kernel into ``out`` (checked by the caller)."""
-    _refuse_export("pairwise_kernel_matrix")
     (n_a, d), n_b = xa.shape, xb.shape[0]
     fn = _entry("kernel_matrix", out.dtype)
     rc = _launch(out.device, fn, xa.data_ptr(), xb.data_ptr(), out.data_ptr(),
@@ -313,13 +308,22 @@ def pairwise_kernel_matrix(xa: torch.Tensor, xb: torch.Tensor,
                                                xb, kernel)
     if xa.device.type == "cpu":
         return pairwise_kernel_matrix_ref(xa, xb, kernel, eps)
+    if torch.compiler.is_compiling():
+        return torch.ops.corrla.pairwise_kernel_matrix(xa, xb, kernel,
+                                                       float(eps))
+    return _kernel_matrix_cuda(xa, xb, phi, n_a, n_b, eps)
+
+
+pairwise_kernel_matrix.launches = 0
+
+
+def _kernel_matrix_cuda(xa, xb, phi, n_a, n_b, eps):
+    """The kernel matrix of checked CUDA operands into a new matrix (one
+    launch unless it is empty)."""
     out = torch.empty((n_a, n_b), dtype=xa.dtype, device=xa.device)
     if out.numel():
         _launch_kernel_matrix(out, xa, xb, phi, eps)
     return out
-
-
-pairwise_kernel_matrix.launches = 0
 
 
 def _pairwise_kernel_matrix_into(out: torch.Tensor, xa: torch.Tensor,
@@ -335,6 +339,19 @@ def _pairwise_kernel_matrix_into(out: torch.Tensor, xa: torch.Tensor,
     ``out``'s address and row stride (``_kmat_store_path``). CPU tensors
     copy ``pairwise_kernel_matrix_ref`` into the view.
     """
+    phi = _check_into(out, xa, xb, kernel)
+    if xa.device.type == "cpu":
+        return out.copy_(pairwise_kernel_matrix_ref(xa, xb, kernel, eps))
+    if torch.compiler.is_compiling():
+        torch.ops.corrla.pairwise_kernel_matrix_into(out, xa, xb, kernel,
+                                                     float(eps))
+    elif out.numel():
+        _launch_kernel_matrix(out, xa, xb, phi, eps)
+    return out
+
+
+def _check_into(out, xa, xb, kernel):
+    """The checks of ``_pairwise_kernel_matrix_into``; returns phi's code."""
     name = "_pairwise_kernel_matrix_into"
     phi, n_a, n_b, _ = _kernel_matrix_operands(name, xa, xb, kernel)
     if not isinstance(out, torch.Tensor):
@@ -348,11 +365,7 @@ def _pairwise_kernel_matrix_into(out: torch.Tensor, xa: torch.Tensor,
     if out.numel() and (out.stride(1) != 1 or out.stride(0) < n_b):
         raise ValueError(f"{name}: out needs unit column stride and row "
                          f"stride >= {n_b}, got strides {out.stride()}")
-    if xa.device.type == "cpu":
-        return out.copy_(pairwise_kernel_matrix_ref(xa, xb, kernel, eps))
-    if out.numel():
-        _launch_kernel_matrix(out, xa, xb, phi, eps)
-    return out
+    return phi
 
 
 def rbf_matvec(x_query: torch.Tensor, x_support: torch.Tensor,
@@ -365,6 +378,21 @@ def rbf_matvec(x_query: torch.Tensor, x_support: torch.Tensor,
     a second, small kernel when it splits the support; ``launches`` counts
     one a call); CPU tensors run ``rbf_matvec_ref``.
     """
+    first, phi = _matvec_operands(x_query, x_support, coeffs, kernel)
+    if first.device.type == "cpu":
+        return rbf_matvec_ref(x_query, x_support, coeffs, kernel, eps)
+    if torch.compiler.is_compiling():
+        return torch.ops.corrla.rbf_matvec(x_query, x_support, coeffs,
+                                           kernel, float(eps))
+    return _matvec_cuda(x_query, x_support, coeffs, phi, eps)
+
+
+rbf_matvec.launches = 0
+
+
+def _matvec_operands(x_query, x_support, coeffs, kernel):
+    """Checks of the matvec's operands; returns (the first operand, phi's
+    code)."""
     first = _check_operands("rbf_matvec", x_query=x_query,
                             x_support=x_support, coeffs=coeffs)
     phi = _phi_code(kernel)
@@ -374,9 +402,13 @@ def rbf_matvec(x_query: torch.Tensor, x_support: torch.Tensor,
             f"rbf_matvec: shapes {tuple(x_query.shape)}, "
             f"{tuple(x_support.shape)}, {tuple(coeffs.shape)} do not match"
         )
-    if first.device.type == "cpu":
-        return rbf_matvec_ref(x_query, x_support, coeffs, kernel, eps)
-    _refuse_export("rbf_matvec")
+    return first, phi
+
+
+def _matvec_cuda(x_query, x_support, coeffs, phi, eps):
+    """The matvec of checked CUDA operands (one launch unless M or N is 0,
+    which gives zeros)."""
+    (n_q, d), n_s, n_c = x_query.shape, x_support.shape[0], coeffs.shape[1]
     if n_q == 0 or n_s == 0:
         return torch.zeros((n_q, n_c), dtype=coeffs.dtype,
                            device=coeffs.device)
@@ -398,4 +430,99 @@ def rbf_matvec(x_query: torch.Tensor, x_support: torch.Tensor,
     return out
 
 
-rbf_matvec.launches = 0
+# ---------------------------------------------------------------------------
+# the kernels as torch.library custom operators
+
+@torch.library.custom_op("corrla::pairwise_kernel_matrix", mutates_args=(),
+                         device_types="cuda")
+def _kmat_op(xa: torch.Tensor, xb: torch.Tensor, kernel: str,
+             eps: float) -> torch.Tensor:
+    phi, n_a, n_b, _ = _kernel_matrix_operands("pairwise_kernel_matrix", xa,
+                                               xb, kernel)
+    return _kernel_matrix_cuda(xa, xb, phi, n_a, n_b, eps)
+
+
+@_kmat_op.register_kernel("cpu")
+def _(xa, xb, kernel, eps):
+    _kernel_matrix_operands("pairwise_kernel_matrix", xa, xb, kernel)
+    return pairwise_kernel_matrix_ref(xa, xb, kernel, eps)
+
+
+@_kmat_op.register_fake
+def _(xa, xb, kernel, eps):
+    _kernel_matrix_operands("pairwise_kernel_matrix", xa, xb, kernel)
+    return xa.new_empty((xa.shape[0], xb.shape[0]))
+
+
+def _kmat_setup(ctx, inputs, output):
+    xa, xb, kernel, _ = inputs
+    ctx.kernel = kernel
+    ctx.save_for_backward(xa, xb, output)
+
+
+def _dists_grad(grad, xa, xb, r, needs_input_grad):
+    """(dxa, dxb) of the distance matrix r = ||xa_i - xb_j|| for the
+    incoming gradient G: with W = G / R, zero where R = 0 (the subgradient
+    of a distance at its minimum), dxa = rowsum(W) xa - W xb and dxb =
+    colsum(W) xb - W^T xa; None where no gradient is needed."""
+    live = r > 0
+    w = torch.where(live, grad / torch.where(live, r, 1.0), 0.0)
+    dxa = dxb = None
+    if needs_input_grad[0]:
+        dxa = w.sum(1, keepdim=True) * xa - w @ xb
+    if needs_input_grad[1]:
+        dxb = w.sum(0)[:, None] * xb - w.mT @ xa
+    return dxa, dxb
+
+
+def _kmat_backward(ctx, grad):
+    """The distance matrix's gradient (phi = linear only)."""
+    if ctx.kernel != "linear":
+        raise RuntimeError(
+            "corrla::pairwise_kernel_matrix: the gradient is defined for "
+            f"kernel='linear' (the distance matrix), not {ctx.kernel!r}")
+    return (*_dists_grad(grad, *ctx.saved_tensors, ctx.needs_input_grad),
+            None, None)
+
+
+_kmat_op.register_autograd(_kmat_backward, setup_context=_kmat_setup)
+
+
+@torch.library.custom_op("corrla::pairwise_kernel_matrix_into",
+                         mutates_args=("out",), device_types="cuda")
+def _kmat_into_op(out: torch.Tensor, xa: torch.Tensor, xb: torch.Tensor,
+                  kernel: str, eps: float) -> None:
+    phi = _check_into(out, xa, xb, kernel)
+    if out.numel():
+        _launch_kernel_matrix(out, xa, xb, phi, eps)
+
+
+@_kmat_into_op.register_kernel("cpu")
+def _(out, xa, xb, kernel, eps):
+    _check_into(out, xa, xb, kernel)
+    out.copy_(pairwise_kernel_matrix_ref(xa, xb, kernel, eps))
+
+
+@_kmat_into_op.register_fake
+def _(out, xa, xb, kernel, eps):
+    _check_into(out, xa, xb, kernel)
+
+
+@torch.library.custom_op("corrla::rbf_matvec", mutates_args=(),
+                         device_types="cuda")
+def _matvec_op(x_query: torch.Tensor, x_support: torch.Tensor,
+               coeffs: torch.Tensor, kernel: str, eps: float) -> torch.Tensor:
+    phi = _matvec_operands(x_query, x_support, coeffs, kernel)[1]
+    return _matvec_cuda(x_query, x_support, coeffs, phi, eps)
+
+
+@_matvec_op.register_kernel("cpu")
+def _(x_query, x_support, coeffs, kernel, eps):
+    _matvec_operands(x_query, x_support, coeffs, kernel)
+    return rbf_matvec_ref(x_query, x_support, coeffs, kernel, eps)
+
+
+@_matvec_op.register_fake
+def _(x_query, x_support, coeffs, kernel, eps):
+    _matvec_operands(x_query, x_support, coeffs, kernel)
+    return coeffs.new_empty((x_query.shape[0], coeffs.shape[1]))

@@ -9,7 +9,8 @@ and a fresh process that imports only ``torch`` loads and calls it.
   export it at the example arguments (shapes and dtypes are fixed to them:
   one program per signature) and save it. Returns the ``ExportedProgram``.
 - ``load_exported(path)``: load a saved program; returns a callable
-  ``nn.Module`` (``torch.export.load(path).module()``).
+  ``nn.Module`` (``torch.export.load(path).module()``), with the port's
+  custom operators registered first.
 - ``export_model_call(model, method, example_args, path)``: a fitted
   model's method, whose tensors become constants inside the program, so
   the file is self-contained (a PCA transform or a DMDc rollout ships as
@@ -17,16 +18,25 @@ and a fresh process that imports only ``torch`` loads and calls it.
 
 A program runs on the device it was traced on: export on the device you
 serve on. A method that reaches one of the port's CUDA kernels on a CUDA
-tensor (``PodI.predict``, ``RbfInterp.predict``, the GPs' distances)
-cannot be exported yet: the kernels launch through ctypes on a real data
-pointer, which tracing does not have, and the wrapper raises
-``NotImplementedError`` instead of tracing its plain version (ROADMAP
-queue 1 item 19). On the CPU those methods run the plain versions, which
-trace and export.
+tensor (``PodI.predict``, ``RbfInterp.predict``, the GPs' distances,
+``GrassmannInterp``) exports with the kernel as a node of the custom
+operators ``corrla::pairwise_kernel_matrix``, ``corrla::rbf_matvec`` (and
+``corrla::pairwise_kernel_matrix_into``), registered by
+``corrla_rs_tpu_torch.ops.rbf_kernels``; served, each node launches the
+kernel. Such a program loads only in a process where those operators are
+registered: the serving side imports torch and that module (which builds
+or loads the kernel library on first use), never JAX. ``load_exported``
+does so itself. A program without kernel nodes (a PCA transform, a DMDc
+rollout) still loads with torch alone. On the CPU the methods run the
+plain versions, which trace into ATen operations.
 """
 from __future__ import annotations
 
 import torch
+
+# registers the corrla:: custom operators that programs of kernel-reaching
+# methods hold
+from corrla_rs_tpu_torch.ops import rbf_kernels  # noqa: F401
 
 __all__ = ["export_fn", "load_exported", "export_model_call"]
 
@@ -54,14 +64,17 @@ def export_fn(fn, example_args, path: str):
 
 
 def load_exported(path: str):
-    """Load a program written by ``export_fn``; returns a callable."""
+    """Load a program written by ``export_fn``; returns a callable. The
+    port's custom operators are registered (this module imports
+    ``ops.rbf_kernels``), so programs that hold kernel nodes load too."""
     return torch.export.load(path).module()
 
 
 def export_model_call(model, method: str, example_args, path: str):
     """Export ``model.<method>(*example_args)`` as a self-contained program:
     the fitted tensors become constants inside it, so the serving side
-    needs only torch (not this package, not the model object)."""
+    needs no model object, and only torch (plus ``ops.rbf_kernels`` where
+    the method reaches a CUDA kernel)."""
     bound = getattr(model, method)
 
     def call(*args):

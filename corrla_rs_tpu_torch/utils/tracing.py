@@ -1,0 +1,82 @@
+"""Profiling and timing helpers on ``torch.profiler``.
+
+Counterpart of ``corrla_rs_tpu/utils/tracing.py``:
+
+- ``trace(log_dir)``: context manager around ``torch.profiler.profile``
+  with the CPU activities, and the CUDA ones when the default device is a
+  CUDA device and one is there; on exit it writes a Chrome-format trace
+  (``*.pt.trace.json``) into ``log_dir`` that TensorBoard and Perfetto read.
+  It yields the profiler, whose ``key_averages()`` sums the events.
+- ``annotate(name)``: names a region inside a trace
+  (``torch.profiler.record_function``).
+- ``timed(fn)``: best wall-clock time over a few calls after one warm-up,
+  each call ended by ``device_sync``: CUDA launches return before the
+  device has finished.
+- ``device_sync(tree)``: synchronises every CUDA device that a tensor of
+  ``tree`` lies on and returns a checksum of the tensors.
+
+Nothing in the package calls these on its own path; they are tools for
+callers and for the scripts that measure the package.
+"""
+from __future__ import annotations
+
+import contextlib
+import os
+import time
+
+import torch
+from torch.utils._pytree import tree_leaves
+
+from corrla_rs_tpu_torch.utils.device import default_device
+
+__all__ = ["trace", "annotate", "timed", "device_sync"]
+
+
+def device_sync(tree) -> float:
+    """Wait until every tensor of ``tree`` (any nesting of lists, tuples and
+    dicts) is computed, synchronising each CUDA device met once; returns
+    the sum of ``real(leaf.ravel()[0])`` over the non-empty tensors."""
+    total = 0.0
+    synced = set()
+    for leaf in tree_leaves(tree):
+        if not isinstance(leaf, torch.Tensor) or not leaf.numel():
+            continue
+        if leaf.device.type == "cuda" and leaf.device not in synced:
+            torch.cuda.synchronize(leaf.device)
+            synced.add(leaf.device)
+        total += float(torch.real(leaf.reshape(-1)[0]))
+    return total
+
+
+@contextlib.contextmanager
+def trace(log_dir: str):
+    """Profile a region into ``log_dir`` (view with TensorBoard or
+    Perfetto); yields the ``torch.profiler.profile`` object."""
+    activities = [torch.profiler.ProfilerActivity.CPU]
+    if default_device().type == "cuda" and torch.cuda.is_available():
+        activities.append(torch.profiler.ProfilerActivity.CUDA)
+    os.makedirs(log_dir, exist_ok=True)
+    with torch.profiler.profile(
+            activities=activities,
+            on_trace_ready=torch.profiler.tensorboard_trace_handler(
+                log_dir)) as prof:
+        yield prof
+
+
+def annotate(name: str):
+    """Named sub-region annotation for traces."""
+    return torch.profiler.record_function(name)
+
+
+def timed(fn, *args, n_runs: int = 3, **kwargs):
+    """(best_wall_seconds, last_result) with one warm-up call and a device
+    sync after every call."""
+    result = fn(*args, **kwargs)
+    device_sync(result)
+    best = float("inf")
+    for _ in range(n_runs):
+        t0 = time.perf_counter()
+        result = fn(*args, **kwargs)
+        device_sync(result)
+        best = min(best, time.perf_counter() - t0)
+    return best, result

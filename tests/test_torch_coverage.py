@@ -38,16 +38,6 @@ COUNTERPARTS = {
 
 _LEAVE_OUT = "ROADMAP Leave out"
 NOT_PORTED = {
-    # queue 1 item 7: eager torch has no traced calls to probe for, and the
-    # Francis-QR solver waits for a measured need on the card
-    "ops.eig.jittable_eig_supported":
-        "queue 1 item 7 (no meaning in eager torch)",
-    "ops.eig.eig_device": "queue 1 item 7 (only on a measured H100 need)",
-    "ops.eig.eigvals_device": "queue 1 item 7 (only on a measured H100 need)",
-    "ops.eig.schur": "queue 1 item 7 (only on a measured H100 need)",
-    "ops.eig_device": "queue 1 item 7 (only on a measured H100 need)",
-    # queue 1 item 12: the port's bench and its tracing
-    "utils.tracing": "queue 1 item 12",
     # what only the TPU needed
     "utils.cache": _LEAVE_OUT,
     "utils.smallpath": _LEAVE_OUT,
@@ -148,7 +138,8 @@ def test_this_slice_is_ported():
 # interpolation, the ROM models on the DMD core and the checkpoints; then
 # the Koopman/DMD-family ROM models and the sensitivity/UQ estimators;
 # then out-of-core streaming, the rest of the statistics layer and the
-# test helpers; then the multi-device layer and the export
+# test helpers; then the multi-device layer and the export; then the
+# Francis-QR eigensolver and the tracing helpers
 SLICE_MODULES = (
     "ops.gp", "ops.design", "ops.bayes_opt", "ops.grassmann", "ops.deim",
     "ops.gappy", "ops.spdmd", "models.hankel_dmd", "models.mrdmd",
@@ -159,7 +150,8 @@ SLICE_MODULES = (
     "ops.multifidelity", "ops.streaming", "ops.gmm", "ops.cma", "ops.cca",
     "ops.pls", "ops.copula", "ops.vine", "ops.rvine", "utils.testing",
     "parallel.mesh", "parallel.sharded_rsvd", "parallel.sharded_hosvd",
-    "parallel.sharded_samplers", "utils.export",
+    "parallel.sharded_samplers", "utils.export", "ops.eig_device",
+    "utils.tracing",
 )
 SLICE_NAMES = (
     "GpRegressor", "SparseGpRegressor", "latin_hypercube", "sobol_sample",
@@ -183,7 +175,7 @@ SLICE_NAMES = (
     "streamed_pearson_corr", "streamed_hosvd", "GmmFit", "gmm_fit",
     "gmm_logpdf", "gmm_sample", "gmm_select", "cma_es", "Cca", "cca",
     "PlsRegressor", "pls_fit", "GaussianCopula", "BivariateCopula",
-    "CVineCopula", "RVineCopula",
+    "CVineCopula", "RVineCopula", "eig_device", "eigvals_device", "schur",
 )
 # a matmul precision is XLA's to choose; here TF32 is off once, for all
 JAX_ONLY_PARAMS = {"precision", "power_precision"}

@@ -1727,7 +1727,17 @@ def test_slice_sharded_podi_on_the_card_matches_cpu_f64(nccl_world,
         np.max(np.abs(want)))
 
 
-def test_slice_export_refuses_a_kernel_on_the_card(dev, tmp_path):
+@pytest.mark.parametrize("dtype,rtol", [(torch.float32, 1e-6),
+                                        (torch.float64, 1e-12)])
+def test_slice_export_serves_kernels_on_the_card(dev, tmp_path, dtype, rtol):
+    # PodI.predict exports with its matvec as a corrla::rbf_matvec node; the
+    # loaded program launches the kernel once a call and gives the eager
+    # predict; a fresh process that imports torch and the operators' module
+    # (no JAX) serves it
+    import os
+    import subprocess
+    import sys
+
     from corrla_rs_tpu_torch.models.pca import PcaRsvd
     from corrla_rs_tpu_torch.models.pod import PodI
     from corrla_rs_tpu_torch.utils.export import (
@@ -1736,15 +1746,66 @@ def test_slice_export_refuses_a_kernel_on_the_card(dev, tmp_path):
     )
 
     gen = torch.Generator(device=dev).manual_seed(5)
-    x = torch.randn(64, 400, generator=gen, device=dev, dtype=torch.float64)
-    t = torch.linspace(0, 1, 64, device=dev, dtype=torch.float64)[:, None]
+    x = torch.randn(64, 400, generator=gen, device=dev, dtype=dtype)
+    t = torch.linspace(0, 1, 64, device=dev, dtype=dtype)[:, None]
     pod = PodI(x, t, 4)
-    with pytest.raises(NotImplementedError, match="item 19"):
-        export_model_call(pod, "predict", (t[:3],), str(tmp_path / "p.pt2"))
-    # a method that reaches no kernel exports on the card
+    tq = torch.rand(9, 1, generator=gen, device=dev, dtype=dtype)
+    path = str(tmp_path / "p.pt2")
+    program = export_model_call(pod, "predict", (tq,), path)
+    targets = [str(n.target) for n in program.graph.nodes
+               if n.op == "call_function"]
+    assert targets.count("corrla.rbf_matvec.default") == 1
+    assert not any("sqrt" in t for t in targets)
+    want = pod.predict(tq)
+    before = rk.rbf_matvec.launches
+    got = load_exported(path)(tq)
+    torch.cuda.synchronize()
+    assert rk.rbf_matvec.launches == before + 1
+    scale = float(want.abs().max())
+    assert float((got - want).abs().max()) <= rtol * scale
+    torch.save((tq,), str(tmp_path / "args.pt"))
+    serve = ("import sys\nimport torch\n"
+             "import corrla_rs_tpu_torch.ops.rbf_kernels\n"
+             "call = torch.export.load(sys.argv[1]).module()\n"
+             "torch.save(call(*torch.load(sys.argv[2])), sys.argv[3])\n"
+             "assert 'jax' not in sys.modules\n")
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    res = subprocess.run(
+        [sys.executable, "-c", serve, path, str(tmp_path / "args.pt"),
+         str(tmp_path / "out.pt")], capture_output=True, text=True,
+        timeout=600, env=dict(os.environ, PYTHONPATH=root))
+    assert res.returncode == 0, res.stderr[-2000:]
+    served = torch.load(str(tmp_path / "out.pt"))
+    assert served.is_cuda
+    assert float((served - want).abs().max()) <= rtol * scale
+    # a method that reaches no kernel exports on the card as before
     pca = PcaRsvd(x, 4)
     export_model_call(pca, "apply_tr", (x[:5],), str(tmp_path / "a.pt2"))
     got = load_exported(str(tmp_path / "a.pt2"))(x[:5])
+    want = pca.apply_tr(x[:5])
     assert got.is_cuda
-    assert float((got - pca.apply_tr(x[:5])).abs().max()) <= 1e-12 * float(
-        pca.apply_tr(x[:5]).abs().max())
+    assert float((got - want).abs().max()) <= rtol * float(want.abs().max())
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float64, 1e-10),
+                                       (torch.float32, 1e-4)])
+@pytest.mark.parametrize("shape", [(12, 12), (40, 40), (6, 8, 8)])
+def test_slice_eig_device_on_the_card_matches_cpu(dev, dtype, tol, shape):
+    # the Francis QR on the card (its rounds replay CUDA graphs) against the
+    # CPU port (eager rounds) on the same matrix
+    from corrla_rs_tpu_torch.ops.eig_device import eig_device, schur
+
+    gen = torch.Generator(device="cpu").manual_seed(sum(shape))
+    a = torch.randn(shape, generator=gen, dtype=dtype)
+    got = eig_device(a.to(dev))
+    want = eig_device(a)
+    lam = torch.complex(got[0], got[1]).cpu().reshape(-1, shape[-1])
+    lam0 = torch.complex(want[0], want[1]).reshape(-1, shape[-1])
+    scale = float(lam0.abs().max())
+    for x, y in zip(lam, lam0):
+        d = (x[:, None] - y[None, :]).abs()
+        assert float(d.min(1).values.max()) <= tol * scale
+    _, q, ok = schur(a.to(dev))
+    assert bool(ok.all())
+    eye = torch.eye(shape[-1], dtype=dtype, device=dev)
+    assert float((q.mT @ q - eye).abs().max()) <= 100 * tol
