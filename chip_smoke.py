@@ -195,7 +195,21 @@ time, and any failure raises (exit code != 0):
 26. tracing (run last, after the timing details below: a profiler session
     may slow later launches): utils.tracing's trace of one warm rsvd at
     phase 4's shape, annotated, must hold CUDA kernel events and the
-    annotation; timed(rsvd)'s best is printed beside phase 4's warm walls.
+    annotation; timed(rsvd)'s best is printed beside phase 4's warm walls;
+27. examples (after tracing): every script of examples_torch/ in a fresh
+    process on the card at its full defaults, three at a time
+    (EXAMPLE_LANES; their walls are those of a shared card and host),
+    demo_multichip.py as an NCCL world of 1 and as 2 gloo ranks on the one
+    card; each must exit 0, say ok on its last line, print no FAIL and hold
+    what EXAMPLES asks of it (demo_pipeline.py 9/9 stages,
+    gpu_validation_sweep.py 41/41 families, benchmark_pod.py within 1% of
+    the exact rank-4 projection, benchmark_rbf_interp.py within 1.5x
+    scipy's error). Each runs with --check-kernels: every launch of the two
+    kernels, at the shapes the script gives them, is held against the
+    plain version in f64 on the same inputs (KMAT_RTOL, MATVEC_RTOL), and
+    the held launches must equal the launch counts. Each script's wall
+    and headline are printed, its output written under
+    build/chip_smoke_examples/.
 
 After phase 25 come the timing details of phases 7 and 9-10 (RbfInterp's
 fit with its saddle matrix built by concatenation, as before the kernel
@@ -206,11 +220,13 @@ instances and fails if any spills. The kernels' launch counts
 are set to 0 before phase 4 and read after phase 7, again before phase 8
 and after phase 10, again before phase 11 and after phase 13, again
 before phase 14 and after phase 16, and around each of phases 17 to 22, 24
-and 25 (phase 23 counts in its world of one, a path at a time);
+and 25 (phase 23 counts in its world of one, a path at a time; phase 27
+sums the launch lines its scripts print);
 every kernel of a path must have launched on it (phases 11-16, 20, 22 and
 25 reach no kernel, and the run fails if their counts say otherwise;
-phases 17 and 19 must launch the kernel matrix, phases 18, 21 and 24 both
-kernels). The last lines are the kernel table as JSON (every timed shape of each kernel,
+phases 17 and 19 must launch the kernel matrix, phases 18, 21, 24 and 27
+both kernels). The last lines are the kernel table as JSON (every timed
+shape of each kernel,
 with its bound and, where one exists, a one-call PyTorch equivalent's
 time), the nvidia-smi line, and the result JSON. Nothing of JAX is
 imported. Without a CUDA device it exits with code 2 and prints no result.
@@ -5890,6 +5906,116 @@ def check_tracing(port, dev, gen, rsvd_warm):
             f"{', '.join(f'{w:.4f}' for w in rsvd_warm)} s")
 
 
+# ---------------------------------------------------------------------------
+# phase 27: the scripts of examples_torch/, each in a fresh process on the
+# card at its full defaults
+
+# (script, arguments, what its output must hold besides exit 0, ok: true on
+# its last line and no FAIL), longest first (their walls on an H100 alone:
+# the sweep about 100 s, demo_extensions 48 s, the others 9-33 s)
+EXAMPLES = (
+    ("gpu_validation_sweep", (), ("41/41 families PASS",)),
+    ("demo_extensions", (), ()),
+    ("demo_multichip", ("--world", "1", "--backend", "nccl"),
+     ("multichip demo OK",)),
+    ("demo_multichip", ("--world", "2", "--backend", "gloo"),
+     ("multichip demo OK",)),
+    ("demo_pipeline", (), ("9/9 stages PASS",)),
+    ("demo_uq", (), ("UQ demo OK",)),
+    ("benchmark_dirichlet_sampler", (), ("route: DEMC on cuda",)),
+    ("benchmark_streaming", (), ()),
+    ("demo_sysid", (), ()),
+    ("benchmark_rbf_interp", (), ("scipy RBFInterpolator",
+                                   "check: max err")),
+    ("benchmark_rsvd", (), ()),
+    ("benchmark_pod", (), ("check: rel field err",)),
+    ("benchmark_pca", (), ()),
+    ("benchmark_active_ss", (), ("x2 dominant: True",)),
+    ("benchmark_dmd", (), ()),
+)
+EXAMPLES_TIMEOUT_S = 600
+# scripts running at once on the card: each process spends its first ~8 s
+# reaching the card, and one after another they take about 390 s
+EXAMPLE_LANES = 3
+
+
+def run_example(name, args, musts, folder, env):
+    """One script of EXAMPLES in a fresh process, every kernel launch held
+    against its plain version (``--check-kernels``); (label, line, launch
+    counts, kernel checks, result). Its output is written to ``folder``."""
+    label = " ".join((name,) + args)
+    t0 = time.perf_counter()
+    try:
+        proc = subprocess.run(
+            [sys.executable, os.path.join("examples_torch", f"{name}.py"),
+             *args, "--check-kernels"], capture_output=True, text=True,
+            env=env, timeout=EXAMPLES_TIMEOUT_S)
+    except subprocess.TimeoutExpired as exc:
+        raise SmokeFailure(f"examples_torch/{label}: no end in "
+                           f"{EXAMPLES_TIMEOUT_S} s") from exc
+    wall_s = time.perf_counter() - t0
+    log = os.path.join(folder, label.replace(" ", "_") + ".log")
+    with open(log, "w") as f:
+        f.write(proc.stdout + "\n--- stderr ---\n" + proc.stderr)
+    out = proc.stdout.strip().splitlines()
+    check(proc.returncode == 0 and len(out) >= 3,
+          f"examples_torch/{label} exit {proc.returncode}:\n"
+          f"{proc.stdout[-3000:]}\n{proc.stderr[-3000:]}")
+    result = json.loads(out[-1])
+    launch = [ln for ln in out[:-1] if ln.startswith("launches: ")]
+    check(len(launch) == 1, f"examples_torch/{label}: launch line {launch}")
+    missing = [m for m in musts if m not in proc.stdout]
+    check(result["ok"] and not missing and "FAIL" not in proc.stdout
+          and out[0].startswith("card: ") and result["device"] != "cpu",
+          f"examples_torch/{label}: ok {result['ok']}, missing {missing}, "
+          f"FAIL in output {'FAIL' in proc.stdout}, first line {out[0]!r}; "
+          f"see {log}")
+    got = json.loads(launch[0][len("launches: "):])
+    # every launch was held against its plain version, within tolerance
+    held = [ln for ln in out[:-1] if ln.startswith("kernel checks: ")]
+    checks = json.loads(held[0][len("kernel checks: "):]) if held else []
+    for kernel, count in got.items():
+        calls = sum(c["calls"] for c in checks
+                    if c["check"].startswith(kernel + " "))
+        check(calls == count, f"examples_torch/{label}: {count} {kernel} "
+              f"launches, {calls} of them held to the plain version")
+    bad = [c for c in checks if not c["worst_ratio"] <= 1.0]
+    check(not bad, f"examples_torch/{label}: kernel checks failed {bad}")
+    line = (f"{label}: exit 0 in {wall_s:.2f} s of process "
+            f"({result['wall_s']:.2f} s after start); launches {got}, each "
+            f"held to its plain version; {result['headline']}")
+    return label, line, got, checks, result
+
+
+def phase_examples(lanes=EXAMPLE_LANES):
+    """Run every script of EXAMPLES in a fresh process, ``lanes`` at a time
+    (each lane takes the next script when its last one ends); each must
+    exit 0, hold what EXAMPLES asks of its output, say ok on its last line
+    and print no FAIL; their output goes to build/chip_smoke_examples/.
+    Returns (lines in EXAMPLES' order, launch counts summed over the
+    scripts, their kernel checks merged by kernel, phi, dtype and shape,
+    the scripts' results by label). With more than one lane the scripts
+    share the card and the host, and their walls say so."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    folder = os.path.join("build", "chip_smoke_examples")
+    shutil.rmtree(folder, ignore_errors=True)
+    os.makedirs(folder)
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.path.abspath(".")
+    with ThreadPoolExecutor(max_workers=lanes) as pool:
+        runs = [pool.submit(run_example, *ex, folder, env) for ex in EXAMPLES]
+        done = [r.result() for r in runs]
+    counts = {k: sum(d[2][k] for d in done)
+              for k in ("pairwise_kernel_matrix", "rbf_matvec")}
+    from examples_torch._harness import merge_checks
+
+    checks = merge_checks(*({c["check"]: c for c in d[3]} for d in done))
+    return ([d[1] for d in done], counts,
+            [{"shape": k, **v} for k, v in checks.items()],
+            {d[0]: d[4] for d in done})
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--seed", type=int, default=0,
@@ -6254,6 +6380,24 @@ def main(argv=None) -> int:
     report("tracing", t0, check_tracing(port, dev, gen, rsvd_warm))
     torch.cuda.empty_cache()
 
+    # 27. examples_torch/: every script in a fresh process on the card at
+    # its full defaults; their launch lines are the path's counts
+    t0 = time.perf_counter()
+    lines, fourteenth, example_checks, _ = phase_examples()
+    for line in lines:
+        print(f"    {line}", flush=True)
+    for c in example_checks:
+        print(f"    held to the plain version: {c['shape']}: {c['calls']} "
+              f"launches, max|err| {c['max_abs_err']:.3e}, "
+              f"{c['worst_ratio']:.3f} of the tolerance", flush=True)
+    for name, count in fourteenth.items():
+        check(count > 0, f"{name} was not launched by examples_torch/")
+    report("examples", t0, f"{len(lines)} script runs, {EXAMPLE_LANES} at "
+           f"a time, each exit 0 with every check held, every kernel launch "
+           f"({len(example_checks)} shapes) within tolerance of its plain "
+           f"version | {smi}")
+    print(f"[launches] ok  examples: {fourteenth}", flush=True)
+
     # a kernel's numbers are those of its largest main-path shape (by
     # bound); "shapes" holds every timed shape, "launches" both paths'
     # counts
@@ -6263,7 +6407,8 @@ def main(argv=None) -> int:
              "inference/filters/evidence": fourth, "gp": fifth,
              "rom": sixth, "koopman": seventh, "uq": eighth,
              "streaming": ninth, "stats": tenth, "parallel": eleventh,
-             "export": twelfth, "eig_device": thirteenth}
+             "export": twelfth, "eig_device": thirteenth,
+             "examples": fourteenth}
     table = {"kernels": []}
     for name in ("pairwise_kernel_matrix", "rbf_matvec"):
         top = max((row for row in timings[name] if row["main_path"]),
@@ -6276,7 +6421,11 @@ def main(argv=None) -> int:
             **{key: top[key] for key in ("max_abs_err", "ms", "plain_ms",
                                          "bound_ms", "bound_by",
                                          "library_ms")},
-            "shapes": timings[name]})
+            "shapes": timings[name],
+            # the examples' launches, each held to the plain version in
+            # its own process (no timing)
+            "examples_checked": [c for c in example_checks
+                                 if c["shape"].startswith(name + " ")]})
     print(json.dumps(table))
     print(smi)
     print(json.dumps({"ok": True, "device": {
