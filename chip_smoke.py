@@ -209,7 +209,13 @@ time, and any failure raises (exit code != 0):
     plain version in f64 on the same inputs (KMAT_RTOL, MATVEC_RTOL), and
     the held launches must equal the launch counts. Each script's wall
     and headline are printed, its output written under
-    build/chip_smoke_examples/.
+    build/chip_smoke_examples/;
+28. bench: bench_torch.py (the port's counterpart of bench.py) in a fresh
+    process on the card at its full shapes; it must exit 0 with the
+    headline first and last and each of its five metric lines ok (its
+    accuracy checks held); each line is printed, and the rsvd, single-pass
+    and DREAM medians beside this script's own warm walls of phases 4 and
+    11. Its process's kernel launch counts are the phase's.
 
 After phase 25 come the timing details of phases 7 and 9-10 (RbfInterp's
 fit with its saddle matrix built by concatenation, as before the kernel
@@ -221,9 +227,9 @@ are set to 0 before phase 4 and read after phase 7, again before phase 8
 and after phase 10, again before phase 11 and after phase 13, again
 before phase 14 and after phase 16, and around each of phases 17 to 22, 24
 and 25 (phase 23 counts in its world of one, a path at a time; phase 27
-sums the launch lines its scripts print);
-every kernel of a path must have launched on it (phases 11-16, 20, 22 and
-25 reach no kernel, and the run fails if their counts say otherwise;
+sums the launch lines its scripts print; phase 28 reads its process's);
+every kernel of a path must have launched on it (phases 11-16, 20, 22, 25
+and 28 reach no kernel, and the run fails if their counts say otherwise;
 phases 17 and 19 must launch the kernel matrix, phases 18, 21, 24 and 27
 both kernels). The last lines are the kernel table as JSON (every timed
 shape of each kernel,
@@ -6016,6 +6022,54 @@ def phase_examples(lanes=EXAMPLE_LANES):
             {d[0]: d[4] for d in done})
 
 
+# ---------------------------------------------------------------------------
+# phase 28: bench_torch.py, the port's bench, in a fresh process on the card
+# at its full shapes
+
+BENCH_METRICS = ("rsvd_100kx10k_f32_rank100_wall",
+                 "single_pass_svd_100kx10k_wall", "cs_mcmc_3000x12_wall",
+                 "dream_samples_per_sec_8192ch", "ensemble_dmdc_16x_wall")
+BENCH_TIMEOUT_S = 600
+BENCH_LAUNCHES = "bench_torch.py: kernel launches "
+
+
+def phase_bench():
+    """bench_torch.py in a fresh process on the card: exit 0, the headline
+    first and last, each of the five metrics once with ok true; its output
+    goes to build/chip_smoke_bench.log. Returns (its lines without the
+    repeated headline, the kernel launches the bench's process counted)."""
+    env = {k: v for k, v in os.environ.items()
+           if not k.startswith("CORRLA_BENCH_")}
+    env["PYTHONPATH"] = os.path.abspath(".")
+    try:
+        proc = subprocess.run([sys.executable, "bench_torch.py"],
+                              capture_output=True, text=True, env=env,
+                              timeout=BENCH_TIMEOUT_S)
+    except subprocess.TimeoutExpired as exc:
+        raise SmokeFailure(f"bench_torch.py: no end in {BENCH_TIMEOUT_S} s"
+                           ) from exc
+    os.makedirs("build", exist_ok=True)
+    log = os.path.join("build", "chip_smoke_bench.log")
+    with open(log, "w") as f:
+        f.write(proc.stdout + "\n--- stderr ---\n" + proc.stderr)
+    check(proc.returncode == 0, f"bench_torch.py exit {proc.returncode}:\n"
+          f"{proc.stdout[-3000:]}\n{proc.stderr[-3000:]}")
+    lines = [json.loads(ln) for ln in proc.stdout.splitlines()
+             if ln.startswith("{")]
+    check(len(lines) == len(BENCH_METRICS) + 1 and lines[0] == lines[-1]
+          and lines[0]["metric"] == BENCH_METRICS[0],
+          f"bench_torch.py: the headline is not first and last; see {log}")
+    metrics = sorted(ln["metric"] for ln in lines[:-1])
+    check(metrics == sorted(BENCH_METRICS),
+          f"bench_torch.py printed {metrics}")
+    bad = [ln["metric"] for ln in lines if ln["ok"] is not True]
+    check(not bad, f"bench_torch.py: {bad} failed their checks; see {log}")
+    counts = [ln for ln in proc.stderr.splitlines()
+              if ln.startswith(BENCH_LAUNCHES)]
+    check(len(counts) == 1, f"bench_torch.py: launch line {counts}")
+    return lines[:-1], json.loads(counts[0][len(BENCH_LAUNCHES):])
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--seed", type=int, default=0,
@@ -6077,6 +6131,8 @@ def main(argv=None) -> int:
 
     t0 = time.perf_counter()
     r = phase_single_pass(port, a, s_true)
+    single_pass_warm = r[f"single_pass ({SIZES['rsvd'][4]} oversamples)"][
+        "warm_s"]
     report("single_pass", t0, "the same matrix, rank 100: "
            + "; ".join(
                f"{name} leading {v['n_held']} sigma rel err {v['held']:.3e} "
@@ -6177,6 +6233,7 @@ def main(argv=None) -> int:
 
     t0 = time.perf_counter()
     r = phase_dream(port, dev, args.seed + 4)
+    dream_rate = r["samples_s"]
     chains, d, gens, n_adapt = SIZES["dream"]
     report("dream", t0, f"{chains} chains x {d} dims x {gens} generations "
            f"({n_adapt} adapting) f32: {r['wall_s']:.4f} s, "
@@ -6398,6 +6455,26 @@ def main(argv=None) -> int:
            f"version | {smi}")
     print(f"[launches] ok  examples: {fourteenth}", flush=True)
 
+    # 28. bench_torch.py in a fresh process at its full shapes; it reaches
+    # no kernel, and its process's counts show it
+    t0 = time.perf_counter()
+    bench_lines, fifteenth = phase_bench()
+    for line in bench_lines:
+        print(f"    {json.dumps(line)}", flush=True)
+    check(not any(fifteenth.values()),
+          f"bench_torch.py launched a kernel: {fifteenth}")
+    got = {ln["metric"]: ln for ln in bench_lines}
+    report("bench", t0, "bench_torch.py: 5 metric lines, each ok, the "
+           "headline first and last; medians beside this script's warm "
+           f"walls: rsvd {got[BENCH_METRICS[0]]['value']:.4f} s (phase rsvd "
+           f"{', '.join(f'{w:.4f}' for w in rsvd_warm)} s), single_pass "
+           f"{got[BENCH_METRICS[1]]['value']:.4f} s (phase single_pass "
+           f"{', '.join(f'{w:.4f}' for w in single_pass_warm)} s), DREAM "
+           f"{got[BENCH_METRICS[3]]['value']:.4e} samples/s (phase dream "
+           f"{dream_rate:.4e}, its own target) | {smi}")
+    print(f"[launches] ok  bench (no kernel on this path): {fifteenth}",
+          flush=True)
+
     # a kernel's numbers are those of its largest main-path shape (by
     # bound); "shapes" holds every timed shape, "launches" both paths'
     # counts
@@ -6408,7 +6485,7 @@ def main(argv=None) -> int:
              "rom": sixth, "koopman": seventh, "uq": eighth,
              "streaming": ninth, "stats": tenth, "parallel": eleventh,
              "export": twelfth, "eig_device": thirteenth,
-             "examples": fourteenth}
+             "examples": fourteenth, "bench": fifteenth}
     table = {"kernels": []}
     for name in ("pairwise_kernel_matrix", "rbf_matvec"):
         top = max((row for row in timings[name] if row["main_path"]),
