@@ -3,7 +3,14 @@
 Run from the root of a checkout, on a machine with one Hopper GPU (sm_90a),
 ``nvcc`` and PyTorch built for CUDA:
 
-    python3 chip_smoke.py [--seed N]
+    python3 chip_smoke.py [--seed N] [--phases a,b,...]
+
+``--phases`` runs only the named phases (names in ``PHASES``, for example
+``--phases dmdc,bench``), in their usual order, after device and build,
+which always run; an unknown name exits 2 with the list of valid names.
+Without it every phase runs. A phase run alone draws its inputs from a
+generator that the skipped phases did not advance, so they differ from a
+whole run's.
 
 Phases, in order; each prints one line with its result, tolerance and wall
 time, and any failure raises (exit code != 0):
@@ -38,7 +45,10 @@ time, and any failure raises (exit code != 0):
    2 controls, 8 latent states), 10 modes, rolled out 1,000 steps by the
    'modes' and 'reduced' methods; PyDMDc's dense-A rollout at 20,000
    states; dmdc_fit_ensemble and rollout_ensemble over 8 members of 20,000
-   states. Each against the true trajectory;
+   states. Each against the true trajectory; the ensemble's members'
+   eigenvalues also against DMDc fitted alone on each member with the
+   member's child key (bench_torch.py's 1e-4 of max|lambda|), with both
+   walls;
 9. active_ss: api.active_ss on 32,768 samples in 8-D of y = exp(0.3 a.x),
    order 2, 64 neighbours (the kNN distance tile goes through the kernel
    matrix; the 32,768 local fits through the batched Jacobi pinv), the
@@ -191,13 +201,14 @@ time, and any failure raises (exit code != 0):
     64 x 10 x 10 stack, f64 and f32: eigenvalues against numpy's (1e-10 /
     1e-4 of max|lambda|), ||AV - V Lambda|| / ||A|| <= 1e-10 (f64), schur's
     Q^T Q = I, the card against the CPU port up to n = 64; the warm medians
-    of eig_device, torch.linalg.eig on the card and eig_host;
+    of eig_device (at n = 200 one warm call), torch.linalg.eig on the card
+    and eig_host;
 26. tracing (run last, after the timing details below: a profiler session
     may slow later launches): utils.tracing's trace of one warm rsvd at
     phase 4's shape, annotated, must hold CUDA kernel events and the
     annotation; timed(rsvd)'s best is printed beside phase 4's warm walls;
 27. examples (after tracing): every script of examples_torch/ in a fresh
-    process on the card at its full defaults, three at a time
+    process on the card at its full defaults, four at a time
     (EXAMPLE_LANES; their walls are those of a shared card and host),
     demo_multichip.py as an NCCL world of 1 and as 2 gloo ranks on the one
     card; each must exit 0, say ok on its last line, print no FAIL and hold
@@ -223,18 +234,17 @@ matrix wrote K in place, and built in place; the kNN and grads steps of
 active_ss; a DEMC generation) and the kNN against its plain version. The
 build phase prints ptxas's registers and spills for both kernels'
 instances and fails if any spills. The kernels' launch counts
-are set to 0 before phase 4 and read after phase 7, again before phase 8
-and after phase 10, again before phase 11 and after phase 13, again
-before phase 14 and after phase 16, and around each of phases 17 to 22, 24
-and 25 (phase 23 counts in its world of one, a path at a time; phase 27
-sums the launch lines its scripts print; phase 28 reads its process's);
-every kernel of a path must have launched on it (phases 11-16, 20, 22, 25
-and 28 reach no kernel, and the run fails if their counts say otherwise;
-phases 17 and 19 must launch the kernel matrix, phases 18, 21, 24 and 27
-both kernels). The last lines are the kernel table as JSON (every timed
-shape of each kernel,
-with its bound and, where one exists, a one-call PyTorch equivalent's
-time), the nvidia-smi line, and the result JSON. Nothing of JAX is
+are set to 0 before each phase and read just after it (phase 23 counts in
+its world of one, a path at a time; phase 27 sums the launch lines its
+scripts print; phase 28 reads its process's); phase 3, the details and
+phase 26 compare or time the kernels and are not counted. Each phase in
+MUST_LAUNCH must have launched what it names there: phases 11-16, 20,
+22, 25 and 28 reach no kernel, and the run fails if their counts say
+otherwise; phases 9, 17 and 19 must launch the kernel matrix, phases 6,
+7, 18, 21, 23, 24 and 27 both kernels. The last lines are the kernel
+table as JSON (which phases ran; every timed shape of each kernel, with
+its bound and, where one exists, a one-call PyTorch equivalent's time),
+the nvidia-smi line, and the result JSON. Nothing of JAX is
 imported. Without a CUDA device it exits with code 2 and prints no result.
 """
 from __future__ import annotations
@@ -1459,6 +1469,20 @@ def phase_dmdc(port, dev, gen, seed):
     ub = u.expand(n_b, -1, -1)
     fit, fit_e = wall(lambda: port.dmdc_fit_ensemble(xb, ub, n_modes,
                                                      n_iters, key=seed))
+    # each member against DMDc fitted alone with the member's child key,
+    # at bench_torch.py's limit
+    from bench_torch import ENSEMBLE_EIG_RTOL, ensemble_eig_err
+    from corrla_rs_tpu_torch.models import dmd
+
+    keys = dmd._split_seed(seed, n_b, dev)
+    singles, lone_s = wall(lambda: [
+        port.DMDc(x, ui, n_modes, n_iters, key=k)
+        for x, ui, k in zip(xb, ub, keys)])
+    eig_err = ensemble_eig_err(fit, singles)
+    check(eig_err <= ENSEMBLE_EIG_RTOL, f"ensemble eigenvalues {eig_err:.3e} "
+          f"of max|lambda| from the lone fits > {ENSEMBLE_EIG_RTOL}")
+    out["ens_vs_lone"] = (eig_err, lone_s)
+    del singles
     for method in ("reduced", "modes"):
         pred, sec = wall(lambda: port.rollout_ensemble(
             fit, xb[:, :, :1], u[:, :n_steps], method))
@@ -5817,8 +5841,8 @@ def median_s(fn, runs: int = 3) -> float:
 def phase_eig_device(port, dev, seed):
     """eig_device (Francis QR, inverse iteration; plain PyTorch on the card)
     against numpy's eigenvalues, its eigen equation, schur's orthogonality
-    and the CPU port, with the warm medians of eig_device,
-    torch.linalg.eig on the card and eig_host."""
+    and the CPU port, with the warm medians of eig_device (one warm call
+    above EIG_CPU_MAX_N), torch.linalg.eig on the card and eig_host."""
     from corrla_rs_tpu_torch.ops.eig import eig_host
 
     rng = np.random.default_rng(seed)
@@ -5860,7 +5884,9 @@ def phase_eig_device(port, dev, seed):
                 check(gap <= EIG_TOL[dtype], f"eig_device {shape} {dtype}: "
                       f"card against the CPU port {gap:.3e}")
                 cpu = f"{gap:.1e} from the CPU port"
-            ms = median_s(lambda: port.eig_device(a)) * 1e3
+            # one warm call at n = 200 (3.4-3.6 s each), three below
+            ms = median_s(lambda: port.eig_device(a),
+                          runs=1 if shape[-1] > EIG_CPU_MAX_N else 3) * 1e3
             lib = median_s(lambda: torch.linalg.eig(a)) * 1e3
             host = median_s(lambda: [eig_host(m) for m in a.reshape(
                 (-1,) + shape[-2:])]) * 1e3
@@ -5909,7 +5935,7 @@ def check_tracing(port, dev, gen, rsvd_warm):
             f"{len(marks)} 'rsvd' annotations (device {device_ms:.2f} ms), "
             f"{os.path.getsize(files[0]) / 2 ** 20:.1f} MiB; timed(rsvd) best "
             f"{best:.4f} s against the rsvd phase's warm "
-            f"{', '.join(f'{w:.4f}' for w in rsvd_warm)} s")
+            f"{', '.join(f'{w:.4f}' for w in rsvd_warm) or 'not run'} s")
 
 
 # ---------------------------------------------------------------------------
@@ -5941,8 +5967,9 @@ EXAMPLES = (
 )
 EXAMPLES_TIMEOUT_S = 600
 # scripts running at once on the card: each process spends its first ~8 s
-# reaching the card, and one after another they take about 390 s
-EXAMPLE_LANES = 3
+# reaching the card, and one after another they take about 390-460 s; the
+# longest, the sweep (~100 s in 3 lanes), sets the phase's floor
+EXAMPLE_LANES = 4
 
 
 def run_example(name, args, musts, folder, env):
@@ -6070,11 +6097,47 @@ def phase_bench():
     return lines[:-1], json.loads(counts[0][len(BENCH_LAUNCHES):])
 
 
+# the phases after device and build, in the order they run; --phases picks
+# some of them (device and build always run first)
+PHASES = ("kernels", "rsvd", "single_pass", "rpca", "podi", "rbf", "dmdc",
+          "active_ss", "samplers", "dream", "factorize", "mle", "inference",
+          "filters", "evidence", "gp", "rom", "koopman", "uq", "streaming",
+          "stats", "parallel", "export", "eig_device", "details", "tracing",
+          "examples", "bench")
+KERNELS = ("pairwise_kernel_matrix", "rbf_matvec")
+# what a phase of the main path must launch: the kernels named, or none
+# (None); the other counted phases are counted and not held to either
+MUST_LAUNCH = {"podi": KERNELS, "rbf": KERNELS, "active_ss": KERNELS[:1],
+               "gp": KERNELS[:1], "rom": KERNELS, "koopman": KERNELS[:1],
+               "streaming": KERNELS, "parallel": KERNELS, "export": KERNELS,
+               "examples": KERNELS, "dream": None, "factorize": None,
+               "mle": None, "inference": None, "filters": None,
+               "evidence": None, "uq": None, "stats": None,
+               "eig_device": None, "bench": None}
+# phases whose launches compare or time a kernel: not the main path's
+UNCOUNTED = ("kernels", "details", "tracing")
+
+
+def parse_phases(parser, text):
+    """The phases of ``--phases`` (a comma-separated list) in their usual
+    order; device and build may be named and always run."""
+    names = [n.strip() for n in text.split(",") if n.strip()]
+    unknown = sorted(set(names) - set(PHASES) - {"device", "build"})
+    if unknown:
+        parser.error(f"unknown phase(s) {', '.join(unknown)}; valid: "
+                     f"device, build, {', '.join(PHASES)}")
+    return [p for p in PHASES if p in names]
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--seed", type=int, default=0,
                         help="seed of every input (default 0)")
+    parser.add_argument("--phases", default=",".join(PHASES),
+                        help="comma-separated phases to run after device "
+                        "and build, in their usual order (default: all)")
     args = parser.parse_args(argv)
+    selected = parse_phases(parser, args.phases)
 
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -6109,399 +6172,338 @@ def main(argv=None) -> int:
            f"({len(_build._sources())} sources at once); "
            f"{ptxas_summary(rows)}")
 
-    # 3. kernels against their plain versions
-    t0 = time.perf_counter()
-    timings = phase_kernels(rk, dev, args.seed)
-    report("kernels", t0, "both kernels agree with their plain versions")
-
-    # 4-7. the main path (single_pass rides on rsvd's matrix), with the
-    # launch counts from 0
+    # one generator through the phases that draw from it, in order: a
+    # phase run alone draws other inputs than in a whole run
     gen = torch.Generator(device=dev).manual_seed(args.seed + 1)
-    rk.pairwise_kernel_matrix.launches = 0
-    rk.rbf_matvec.launches = 0
+    state = {}
 
-    t0 = time.perf_counter()
-    a, s_true = rsvd_matrix(dev, gen)
-    r = phase_rsvd(port, a, s_true)
-    rsvd_warm = r["warm_s"]
-    report("rsvd", t0, f"100000x10000 f32 rank 100: max sigma rel err "
-           f"{r['sigma_rel_err']:.3e} (tol 1e-3); cold {r['cold_s']:.4f} s, "
-           f"warm {', '.join(f'{v:.4f}' for v in r['warm_s'])} s")
-    torch.cuda.empty_cache()
+    def walls(key):
+        return ", ".join(f"{w:.4f}" for w in state.get(key, ())) or "not run"
 
-    t0 = time.perf_counter()
-    r = phase_single_pass(port, a, s_true)
-    single_pass_warm = r[f"single_pass ({SIZES['rsvd'][4]} oversamples)"][
-        "warm_s"]
-    report("single_pass", t0, "the same matrix, rank 100: "
-           + "; ".join(
-               f"{name} leading {v['n_held']} sigma rel err {v['held']:.3e} "
-               f"(tol {v['tol']}), all 100 {v['worst']:.3e} (tol {v['tol_all']}), "
-               f"|U^T U - I| {v['orth']:.1e} (tol 1e-4), cold "
-               f"{v['cold_s']:.4f} s, warm "
-               f"{', '.join(f'{w:.4f}' for w in v['warm_s'])} s, peak "
-               f"{v['peak_mb']:.0f} MiB beside the matrix"
-               for name, v in r.items()))
-    del a, s_true
-    torch.cuda.empty_cache()
-
-    t0 = time.perf_counter()
-    r = phase_rpca(port, dev, gen)
-    report("rpca", t0, f"200000x512 f32 rank 20: max sigma rel err "
-           f"{r['sigma_rel_err']:.3e}, component gap "
-           f"{r['component_gap']:.3e} (tol 1e-3); {r['wall_s']:.4f} s")
-    torch.cuda.empty_cache()
-
-    t0 = time.perf_counter()
-    r = phase_podi(port, rk, dev, gen)
-    report("PodI", t0, f"2000x200000 f32, 20 modes, 512 held-out t: rel err "
-           f"vs family {r['truth_rel_err']:.3e} (tol 1e-3), vs plain RBF "
-           f"path {r['plain_rel_err']:.3e} (tol 1e-4); fit "
-           f"{r['fit_s']:.4f} s, predict {r['predict_s']:.4f} s")
-    torch.cuda.empty_cache()
-
-    t0 = time.perf_counter()
-    r = phase_rbf(port, rk, dev, gen)
-    report("RbfInterp", t0, f"16384 pts 3-D linear: fit residual "
-           f"{r['fit_residual']:.3e} (tol 1e-4), fit {r['fit_s']:.4f} s; "
-           f"1048576 predictions {', '.join(f'{v:.4f}' for v in r['predict_1M_s'])} s, "
-           f"vs target {r['truth_rel_err']:.3e} (tol 1e-2), first 8192 vs "
-           f"plain f64: err/scale {r['plain_ratio']:.3e} "
-           f"(tol {MATVEC_RTOL[torch.float32]})")
-
-    first = {"pairwise_kernel_matrix": rk.pairwise_kernel_matrix.launches,
-             "rbf_matvec": rk.rbf_matvec.launches}
-    for name, count in first.items():
-        check(count > 0, f"{name} was not launched on the main path")
-    print(f"[launches] ok  rsvd/rpca/PodI/RbfInterp: {first}", flush=True)
-    torch.cuda.empty_cache()
-
-    # 8-10. this slice's path, with the launch counts from 0 again
-    rk.pairwise_kernel_matrix.launches = 0
-    rk.rbf_matvec.launches = 0
-
-    t0 = time.perf_counter()
-    r = phase_dmdc(port, dev, gen, args.seed + 2)
-    n_x, n_t, n_modes, _ = SIZES["dmdc"]
-    report("dmdc", t0, f"{n_x}x{n_t} f32, 2 controls, {n_modes} modes: fit "
-           f"{r['fit_s']:.4f} s (max |lambda| {r['lambda_max']:.4f}); "
-           f"{n_t - 1}-step rollouts, err / max|x| (tol 1e-3): modes "
-           f"{r['modes'][0]:.3e} in {r['modes'][1]:.4f} s "
-           f"({r['modes'][1] / (n_t - 1) * 1e3:.4f} ms a step), reduced "
-           f"{r['reduced'][0]:.3e} in {r['reduced'][1]:.4f} s "
-           f"({r['reduced'][1] / (n_t - 1) * 1e3:.4f} ms a step); PyDMDc dense "
-           f"A at {SIZES['dmdc_dense']}: fit {r['dense'][2]:.4f} s, "
-           f"{r['dense'][0]:.3e} in {r['dense'][1]:.4f} s; ensemble "
-           f"{SIZES['ensemble'][0]}x{SIZES['ensemble'][1]}: fit "
-           f"{r['ens_fit_s']:.4f} s, reduced {r['ens_reduced'][0]:.3e} in "
-           f"{r['ens_reduced'][1]:.4f} s, modes {r['ens_modes'][0]:.3e} in "
-           f"{r['ens_modes'][1]:.4f} s")
-    torch.cuda.empty_cache()
-
-    t0 = time.perf_counter()
-    ass = phase_active_ss(port, dev, gen)
-    n, k, n_nbr, _, _ = SIZES["active_ss"]
-    report("active_ss", t0, f"{n} samples {k}-D, order 2, {n_nbr} nbrs: "
-           f"1-|cos(w1, a)| {ass['gap']:.3e} (tol 1e-3); "
-           f"{ass['wall_s']:.4f} s")
-    torch.cuda.empty_cache()
-
-    t0 = time.perf_counter()
-    r = phase_samplers(port, dev, args.seed + 3)
-    n, ndim, chunk = SIZES["dirichlet"]
-    sec, acc, sum_err, z_max, n_ref = r["dirichlet"]
-    lines = [f"cs_dirichlet_sample {n}x{ndim} chunk {chunk}: {sec:.4f} s, "
-             f"acceptance {acc:.4f}, max |sum-1| {sum_err:.1e}, means within "
-             f"{z_max:.2f} SE of numpy ({n_ref} rows; tol 4)"]
-    for label, (chains, gens), where in DEMC_RUNS:
-        sec, ar, sum_err, route = r[label]
-        lines.append(f"cs_mcmc_dirichlet_sample {chains} chains x {gens} on "
-                     f"{where}: route {route}, {sec:.4f} s, acceptance "
-                     f"{ar:.4f} (0.3-0.7), max |sum-1| {sum_err:.1e}")
-    report("samplers", t0, "; ".join(lines))
-
-    second = {"pairwise_kernel_matrix": rk.pairwise_kernel_matrix.launches,
-              "rbf_matvec": rk.rbf_matvec.launches}
-    check(second["pairwise_kernel_matrix"] > 0,
-          "pairwise_kernel_matrix was not launched by the kNN of active_ss")
-    print(f"[launches] ok  dmdc/active_ss/samplers: {second}", flush=True)
-    torch.cuda.empty_cache()
-
-    # 11-13. this slice's path; it reaches no kernel, and the counts show it
-    rk.pairwise_kernel_matrix.launches = 0
-    rk.rbf_matvec.launches = 0
-
-    t0 = time.perf_counter()
-    r = phase_dream(port, dev, args.seed + 4)
-    dream_rate = r["samples_s"]
-    chains, d, gens, n_adapt = SIZES["dream"]
-    report("dream", t0, f"{chains} chains x {d} dims x {gens} generations "
-           f"({n_adapt} adapting) f32: {r['wall_s']:.4f} s, "
-           f"{r['ms_gen']:.4f} ms a generation, {r['samples_s']:.4e} "
-           f"samples/s; acceptance {r['accept']:.4f} (0.15-0.6), pooled mean "
-           f"{r['mean_err']:.3e} sigma off (tol 0.05), covariance "
-           f"{r['cov_err']:.3e} off (tol 0.10), rank-normalized R-hat "
-           f"{r['rhat']:.4f} (< 1.05, {r['rhat_s']:.4f} s), p_cr {r['p_cr']}")
-    torch.cuda.empty_cache()
-
-    t0 = time.perf_counter()
-    r = phase_factorize(port, dev, gen, args.seed + 5)
-    report("factorize", t0, "; ".join(
-        f"{name} {extra}: {err:.3e} (tol {FACTORIZE_TOL[name][0]}, "
-        f"{FACTORIZE_TOL[name][1]}) in {sec:.4f} s"
-        for name, rows in r.items() for sec, err, extra in rows))
-    torch.cuda.empty_cache()
-
-    t0 = time.perf_counter()
-    r = phase_mle(port, dev, args.seed + 6)
-    report("mle", t0, "; ".join(r))
-
-    third = {"pairwise_kernel_matrix": rk.pairwise_kernel_matrix.launches,
-             "rbf_matvec": rk.rbf_matvec.launches}
-    check(not any(third.values()),
-          f"dream/factorize/mle launched a kernel: {third}")
-    print(f"[launches] ok  dream/factorize/mle (no kernel on this path): "
-          f"{third}", flush=True)
-    torch.cuda.empty_cache()
-
-    # 14-16. the inference layer; it reaches no kernel either
-    rk.pairwise_kernel_matrix.launches = 0
-    rk.rbf_matvec.launches = 0
-    for name, phase, offset in (("inference", phase_inference, 7),
-                                ("filters", phase_filters, 8),
-                                ("evidence", phase_evidence, 9)):
+    # 3. kernels against their plain versions
+    def run_kernels():
         t0 = time.perf_counter()
-        report(name, t0, "; ".join(phase(port, dev, args.seed + offset)))
-        torch.cuda.empty_cache()
-    fourth = {"pairwise_kernel_matrix": rk.pairwise_kernel_matrix.launches,
-              "rbf_matvec": rk.rbf_matvec.launches}
-    check(not any(fourth.values()),
-          f"inference/filters/evidence launched a kernel: {fourth}")
-    print(f"[launches] ok  inference/filters/evidence (no kernel on this "
-          f"path): {fourth}", flush=True)
-    torch.cuda.empty_cache()
+        state["timings"] = phase_kernels(rk, dev, args.seed)
+        report("kernels", t0, "both kernels agree with their plain versions")
 
-    # 17. the GPs and Bayesian optimisation: their distances launch the
-    # kernel matrix
-    rk.pairwise_kernel_matrix.launches = 0
-    rk.rbf_matvec.launches = 0
-    t0 = time.perf_counter()
-    report("gp", t0, f"{len(phase_gp(port, dev, args.seed + 10))} checks, "
-           "each printed above")
-    fifth = {"pairwise_kernel_matrix": rk.pairwise_kernel_matrix.launches,
-             "rbf_matvec": rk.rbf_matvec.launches}
-    check(fifth["pairwise_kernel_matrix"] > 0,
-          "pairwise_kernel_matrix was not launched by the GPs")
-    print(f"[launches] ok  gp: {fifth}", flush=True)
-    torch.cuda.empty_cache()
+    # 4-7. rsvd, single_pass (on rsvd's matrix), rpca, PodI, RbfInterp
+    def rsvd_input():
+        if "a" not in state:
+            state["a"], state["s_true"] = rsvd_matrix(dev, gen)
+        return state["a"], state["s_true"]
 
-    # 18. Grassmann interpolation (both kernels) and the ROM models
-    rk.pairwise_kernel_matrix.launches = 0
-    rk.rbf_matvec.launches = 0
-    t0 = time.perf_counter()
-    report("rom", t0, f"{len(phase_rom(port, dev, args.seed + 11))} checks, "
-           "each printed above")
-    sixth = {"pairwise_kernel_matrix": rk.pairwise_kernel_matrix.launches,
-             "rbf_matvec": rk.rbf_matvec.launches}
-    for name, count in sixth.items():
-        check(count > 0, f"{name} was not launched by the rom phase")
-    print(f"[launches] ok  rom: {sixth}", flush=True)
-    torch.cuda.empty_cache()
+    def run_rsvd():
+        t0 = time.perf_counter()
+        r = phase_rsvd(port, *rsvd_input())
+        state["rsvd_warm"] = r["warm_s"]
+        report("rsvd", t0, f"100000x10000 f32 rank 100: max sigma rel err "
+               f"{r['sigma_rel_err']:.3e} (tol 1e-3); cold "
+               f"{r['cold_s']:.4f} s, warm {walls('rsvd_warm')} s")
+        if "single_pass" not in selected:
+            del state["a"], state["s_true"]
 
-    # 19. the Koopman/DMD-family models: Edmd's RBF lift launches the
-    # kernel matrix
-    rk.pairwise_kernel_matrix.launches = 0
-    rk.rbf_matvec.launches = 0
-    t0 = time.perf_counter()
-    report("koopman", t0, f"{len(phase_koopman(port, dev, args.seed + 12))} "
-           "checks, each printed above")
-    seventh = {"pairwise_kernel_matrix": rk.pairwise_kernel_matrix.launches,
-               "rbf_matvec": rk.rbf_matvec.launches}
-    check(seventh["pairwise_kernel_matrix"] > 0,
-          "pairwise_kernel_matrix was not launched by Edmd's RBF lift")
-    print(f"[launches] ok  koopman: {seventh}", flush=True)
-    torch.cuda.empty_cache()
+    def run_single_pass():
+        t0 = time.perf_counter()
+        r = phase_single_pass(port, *rsvd_input())
+        state["single_pass_warm"] = r[
+            f"single_pass ({SIZES['rsvd'][4]} oversamples)"]["warm_s"]
+        report("single_pass", t0, "the same matrix, rank 100: "
+               + "; ".join(
+                   f"{name} leading {v['n_held']} sigma rel err "
+                   f"{v['held']:.3e} (tol {v['tol']}), all 100 "
+                   f"{v['worst']:.3e} (tol {v['tol_all']}), |U^T U - I| "
+                   f"{v['orth']:.1e} (tol 1e-4), cold {v['cold_s']:.4f} s, "
+                   f"warm {', '.join(f'{w:.4f}' for w in v['warm_s'])} s, "
+                   f"peak {v['peak_mb']:.0f} MiB beside the matrix"
+                   for name, v in r.items()))
+        del state["a"], state["s_true"]
 
-    # 20. the sensitivity and UQ estimators; they reach no kernel
-    rk.pairwise_kernel_matrix.launches = 0
-    rk.rbf_matvec.launches = 0
-    t0 = time.perf_counter()
-    report("uq", t0, f"{len(phase_uq(port, dev, args.seed + 13))} checks, "
-           "each printed above")
-    eighth = {"pairwise_kernel_matrix": rk.pairwise_kernel_matrix.launches,
-              "rbf_matvec": rk.rbf_matvec.launches}
-    check(not any(eighth.values()), f"uq launched a kernel: {eighth}")
-    print(f"[launches] ok  uq (no kernel on this path): {eighth}", flush=True)
-    torch.cuda.empty_cache()
+    def run_rpca():
+        t0 = time.perf_counter()
+        r = phase_rpca(port, dev, gen)
+        report("rpca", t0, f"200000x512 f32 rank 20: max sigma rel err "
+               f"{r['sigma_rel_err']:.3e}, component gap "
+               f"{r['component_gap']:.3e} (tol 1e-3); {r['wall_s']:.4f} s")
 
-    # 21. out-of-core streaming from host arrays: the streamed POD's fit
-    # launches the kernel matrix, its predict the matvec
-    rk.pairwise_kernel_matrix.launches = 0
-    rk.rbf_matvec.launches = 0
-    t0 = time.perf_counter()
-    n_checks = len(phase_streaming(port, dev, gen, args.seed + 14))
-    report("streaming", t0, f"{n_checks} checks, each printed above")
-    ninth = {"pairwise_kernel_matrix": rk.pairwise_kernel_matrix.launches,
-             "rbf_matvec": rk.rbf_matvec.launches}
-    for name, count in ninth.items():
-        check(count > 0, f"{name} was not launched by the streaming phase")
-    print(f"[launches] ok  streaming: {ninth}", flush=True)
-    torch.cuda.empty_cache()
+    def run_podi():
+        t0 = time.perf_counter()
+        r = phase_podi(port, rk, dev, gen)
+        report("PodI", t0, f"2000x200000 f32, 20 modes, 512 held-out t: rel "
+               f"err vs family {r['truth_rel_err']:.3e} (tol 1e-3), vs plain "
+               f"RBF path {r['plain_rel_err']:.3e} (tol 1e-4); fit "
+               f"{r['fit_s']:.4f} s, predict {r['predict_s']:.4f} s")
 
-    # 22. the statistics layer; it reaches no kernel
-    rk.pairwise_kernel_matrix.launches = 0
-    rk.rbf_matvec.launches = 0
-    t0 = time.perf_counter()
-    report("stats", t0, f"{len(phase_stats(port, dev, gen, args.seed + 15))} "
-           "checks, each printed above")
-    tenth = {"pairwise_kernel_matrix": rk.pairwise_kernel_matrix.launches,
-             "rbf_matvec": rk.rbf_matvec.launches}
-    check(not any(tenth.values()), f"stats launched a kernel: {tenth}")
-    print(f"[launches] ok  stats (no kernel on this path): {tenth}",
-          flush=True)
-    torch.cuda.empty_cache()
+    def run_rbf():
+        t0 = time.perf_counter()
+        r = phase_rbf(port, rk, dev, gen)
+        report("RbfInterp", t0, f"16384 pts 3-D linear: fit residual "
+               f"{r['fit_residual']:.3e} (tol 1e-4), fit {r['fit_s']:.4f} s; "
+               f"1048576 predictions "
+               f"{', '.join(f'{v:.4f}' for v in r['predict_1M_s'])} s, vs "
+               f"target {r['truth_rel_err']:.3e} (tol 1e-2), first 8192 vs "
+               f"plain f64: err/scale {r['plain_ratio']:.3e} "
+               f"(tol {MATVEC_RTOL[torch.float32]})")
+
+    # 8-10. dmdc, active_ss, samplers
+    def run_dmdc():
+        t0 = time.perf_counter()
+        r = phase_dmdc(port, dev, gen, args.seed + 2)
+        n_x, n_t, n_modes, _ = SIZES["dmdc"]
+        report("dmdc", t0, f"{n_x}x{n_t} f32, 2 controls, {n_modes} modes: "
+               f"fit {r['fit_s']:.4f} s (max |lambda| {r['lambda_max']:.4f});"
+               f" {n_t - 1}-step rollouts, err / max|x| (tol 1e-3): modes "
+               f"{r['modes'][0]:.3e} in {r['modes'][1]:.4f} s "
+               f"({r['modes'][1] / (n_t - 1) * 1e3:.4f} ms a step), reduced "
+               f"{r['reduced'][0]:.3e} in {r['reduced'][1]:.4f} s "
+               f"({r['reduced'][1] / (n_t - 1) * 1e3:.4f} ms a step); PyDMDc "
+               f"dense A at {SIZES['dmdc_dense']}: fit {r['dense'][2]:.4f} s,"
+               f" {r['dense'][0]:.3e} in {r['dense'][1]:.4f} s; ensemble "
+               f"{SIZES['ensemble'][0]}x{SIZES['ensemble'][1]}: fit "
+               f"{r['ens_fit_s']:.4f} s (its members fitted alone by DMDc "
+               f"{r['ens_vs_lone'][1]:.4f} s; eigenvalues "
+               f"{r['ens_vs_lone'][0]:.3e} of max|lambda| from theirs, tol "
+               f"1e-4), reduced {r['ens_reduced'][0]:.3e} in "
+               f"{r['ens_reduced'][1]:.4f} s, modes {r['ens_modes'][0]:.3e} "
+               f"in {r['ens_modes'][1]:.4f} s")
+
+    def run_active_ss():
+        t0 = time.perf_counter()
+        state["ass"] = ass = phase_active_ss(port, dev, gen)
+        n, k, n_nbr, _, _ = SIZES["active_ss"]
+        report("active_ss", t0, f"{n} samples {k}-D, order 2, {n_nbr} nbrs: "
+               f"1-|cos(w1, a)| {ass['gap']:.3e} (tol 1e-3); "
+               f"{ass['wall_s']:.4f} s")
+
+    def run_samplers():
+        t0 = time.perf_counter()
+        r = phase_samplers(port, dev, args.seed + 3)
+        n, ndim, chunk = SIZES["dirichlet"]
+        sec, acc, sum_err, z_max, n_ref = r["dirichlet"]
+        lines = [f"cs_dirichlet_sample {n}x{ndim} chunk {chunk}: {sec:.4f} "
+                 f"s, acceptance {acc:.4f}, max |sum-1| {sum_err:.1e}, means "
+                 f"within {z_max:.2f} SE of numpy ({n_ref} rows; tol 4)"]
+        for label, (chains, gens), where in DEMC_RUNS:
+            sec, ar, sum_err, route = r[label]
+            lines.append(f"cs_mcmc_dirichlet_sample {chains} chains x {gens}"
+                         f" on {where}: route {route}, {sec:.4f} s, "
+                         f"acceptance {ar:.4f} (0.3-0.7), max |sum-1| "
+                         f"{sum_err:.1e}")
+        report("samplers", t0, "; ".join(lines))
+
+    # 11-13. dream, factorize, mle
+    def run_dream():
+        t0 = time.perf_counter()
+        r = phase_dream(port, dev, args.seed + 4)
+        state["dream_rate"] = r["samples_s"]
+        chains, d, gens, n_adapt = SIZES["dream"]
+        report("dream", t0, f"{chains} chains x {d} dims x {gens} generations"
+               f" ({n_adapt} adapting) f32: {r['wall_s']:.4f} s, "
+               f"{r['ms_gen']:.4f} ms a generation, {r['samples_s']:.4e} "
+               f"samples/s; acceptance {r['accept']:.4f} (0.15-0.6), pooled "
+               f"mean {r['mean_err']:.3e} sigma off (tol 0.05), covariance "
+               f"{r['cov_err']:.3e} off (tol 0.10), rank-normalized R-hat "
+               f"{r['rhat']:.4f} (< 1.05, {r['rhat_s']:.4f} s), p_cr "
+               f"{r['p_cr']}")
+
+    def run_factorize():
+        t0 = time.perf_counter()
+        r = phase_factorize(port, dev, gen, args.seed + 5)
+        report("factorize", t0, "; ".join(
+            f"{name} {extra}: {err:.3e} (tol {FACTORIZE_TOL[name][0]}, "
+            f"{FACTORIZE_TOL[name][1]}) in {sec:.4f} s"
+            for name, rows in r.items() for sec, err, extra in rows))
+
+    def run_mle():
+        t0 = time.perf_counter()
+        report("mle", t0, "; ".join(phase_mle(port, dev, args.seed + 6)))
+
+    # 14-16. the inference layer
+    def lines_of(name, phase, offset):
+        def run():
+            t0 = time.perf_counter()
+            report(name, t0, "; ".join(phase(port, dev, args.seed + offset)))
+        return run
+
+    # 17-20. gp, rom, koopman, uq: each prints its checks
+    def checks_of(name, phase, *args_of):
+        def run():
+            t0 = time.perf_counter()
+            report(name, t0, f"{len(phase(*args_of))} checks, each printed "
+                   "above")
+        return run
 
     # 23. the multi-device layer, in spawned worlds that count their own
     # launches (from 0 before each path of the world of one)
-    names = ("pairwise_kernel_matrix", "rbf_matvec")
-    t0 = time.perf_counter()
-    par_counts, wall1, wall2 = phase_parallel(args.seed + 16)
-    eleventh = {k: sum(c[k] for c in par_counts.values()) for k in names}
-    for name, count in eleventh.items():
-        check(count > 0, f"{name} was not launched by the parallel phase")
-    par_s = time.perf_counter() - t0
-    report("parallel", t0, "NCCL world of 1 at the full shapes, 2 gloo "
-           "ranks on one card at the reduced ones; each check printed above")
-    print(f"[launches] ok  parallel (world of one, by path): {par_counts}",
-          flush=True)
+    def run_parallel():
+        t0 = time.perf_counter()
+        par_counts, wall1, wall2 = phase_parallel(args.seed + 16)
+        state["par_walls"] = (time.perf_counter() - t0, wall1, wall2)
+        report("parallel", t0, "NCCL world of 1 at the full shapes, 2 gloo "
+               "ranks on one card at the reduced ones; each check printed "
+               "above")
+        print(f"    world of one, by path: {par_counts}", flush=True)
+        return {k: sum(c[k] for c in par_counts.values()) for k in KERNELS}
 
     # 24. export: PcaRsvd.apply_tr and the DMDc rollout served from a fresh
-    # process with torch alone, then the kernel-reaching predicts (their
-    # fits, eager calls and loaded programs launch both kernels; each loaded
-    # program's launches are held to its graph's nodes inside the phase)
-    rk.pairwise_kernel_matrix.launches = 0
-    rk.rbf_matvec.launches = 0
-    t0 = time.perf_counter()
-    lines = phase_export(port, rk, dev, args.seed + 17)
-    export_s = time.perf_counter() - t0
-    report("export", t0, "; ".join(lines))
-    twelfth = {"pairwise_kernel_matrix": rk.pairwise_kernel_matrix.launches,
-               "rbf_matvec": rk.rbf_matvec.launches}
-    for name, count in twelfth.items():
-        check(count > 0, f"{name} was not launched by the export phase")
-    print(f"[launches] ok  export: {twelfth}", flush=True)
-    torch.cuda.empty_cache()
+    # process with torch alone, then the kernel-reaching predicts (each
+    # loaded program's launches are held to its graph's nodes inside)
+    def run_export():
+        t0 = time.perf_counter()
+        lines = phase_export(port, rk, dev, args.seed + 17)
+        state["export_s"] = time.perf_counter() - t0
+        report("export", t0, "; ".join(lines))
 
-    # 25. the Francis-QR eigensolver on the card; it reaches no kernel
-    rk.pairwise_kernel_matrix.launches = 0
-    rk.rbf_matvec.launches = 0
-    t0 = time.perf_counter()
-    n_checks = len(phase_eig_device(port, dev, args.seed + 18))
-    eig_s = time.perf_counter() - t0
-    report("eig_device", t0, f"{n_checks} checks, each printed above")
-    thirteenth = {"pairwise_kernel_matrix": rk.pairwise_kernel_matrix.launches,
-                  "rbf_matvec": rk.rbf_matvec.launches}
-    check(not any(thirteenth.values()),
-          f"eig_device launched a kernel: {thirteenth}")
-    print(f"[launches] ok  eig_device (no kernel on this path): "
-          f"{thirteenth}", flush=True)
-    print(f"[walls] parallel {par_s:.2f} s (NCCL world of 1 {wall1:.2f} s, "
-          f"gloo world of 2 {wall2:.2f} s), export {export_s:.2f} s, "
-          f"eig_device {eig_s:.2f} s | {smi}", flush=True)
-    torch.cuda.empty_cache()
+    # 25. the Francis-QR eigensolver on the card
+    def run_eig_device():
+        t0 = time.perf_counter()
+        n_checks = len(phase_eig_device(port, dev, args.seed + 18))
+        state["eig_s"] = time.perf_counter() - t0
+        report("eig_device", t0, f"{n_checks} checks, each printed above")
+        par_s, wall1, wall2 = state.get("par_walls", (0.0, 0.0, 0.0))
+        print(f"[walls] parallel {par_s:.2f} s (NCCL world of 1 "
+              f"{wall1:.2f} s, gloo world of 2 {wall2:.2f} s), export "
+              f"{state.get('export_s', 0.0):.2f} s, eig_device "
+              f"{state['eig_s']:.2f} s | {smi}", flush=True)
 
     # timing details and the kNN against its plain version (not counted)
-    t0 = time.perf_counter()
-    fit_r = detail_rbf_fit(rk, dev, gen)
-    torch.cuda.empty_cache()
-    knn_r = detail_active_ss(rk, dev, ass["x"], ass["y"])
-    torch.cuda.empty_cache()
-    gen_ms = detail_demc(dev, args.seed + 3)
-    report("details", t0, f"RbfInterp fit at {SIZES['rbf'][0]} points: "
-           f"saddle matrix concatenated (before) {fit_r['fit_cat']:.4f} s, "
-           f"filled in place (after) {fit_r['fit']:.4f} s; assembly alone "
-           f"{fit_r['asm_cat'] * 1e3:.3f} / {fit_r['asm_cat2'] * 1e3:.3f} ms "
-           f"against {fit_r['asm'] * 1e3:.3f} / {fit_r['asm2'] * 1e3:.3f} ms "
-           "(the same matrix, bit for bit; coefficients differ by "
-           f"{fit_r['fit_rel_diff']:.1e} of their largest); "
-           f"active_ss kNN {knn_r['knn_s']:.4f} s, grads step "
-           f"{knn_r['grads_s']:.4f} s; kNN vs plain f64 on "
-           f"{SIZES['active_ss'][4]} queries: {knn_r['tied_rows']} rows "
-           f"differ only at near-ties (gap < {KNN_TIE_RTOL} rel), distance "
-           f"rel err {knn_r['dist_rel_err']:.3e}; DEMC generation at "
-           f"{SIZES['demc'][0]} chains {gen_ms:.4f} ms")
+    def run_details():
+        t0 = time.perf_counter()
+        fit_r = detail_rbf_fit(rk, dev, gen)
+        torch.cuda.empty_cache()
+        ass = state.get("ass") or phase_active_ss(port, dev, gen)
+        knn_r = detail_active_ss(rk, dev, ass["x"], ass["y"])
+        torch.cuda.empty_cache()
+        gen_ms = detail_demc(dev, args.seed + 3)
+        report("details", t0, f"RbfInterp fit at {SIZES['rbf'][0]} points: "
+               f"saddle matrix concatenated (before) {fit_r['fit_cat']:.4f} "
+               f"s, filled in place (after) {fit_r['fit']:.4f} s; assembly "
+               f"alone {fit_r['asm_cat'] * 1e3:.3f} / "
+               f"{fit_r['asm_cat2'] * 1e3:.3f} ms against "
+               f"{fit_r['asm'] * 1e3:.3f} / {fit_r['asm2'] * 1e3:.3f} ms "
+               "(the same matrix, bit for bit; coefficients differ by "
+               f"{fit_r['fit_rel_diff']:.1e} of their largest); "
+               f"active_ss kNN {knn_r['knn_s']:.4f} s, grads step "
+               f"{knn_r['grads_s']:.4f} s; kNN vs plain f64 on "
+               f"{SIZES['active_ss'][4]} queries: {knn_r['tied_rows']} rows "
+               f"differ only at near-ties (gap < {KNN_TIE_RTOL} rel), "
+               f"distance rel err {knn_r['dist_rel_err']:.3e}; DEMC "
+               f"generation at {SIZES['demc'][0]} chains {gen_ms:.4f} ms")
 
     # 26. utils.tracing: a trace of one rsvd (taken after every per-call
     # timing: a profiler session may slow later launches)
-    t0 = time.perf_counter()
-    report("tracing", t0, check_tracing(port, dev, gen, rsvd_warm))
-    torch.cuda.empty_cache()
+    def run_tracing():
+        t0 = time.perf_counter()
+        report("tracing", t0, check_tracing(port, dev, gen,
+                                            state.get("rsvd_warm", ())))
 
     # 27. examples_torch/: every script in a fresh process on the card at
-    # its full defaults; their launch lines are the path's counts
-    t0 = time.perf_counter()
-    lines, fourteenth, example_checks, _ = phase_examples()
-    for line in lines:
-        print(f"    {line}", flush=True)
-    for c in example_checks:
-        print(f"    held to the plain version: {c['shape']}: {c['calls']} "
-              f"launches, max|err| {c['max_abs_err']:.3e}, "
-              f"{c['worst_ratio']:.3f} of the tolerance", flush=True)
-    for name, count in fourteenth.items():
-        check(count > 0, f"{name} was not launched by examples_torch/")
-    report("examples", t0, f"{len(lines)} script runs, {EXAMPLE_LANES} at "
-           f"a time, each exit 0 with every check held, every kernel launch "
-           f"({len(example_checks)} shapes) within tolerance of its plain "
-           f"version | {smi}")
-    print(f"[launches] ok  examples: {fourteenth}", flush=True)
+    # its full defaults; their launch lines are the phase's counts
+    def run_examples():
+        t0 = time.perf_counter()
+        lines, counts, checks, _ = phase_examples()
+        state["example_checks"] = checks
+        for line in lines:
+            print(f"    {line}", flush=True)
+        for c in checks:
+            print(f"    held to the plain version: {c['shape']}: "
+                  f"{c['calls']} launches, max|err| {c['max_abs_err']:.3e}, "
+                  f"{c['worst_ratio']:.3f} of the tolerance", flush=True)
+        report("examples", t0, f"{len(lines)} script runs, {EXAMPLE_LANES} "
+               f"at a time, each exit 0 with every check held, every kernel "
+               f"launch ({len(checks)} shapes) within tolerance of its plain "
+               f"version | {smi}")
+        return counts
 
-    # 28. bench_torch.py in a fresh process at its full shapes; it reaches
-    # no kernel, and its process's counts show it
-    t0 = time.perf_counter()
-    bench_lines, fifteenth = phase_bench()
-    for line in bench_lines:
-        print(f"    {json.dumps(line)}", flush=True)
-    check(not any(fifteenth.values()),
-          f"bench_torch.py launched a kernel: {fifteenth}")
-    got = {ln["metric"]: ln for ln in bench_lines}
-    report("bench", t0, "bench_torch.py: 5 metric lines, each ok, the "
-           "headline first and last; medians beside this script's warm "
-           f"walls: rsvd {got[BENCH_METRICS[0]]['value']:.4f} s (phase rsvd "
-           f"{', '.join(f'{w:.4f}' for w in rsvd_warm)} s), single_pass "
-           f"{got[BENCH_METRICS[1]]['value']:.4f} s (phase single_pass "
-           f"{', '.join(f'{w:.4f}' for w in single_pass_warm)} s), DREAM "
-           f"{got[BENCH_METRICS[3]]['value']:.4e} samples/s (phase dream "
-           f"{dream_rate:.4e}, its own target) | {smi}")
-    print(f"[launches] ok  bench (no kernel on this path): {fifteenth}",
-          flush=True)
+    # 28. bench_torch.py in a fresh process at its full shapes; its
+    # process's counts are the phase's
+    def run_bench():
+        t0 = time.perf_counter()
+        bench_lines, counts = phase_bench()
+        for line in bench_lines:
+            print(f"    {json.dumps(line)}", flush=True)
+        got = {ln["metric"]: ln for ln in bench_lines}
+        report("bench", t0, "bench_torch.py: 5 metric lines, each ok, the "
+               "headline first and last; medians beside this script's warm "
+               f"walls: rsvd {got[BENCH_METRICS[0]]['value']:.4f} s (phase "
+               f"rsvd {walls('rsvd_warm')} s), single_pass "
+               f"{got[BENCH_METRICS[1]]['value']:.4f} s (phase single_pass "
+               f"{walls('single_pass_warm')} s), DREAM "
+               f"{got[BENCH_METRICS[3]]['value']:.4e} samples/s (phase dream "
+               f"{state.get('dream_rate', float('nan')):.4e}, its own "
+               f"target), the ensemble "
+               f"{got[BENCH_METRICS[4]]['value']:.4f} s against its lone fits"
+               f" {got[BENCH_METRICS[4]]['sequential_wall']:.4f} s | {smi}")
+        return counts
+
+    bodies = {
+        "kernels": run_kernels, "rsvd": run_rsvd,
+        "single_pass": run_single_pass, "rpca": run_rpca, "podi": run_podi,
+        "rbf": run_rbf, "dmdc": run_dmdc, "active_ss": run_active_ss,
+        "samplers": run_samplers, "dream": run_dream,
+        "factorize": run_factorize, "mle": run_mle,
+        "inference": lines_of("inference", phase_inference, 7),
+        "filters": lines_of("filters", phase_filters, 8),
+        "evidence": lines_of("evidence", phase_evidence, 9),
+        "gp": checks_of("gp", phase_gp, port, dev, args.seed + 10),
+        "rom": checks_of("rom", phase_rom, port, dev, args.seed + 11),
+        "koopman": checks_of("koopman", phase_koopman, port, dev,
+                             args.seed + 12),
+        "uq": checks_of("uq", phase_uq, port, dev, args.seed + 13),
+        "streaming": checks_of("streaming", phase_streaming, port, dev, gen,
+                               args.seed + 14),
+        "stats": checks_of("stats", phase_stats, port, dev, gen,
+                           args.seed + 15),
+        "parallel": run_parallel, "export": run_export,
+        "eig_device": run_eig_device, "details": run_details,
+        "tracing": run_tracing, "examples": run_examples, "bench": run_bench}
+
+    # every counted phase runs with both launch counts from 0, read just
+    # after it (or handed back by the processes it spawned)
+    launches = {}
+    for name in selected:
+        rk.pairwise_kernel_matrix.launches = 0
+        rk.rbf_matvec.launches = 0
+        counts = bodies[name]()
+        if name not in UNCOUNTED:
+            if counts is None:
+                counts = {"pairwise_kernel_matrix":
+                          rk.pairwise_kernel_matrix.launches,
+                          "rbf_matvec": rk.rbf_matvec.launches}
+            need = MUST_LAUNCH.get(name, ())
+            if need is None:
+                check(not any(counts.values()),
+                      f"{name} launched a kernel: {counts}")
+            for kernel in need or ():
+                check(counts[kernel] > 0,
+                      f"{kernel} was not launched by the {name} phase")
+            launches[name] = counts
+            held = ("no kernel on this path" if need is None else
+                    f"must launch {', '.join(need)}" if need else "counted")
+            print(f"[launches] ok  {name} ({held}): {counts}", flush=True)
+        torch.cuda.empty_cache()
 
     # a kernel's numbers are those of its largest main-path shape (by
-    # bound); "shapes" holds every timed shape, "launches" both paths'
-    # counts
-    paths = {"rsvd/rpca/PodI/RbfInterp": first,
-             "dmdc/active_ss/samplers": second,
-             "dream/factorize/mle": third,
-             "inference/filters/evidence": fourth, "gp": fifth,
-             "rom": sixth, "koopman": seventh, "uq": eighth,
-             "streaming": ninth, "stats": tenth, "parallel": eleventh,
-             "export": twelfth, "eig_device": thirteenth,
-             "examples": fourteenth, "bench": fifteenth}
-    table = {"kernels": []}
-    for name in ("pairwise_kernel_matrix", "rbf_matvec"):
-        top = max((row for row in timings[name] if row["main_path"]),
-                  key=lambda row: row["bound_ms"])
+    # bound); "shapes" holds every timed shape, "launches" every counted
+    # phase's; "phases" says which phases ran
+    timings = state.get("timings", {})
+    table = {"phases": ["device", "build", *selected], "kernels": []}
+    for name in KERNELS:
+        main_rows = [row for row in timings.get(name, ())
+                     if row["main_path"]]
+        top = max(main_rows, key=lambda row: row["bound_ms"]) \
+            if main_rows else {}
         table["kernels"].append({
             "name": name, "route": "cuda", "source": SOURCE[name],
             "replaces": REPLACES[name],
-            "launches": sum(p[name] for p in paths.values()),
-            "launches_by_path": {k: p[name] for k, p in paths.items()},
-            **{key: top[key] for key in ("max_abs_err", "ms", "plain_ms",
-                                         "bound_ms", "bound_by",
-                                         "library_ms")},
-            "shapes": timings[name],
+            "launches": sum(c[name] for c in launches.values()),
+            "launches_by_path": {k: c[name] for k, c in launches.items()},
+            **{key: top.get(key) for key in ("max_abs_err", "ms",
+                                             "plain_ms", "bound_ms",
+                                             "bound_by", "library_ms")},
+            "shapes": timings.get(name, []),
             # the examples' launches, each held to the plain version in
             # its own process (no timing)
-            "examples_checked": [c for c in example_checks
+            "examples_checked": [c for c in state.get("example_checks", ())
                                  if c["shape"].startswith(name + " ")]})
     print(json.dumps(table))
     print(smi)

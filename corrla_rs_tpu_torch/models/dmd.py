@@ -22,7 +22,9 @@ forms: the mode prefactor is (X' V) (S^+ U_1^T U^), not ((X' V S^+) U_1^T) U^.
 Rollouts are loops over steps of a few matrix-vector products on the
 device, with no synchronisation inside the loop. ``dmdc_fit_ensemble``
 fits the members one after another and takes their eigendecompositions in
-one batched call; ``rollout_ensemble`` steps all members at once.
+one batched call (``_dmdc_reduce`` also fits a member stack in one batched
+pass, which the ensemble does not take: see its docstring);
+``rollout_ensemble`` steps all members at once.
 
 ``DMDc(mesh=)`` shards the state axis over a 1-D ``DeviceMesh``, every rank
 of the mesh making the same call (``_dmdc_reduce_sharded``). Both RSVDs are
@@ -44,7 +46,8 @@ import torch
 
 from corrla_rs_tpu_torch.ops.eig import eig, eig_host
 from corrla_rs_tpu_torch.ops.mat_utils import pinv_comp_parts, pinv_diag
-from corrla_rs_tpu_torch.ops.random_svd import random_svd
+from corrla_rs_tpu_torch.ops.random_svd import _random_svd_members, \
+    random_svd
 from corrla_rs_tpu_torch.utils.config import DmdConfig
 from corrla_rs_tpu_torch.utils.device import _is_dtensor, as_tensor
 from corrla_rs_tpu_torch.utils.prng import split_seed
@@ -76,34 +79,52 @@ def _check_shape(name: str, t: torch.Tensor, rows: int, cols=None) -> None:
         raise ValueError(f"{name} must be {want}, got {tuple(t.shape)}")
 
 
+def _inv_sigma(s):
+    """``pinv_diag``'s cutoff on the singular values (..., r) themselves:
+    |s| < 1e-20 maps to 0, else to 1 / (s + 1e-20)."""
+    return torch.where(s.abs() < 1.0e-20, torch.zeros_like(s),
+                       1.0 / (s + 1.0e-20))
+
+
 def _dmdc_reduce(x, u, n_modes, n_iters, n_oversamples, key):
     """Stage 1: both RSVDs and the reduced operators (eqs. 29-30).
 
-    Returns (a_til (r, r), b_op (n_x, n_u), tmp_modes_scale (n_x, r),
-    u_hat (n_x, r)).
+    x (n_x, n_t) and u (n_u, n_t) with one ``key``, or member stacks
+    (B, n_x, n_t) and (B, n_u, n_t) with a sequence of B keys: then every
+    member is fitted in one batched pass (``random_svd._random_svd_members``),
+    member b seeded by ``keys[b]`` as a lone fit with that key, and equal to
+    it up to rounding, which only a member with fewer supported modes than
+    ``n_modes`` amplifies (see ``dmdc_fit_ensemble``).
+
+    Returns (a_til (..., r, r), b_op (..., n_x, n_u), tmp_modes_scale
+    (..., n_x, r), u_hat (..., n_x, r)).
     """
-    n_x, n_u = x.shape[0], u.shape[0]
-    omega = torch.cat([x, u], dim=0)
-    x_in = omega[:, :-1]              # input space (state + control)
-    y_out = x[:, 1:]                  # output space (state only)
-    k1, k2 = _split_seed(key, 2, x.device)
-    u_til, s_til, vt_til = random_svd(x_in, n_modes, n_iters, n_oversamples,
-                                      key=k1)
+    n_x, n_u = x.shape[-2], u.shape[-2]
+    omega = torch.cat([x, u], dim=-2)
+    x_in = omega[..., :-1]            # input space (state + control)
+    y_out = x[..., 1:]                # output space (state only)
+    if x.ndim == 3:
+        k1, k2 = zip(*(_split_seed(k, 2, x.device) for k in key))
+        svd = _random_svd_members
+    else:
+        k1, k2 = _split_seed(key, 2, x.device)
+        svd = random_svd
+    u_til, s_til, vt_til = svd(x_in, n_modes, n_iters, n_oversamples, k1)
     v_til = vt_til.mT
-    u_til_1 = u_til[:n_x, :]
-    u_til_2 = u_til[n_x:n_x + n_u, :]
-    u_hat, _s, _vt = random_svd(y_out, n_modes, n_iters, n_oversamples,
-                                key=k2)
-    s_til_inv = pinv_diag(torch.diag(s_til))
+    u_til_1 = u_til[..., :n_x, :]
+    u_til_2 = u_til[..., n_x:n_x + n_u, :]
+    u_hat, _s, _vt = svd(y_out, n_modes, n_iters, n_oversamples, k2)
+    # S~^+ (pinv_diag of diag(s_til)) applied as a column / row scale
+    s_til_inv = _inv_sigma(s_til)
     y_v = y_out @ v_til                                    # (n_x, r)
     # eq. 29 (dmd_rom.rs:90-97)
-    tmp_op_scale = (u_hat.mT @ y_v) @ s_til_inv
+    tmp_op_scale = (u_hat.mT @ y_v) * s_til_inv[..., None, :]
     u1t_uhat = u_til_1.mT @ u_hat                          # (r, r)
     a_til = tmp_op_scale @ u1t_uhat
     # eq. 30 (dmd_rom.rs:100-106)
     b_op = u_hat @ (tmp_op_scale @ u_til_2.mT)
     # eq. 36 mode prefactor (dmd_rom.rs:134-139)
-    tmp_modes_scale = y_v @ (s_til_inv @ u1t_uhat)
+    tmp_modes_scale = y_v @ (s_til_inv[..., :, None] * u1t_uhat)
     return a_til, b_op, tmp_modes_scale, u_hat
 
 
@@ -441,12 +462,23 @@ def dmdc_fit_ensemble(x_batch, u_batch, n_modes: int, n_iters: int, key=0,
 
     x_batch: (B, n_x, n_t); u_batch: (B, n_u, n_t). Member b's RSVD seeds
     are the children of the b-th child of ``key``, as the JAX package splits
-    its keys. The members' eigendecompositions run as one batched
+    its keys, and its reduction is ``DMDc``'s with that child, so member b is
+    ``DMDc`` fitted alone with it, up to the eig backend. The members are
+    reduced one after another; their eigendecompositions run as one batched
     ``torch.linalg.eig`` on the device, and the factored dynamics use the
-    dtype-aware cutoff of ``pinv_comp_parts``. Returns a dict of batched
-    tensors: ``lambdas_re/lambdas_im`` (B, r), ``modes_re/modes_im``
-    (B, n_x, r), ``a_til`` (B, r, r), ``b_op`` (B, n_x, n_u), ``u_hat``
-    (B, n_x, r), ``w_re/w_im`` (B, r, n_x), ready for ``rollout_ensemble``.
+    dtype-aware cutoff of ``pinv_comp_parts``.
+
+    The JAX package fits the members as one ``jit(vmap)`` program. The port
+    has that batched pass (``_dmdc_reduce`` on the member stack, 3-19x
+    faster than the loop on an H100) but does not take it: where a member
+    has fewer supported modes than ``n_modes`` in f32, its trailing
+    eigenvalues are set by rounding, and only the lone fit's own arithmetic
+    reproduces them (ROADMAP, "Differences by design").
+
+    Returns a dict of batched tensors: ``lambdas_re/lambdas_im`` (B, r),
+    ``modes_re/modes_im`` (B, n_x, r), ``a_til`` (B, r, r), ``b_op``
+    (B, n_x, n_u), ``u_hat`` (B, n_x, r), ``w_re/w_im`` (B, r, n_x), ready
+    for ``rollout_ensemble``.
 
     ``x_batch`` a DTensor sharded along the members (``Shard(0)`` on a 1-D
     mesh; every rank calls): each rank fits its own members, member b

@@ -62,6 +62,9 @@ def _cholesky_qr2(y: torch.Tensor) -> torch.Tensor:
     and the choice is a ``torch.where`` on the device, so no round
     synchronises with the host. The small-ridge result also counts as failed
     if it holds a non-finite value, which is what the JAX package tests.
+
+    ``y`` may carry leading batch dimensions (a stack of members): every
+    norm, Gram and ridge choice is then taken per member.
     """
     if y.dtype == torch.float32:
         # the big ridge must exceed the worst negative eigenvalue of a
@@ -70,17 +73,17 @@ def _cholesky_qr2(y: torch.Tensor) -> torch.Tensor:
         eps_small, eps_big, tiny = 1e-7, 1e-2, 1e-30
     else:
         eps_small, eps_big, tiny = 1e-15, 1e-8, 1e-290
-    eye = torch.eye(y.shape[1], dtype=y.dtype, device=y.device)
+    eye = torch.eye(y.shape[-1], dtype=y.dtype, device=y.device)
 
     def one_round(y):
-        cn = torch.linalg.vector_norm(y, dim=0).clamp_min(tiny)
-        ys = y / cn[None, :]
+        cn = torch.linalg.vector_norm(y, dim=-2, keepdim=True).clamp_min(tiny)
+        ys = y / cn
         g = ys.mT @ ys
         r_small, info = torch.linalg.cholesky_ex(g + eps_small * eye,
                                                  upper=True)
-        ok = (info == 0) & torch.isfinite(r_small).all()
+        ok = (info == 0) & torch.isfinite(r_small).all(dim=(-2, -1))
         r_big, _ = torch.linalg.cholesky_ex(g + eps_big * eye, upper=True)
-        r = torch.where(ok, r_small, r_big)
+        r = torch.where(ok[..., None, None], r_small, r_big)
         return torch.linalg.solve_triangular(r, ys, upper=True, left=False)
 
     return one_round(one_round(one_round(y)))
@@ -89,6 +92,31 @@ def _cholesky_qr2(y: torch.Tensor) -> torch.Tensor:
 def _thin_qr(y: torch.Tensor, qr_method: str = "householder") -> torch.Tensor:
     if qr_method == "cholesky":
         return _cholesky_qr2(y)
+    return _householder_qr(y)
+
+
+def _resolve(dtype, stabilize: str, qr_method: str):
+    """``stabilize`` and ``qr_method`` with 'auto' resolved for ``dtype``."""
+    if stabilize == "auto":
+        stabilize = "always" if dtype == torch.float32 else "reference"
+    if qr_method == "auto":
+        qr_method = "cholesky" if stabilize == "always" else "householder"
+    return stabilize, qr_method
+
+
+def _range_finder(a, omega, n_iter: int, stabilize: str, qr_method: str):
+    """Q of the power iteration started from the sketch ``omega``; ``a``
+    and ``omega`` may carry the same leading batch dimensions."""
+    y = a @ omega
+    for i in range(n_iter):
+        if stabilize == "always" or i > 2:
+            y = _thin_qr(y, qr_method)
+        y = a @ (a.mT @ y)
+        # guard: a zero panel (e.g. A == 0) must not produce 0/0 = NaN
+        y = y / torch.linalg.vector_norm(y, dim=(-2, -1),
+                                         keepdim=True).clamp_min(1e-30)
+    # the final orthonormalization sets B = Q^T A and every sigma after it:
+    # exact Householder even on the cholesky fast path
     return _householder_qr(y)
 
 
@@ -106,21 +134,15 @@ def power_iter(a: torch.Tensor, omega_rank: int, n_iter: int, key=0,
     """
     a = as_tensor(a)
     n, m = a.shape
-    if stabilize == "auto":
-        stabilize = "always" if a.dtype == torch.float32 else "reference"
-    if qr_method == "auto":
-        qr_method = "cholesky" if stabilize == "always" else "householder"
     omega = _draw_sketch(key, (m, omega_rank), a.dtype, a.device)
-    y = a @ omega
-    for i in range(n_iter):
-        if stabilize == "always" or i > 2:
-            y = _thin_qr(y, qr_method)
-        y = a @ (a.mT @ y)
-        # guard: a zero panel (e.g. A == 0) must not produce 0/0 = NaN
-        y = y / torch.linalg.vector_norm(y).clamp_min(1e-30)
-    # the final orthonormalization sets B = Q^T A and every sigma after it:
-    # exact Householder even on the cholesky fast path
-    return _householder_qr(y)
+    return _range_finder(a, omega, n_iter,
+                         *_resolve(a.dtype, stabilize, qr_method))
+
+
+def _widths(aa, omega_rank: int, n_oversamples: int):
+    """(sketch rank, returned rank) of ``random_svd`` on the tall ``aa``."""
+    sketch_rank = min(omega_rank + n_oversamples, aa.shape[-1])
+    return sketch_rank, min(omega_rank, sketch_rank)
 
 
 def random_svd(a: torch.Tensor, omega_rank: int, n_iter: int,
@@ -134,10 +156,31 @@ def random_svd(a: torch.Tensor, omega_rank: int, n_iter: int,
     a = as_tensor(a)
     fat = a.shape[0] < a.shape[1]
     aa = a.mT if fat else a
-    sketch_rank = min(omega_rank + n_oversamples, aa.shape[1])
-    rank = min(omega_rank, sketch_rank)
+    sketch_rank, rank = _widths(aa, omega_rank, n_oversamples)
     q = power_iter(aa, sketch_rank, n_iter, key=key, stabilize=stabilize,
                    qr_method=qr_method)
+    u_b, s, vt = torch.linalg.svd(q.mT @ aa, full_matrices=False)
+    return _truncate(q @ u_b, s, vt, rank, fat)
+
+
+def _random_svd_members(a: torch.Tensor, omega_rank: int, n_iter: int,
+                        n_oversamples: int, keys, stabilize: str = "auto",
+                        qr_method: str = "auto"):
+    """``random_svd`` of every member of the stack ``a`` (B, n, m) in one
+    batched pass: U (B, n, r), s (B, r), Vt (B, r, m).
+
+    Member b draws its sketch from ``keys[b]``, as ``random_svd(a[b],
+    key=keys[b])`` would; the draws are stacked and every product, QR,
+    Cholesky and SVD after them is one call over the member axis, with
+    each norm and ridge choice taken per member.
+    """
+    fat = a.shape[-2] < a.shape[-1]
+    aa = a.mT if fat else a
+    sketch_rank, rank = _widths(aa, omega_rank, n_oversamples)
+    omega = torch.stack([_draw_sketch(k, (aa.shape[-1], sketch_rank),
+                                      aa.dtype, aa.device) for k in keys])
+    q = _range_finder(aa, omega, n_iter,
+                      *_resolve(aa.dtype, stabilize, qr_method))
     u_b, s, vt = torch.linalg.svd(q.mT @ aa, full_matrices=False)
     return _truncate(q @ u_b, s, vt, rank, fat)
 
@@ -145,8 +188,8 @@ def random_svd(a: torch.Tensor, omega_rank: int, n_iter: int,
 def _truncate(u, s, vt, rank: int, fat: bool):
     if fat:
         # A = V S (Q U_B)^T   since A^T ~= (Q U_B) S V^T
-        return vt.mT[:, :rank], s[:rank], u.mT[:rank, :]
-    return u[:, :rank], s[:rank], vt[:rank, :]
+        return vt.mT[..., :rank], s[..., :rank], u.mT[..., :rank, :]
+    return u[..., :rank], s[..., :rank], vt[..., :rank, :]
 
 
 def block_krylov_svd(a: torch.Tensor, rank: int, n_iter: int,

@@ -126,3 +126,18 @@ def test_chip_smoke_fails_without_cuda(tmp_path):
                            env={k: v for k, v in os.environ.items()
                                 if k != "PYTHONPATH"})
     assert alone.returncode != 0 and '"ok"' not in alone.stdout
+
+
+def test_chip_smoke_phase_selector():
+    # --phases runs the named phases in their usual order after device and
+    # build; an unknown name exits 2 and lists the valid ones
+    proc = _run([os.path.join(ROOT, "chip_smoke.py"), "--phases",
+                 "bench,nope"])
+    assert proc.returncode == 2 and '"ok"' not in proc.stdout
+    assert "nope" in proc.stderr and "dmdc, active_ss" in proc.stderr
+    proc = _run("import argparse, chip_smoke as c\n"
+                "print(c.parse_phases(argparse.ArgumentParser(),\n"
+                "                     'bench, dmdc,build'))\n"
+                "print(c.parse_phases(argparse.ArgumentParser(),\n"
+                "                     ','.join(c.PHASES)) == list(c.PHASES))\n")
+    assert proc.stdout.split("\n")[:2] == ["['dmdc', 'bench']", "True"]
