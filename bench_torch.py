@@ -33,8 +33,14 @@ Metrics (bench.py's names and shapes):
 - ensemble_dmdc_16x_wall: ``models.dmd.dmdc_fit_ensemble`` of 16 members x
   20 states x 40 snapshots (6 modes, 20 iterations, key 2); baseline the
   16 members fitted one after another by ``DMDc``, timed in the same run;
-  checked: each member's eigenvalues equal the lone fit's to 1e-4 of its
-  largest |lambda|.
+  checked (``ensemble_check``), for each member, what its data determine:
+  the eigenvalues of the modes its output snapshots support equal the lone
+  fit's to 1e-4 of its largest |lambda| (all of them where the data
+  support every mode, else those of the fit projected onto the supported
+  subspace, each matched to a reported eigenvalue of the other fit), and
+  the one-step residual R = X' - U^ A~ U^T X - B U: ||R|| / ||X'|| <= 1e-4
+  where the data support at most 6 modes (bench.py's support 2), and
+  ||R - R_lone|| / ||X'|| <= 1e-4 for every member.
 
 Each line holds bench.py's keys (metric, value, unit, vs_baseline,
 baseline) and ``check`` (each measured error with its limit), ``ok``,
@@ -107,6 +113,10 @@ SUM_TOL = 1e-6
 DREAM_ACCEPT = (0.15, 0.6)
 DREAM_MEAN_TOL, DREAM_COV_TOL, DREAM_RHAT = 0.05, 0.10, 1.05
 ENSEMBLE_EIG_RTOL = 1e-4
+ENSEMBLE_RESIDUAL_TOL = 1e-4
+# a singular value of X' above SUPPORT_EPS * eps(fit dtype) * sigma_1 is a
+# mode the data support
+SUPPORT_EPS = 1e3
 
 
 def sizes(smoke: bool) -> dict:
@@ -385,21 +395,131 @@ def bench_dream(b: Bench) -> dict:
              rhat < DREAM_RHAT, False)])
 
 
-def ensemble_eig_err(fit: dict, singles: list) -> float:
-    """Largest distance, over the members, from an eigenvalue of the
-    ensemble's member to the nearest of the lone fit's and back, over the
-    lone fit's largest |lambda| (no ordering of the two sets needed)."""
-    lam = (fit["lambdas_re"].double()
-           + 1j * fit["lambdas_im"].double()).cpu().numpy()
-    if len(lam) != len(singles):
-        return float("inf")
+def eig_gap(got, want) -> float:
+    """Largest distance from an eigenvalue of ``got`` to the nearest of
+    ``want`` and back, over ``want``'s largest |lambda| (no ordering of the
+    two sets needed)."""
+    d = np.abs(np.asarray(got)[:, None] - np.asarray(want)[None, :])
+    return float(max(d.min(1).max(), d.min(0).max()) / np.abs(want).max())
+
+
+def _one_way(points, reported) -> float:
+    """Largest distance from a point to the nearest reported eigenvalue."""
+    if len(points) == 0:
+        return 0.0
+    return float(np.abs(points[:, None] - reported[None, :]).min(1).max())
+
+
+def _lambdas(fit: dict) -> np.ndarray:
+    return (fit["lambdas_re"].double()
+            + 1j * fit["lambdas_im"].double()).cpu().numpy()
+
+
+def supported_subspaces(y, eps: float) -> list:
+    """For each member of y (B, n_x, m), the f64 left singular vectors of
+    the singular values above ``SUPPORT_EPS * eps * sigma_1``."""
+    y = y.double()
+    if y.shape[-2] > y.shape[-1]:
+        q, r = torch.linalg.qr(y)
+        w, s, _ = torch.linalg.svd(r)
+        w = q @ w
+    else:
+        w, s, _ = torch.linalg.svd(y, full_matrices=False)
+    keep = (s > SUPPORT_EPS * eps * s[:, :1]).sum(1).tolist()
+    return [wb[:, :k] for wb, k in zip(w, keep)]
+
+
+def _projected(fit: dict, b: int, q) -> np.ndarray:
+    """Eigenvalues of member b's operator U^ A~ U^T on the subspace q:
+    those of Q^T U^ A~ U^T Q."""
+    qu = q.mT @ fit["u_hat"][b].double()
+    m = qu @ fit["a_til"][b].double() @ qu.mT
+    return np.linalg.eigvals(m.cpu().numpy())
+
+
+def ensemble_check(x_b, u_b, fit: dict, lone: dict) -> dict:
+    """What member b's data determine, held between two fits of the same
+    data: ``fit`` (the ensemble) and ``lone`` (its members fitted alone),
+    each a dict of stacked ``lambdas_re/lambdas_im`` (B, r), ``a_til``
+    (B, r, r), ``u_hat`` (B, n_x, r) and ``b_op`` (B, n_x, n_u).
+
+    k_b, the modes the data support, counts the f64 singular values of
+    X' = x[:, 1:] above 1e3 eps sigma_1 (eps of the coarser dtype of the
+    two fits). Where k_b >= r, all r eigenvalues of the two fits are
+    matched both ways. Where k_b < r, the trailing eigenvalues are set by
+    rounding; each fit's operator is projected onto the k_b leading left
+    singular vectors Q of X', and every projected eigenvalue of the lone
+    fit must lie near a reported eigenvalue of the ensemble and every one
+    of the ensemble near a reported one of the lone fit. Both are over the
+    lone fit's largest |lambda|.
+
+    The one-step residual R = X' - U^ A~ U^T X - B U (f64, X = x[:, :-1],
+    U = u[:, :-1]) is held two ways: where k_b <= r an exact r-mode model
+    of the data exists, so ||R||_F / ||X'||_F itself must be small; for
+    every member the two fits' residuals must agree, ||R - R_lone||_F /
+    ||X'||_F (the gap of their one-step predictions on the data), since
+    where k_b > r both carry the same truncation error.
+
+    Returns {"eig_err": largest over the members, "residual": the largest
+    ||R|| / ||X'||, "exact_residual": the largest over the members with
+    k_b <= r (0 if none), "vs_lone": the largest prediction gap,
+    "supported": [k_b, ...]}.
+    """
+    r = fit["a_til"].shape[-1]
+    eps = max(float(torch.finfo(fit["a_til"].dtype).eps),
+              float(torch.finfo(lone["a_til"].dtype).eps))
+    x = torch.as_tensor(x_b).double()
+    u = torch.as_tensor(u_b, device=x.device).double()
+    y = x[..., 1:]
+    subspaces = supported_subspaces(y, eps)
+    supported = [q.shape[1] for q in subspaces]
+    lam, lam_1 = _lambdas(fit), _lambdas(lone)
+    if lam.shape != lam_1.shape or lam.shape[0] != x.shape[0]:
+        inf = float("inf")
+        return {"eig_err": inf, "residual": inf, "exact_residual": inf,
+                "vs_lone": inf, "supported": supported}
     gaps = []
-    for got, one in zip(lam, singles):
-        want = np.asarray(one.lambdas, dtype=np.complex128)
-        d = np.abs(got[:, None] - want[None, :])
-        gaps.append(max(d.min(1).max(), d.min(0).max())
-                    / np.abs(want).max())
-    return float(np.max(gaps))
+    for b, q in enumerate(subspaces):
+        scale = max(float(np.abs(lam_1[b]).max()), 1e-300)
+        if q.shape[1] >= r:
+            gaps.append(eig_gap(lam[b], lam_1[b]))
+            continue
+        gaps.append(max(_one_way(_projected(lone, b, q), lam[b]),
+                        _one_way(_projected(fit, b, q), lam_1[b])) / scale)
+    res, res_1 = one_step_residuals(fit, x, u), one_step_residuals(lone, x, u)
+    norm = torch.linalg.matrix_norm(y).clamp_min(1e-300)
+    rel = torch.linalg.matrix_norm(res) / norm
+    exact = [float(rel[b]) for b, k in enumerate(supported) if k <= r]
+    return {"eig_err": float(np.max(gaps)), "residual": float(rel.max()),
+            "exact_residual": max(exact, default=0.0),
+            "vs_lone": float((torch.linalg.matrix_norm(res - res_1)
+                              / norm).max()),
+            "supported": supported}
+
+
+def one_step_residuals(fit: dict, x, u):
+    """Each member's X' - U^ A~ U^T X - B U in f64, with X = x[:, :-1],
+    X' = x[:, 1:] and U = u[:, :-1]."""
+    u_hat = fit["u_hat"].to(x.device).double()
+    a_til = fit["a_til"].to(x.device).double()
+    return (x[..., 1:] - u_hat @ (a_til @ (u_hat.mT @ x[..., :-1]))
+            - fit["b_op"].to(x.device).double() @ u[..., :-1])
+
+
+def ensemble_held(held: dict) -> bool:
+    """Whether ``ensemble_check``'s result holds at the bench's limits."""
+    return (held["eig_err"] <= ENSEMBLE_EIG_RTOL
+            and held["exact_residual"] <= ENSEMBLE_RESIDUAL_TOL
+            and held["vs_lone"] <= ENSEMBLE_RESIDUAL_TOL)
+
+
+def stacked(singles: list) -> dict:
+    """Lone ``DMDc`` fits as an ensemble fit's dict of stacked tensors."""
+    lam = torch.as_tensor(np.stack([m.lambdas for m in singles]))
+    return {"lambdas_re": lam.real, "lambdas_im": lam.imag,
+            "a_til": torch.stack([m._A for m in singles]),
+            "u_hat": torch.stack([m._u_hat for m in singles]),
+            "b_op": torch.stack([m.est_b_til() for m in singles])}
 
 
 def lone_fits(ens, u_b) -> list:
@@ -429,15 +549,23 @@ def bench_ensemble_dmdc(b: Bench) -> dict:
     shaped = (tuple(fit["lambdas_re"].shape) == (n_mem, r)
               and tuple(fit["modes_re"].shape) == (n_mem, nx, r)
               and _finite(*fit.values()))
-    err = ensemble_eig_err(fit, singles)
+    held = ensemble_check(ens, u_b, fit, stacked(singles))
+    err, exact, gap = (held[k] for k in ("eig_err", "exact_residual",
+                                          "vs_lone"))
+    tol = ENSEMBLE_RESIDUAL_TOL
     return b.line(
         "ensemble_dmdc_16x_wall", walls, wall, "s", seq / wall,
         f"sequential_dmdc_fits_measured_{seq:.4f}s", [
             ("finite_and_shapes", shaped, True, shaped, True),
-            ("eig_err_vs_lone_fits", err,
+            ("eig_err_supported_vs_lone_fits", err,
              f"<= {ENSEMBLE_EIG_RTOL} of max|lambda|",
-             err <= ENSEMBLE_EIG_RTOL, True)],
-        sequential_wall=seq, sequential_runs=seq_walls)
+             err <= ENSEMBLE_EIG_RTOL, True),
+            ("one_step_residual", exact,
+             f"<= {tol} where the data support at most {r} modes",
+             exact <= tol, True),
+            ("one_step_vs_lone_fits", gap, f"<= {tol}", gap <= tol, True)],
+        sequential_wall=seq, sequential_runs=seq_walls,
+        supported_modes=held["supported"])
 
 
 def phases(b: Bench) -> list:

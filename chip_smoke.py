@@ -45,10 +45,11 @@ time, and any failure raises (exit code != 0):
    2 controls, 8 latent states), 10 modes, rolled out 1,000 steps by the
    'modes' and 'reduced' methods; PyDMDc's dense-A rollout at 20,000
    states; dmdc_fit_ensemble and rollout_ensemble over 8 members of 20,000
-   states. Each against the true trajectory; the ensemble's members'
-   eigenvalues also against DMDc fitted alone on each member with the
-   member's child key (bench_torch.py's 1e-4 of max|lambda|), with both
-   walls;
+   states. Each against the true trajectory; the ensemble (one batched
+   pass) also against DMDc fitted alone on each member with the member's
+   child key, by bench_torch.ensemble_check (the supported modes'
+   eigenvalues to 1e-4 of max|lambda|, the one-step residual and its gap
+   to the lone fits' to 1e-4), with both walls;
 9. active_ss: api.active_ss on 32,768 samples in 8-D of y = exp(0.3 a.x),
    order 2, 64 neighbours (the kNN distance tile goes through the kernel
    matrix; the 32,768 local fits through the batched Jacobi pinv), the
@@ -1470,18 +1471,17 @@ def phase_dmdc(port, dev, gen, seed):
     fit, fit_e = wall(lambda: port.dmdc_fit_ensemble(xb, ub, n_modes,
                                                      n_iters, key=seed))
     # each member against DMDc fitted alone with the member's child key,
-    # at bench_torch.py's limit
-    from bench_torch import ENSEMBLE_EIG_RTOL, ensemble_eig_err
+    # by bench_torch.py's check: what the member's data determine
+    from bench_torch import ensemble_check, ensemble_held, stacked
     from corrla_rs_tpu_torch.models import dmd
 
     keys = dmd._split_seed(seed, n_b, dev)
     singles, lone_s = wall(lambda: [
         port.DMDc(x, ui, n_modes, n_iters, key=k)
         for x, ui, k in zip(xb, ub, keys)])
-    eig_err = ensemble_eig_err(fit, singles)
-    check(eig_err <= ENSEMBLE_EIG_RTOL, f"ensemble eigenvalues {eig_err:.3e} "
-          f"of max|lambda| from the lone fits > {ENSEMBLE_EIG_RTOL}")
-    out["ens_vs_lone"] = (eig_err, lone_s)
+    held = ensemble_check(xb, ub, fit, stacked(singles))
+    check(ensemble_held(held), f"ensemble against its lone fits: {held}")
+    out["ens_vs_lone"] = (held, lone_s)
     del singles
     for method in ("reduced", "modes"):
         pred, sec = wall(lambda: port.rollout_ensemble(
@@ -6248,6 +6248,7 @@ def main(argv=None) -> int:
     def run_dmdc():
         t0 = time.perf_counter()
         r = phase_dmdc(port, dev, gen, args.seed + 2)
+        held = r["ens_vs_lone"][0]
         n_x, n_t, n_modes, _ = SIZES["dmdc"]
         report("dmdc", t0, f"{n_x}x{n_t} f32, 2 controls, {n_modes} modes: "
                f"fit {r['fit_s']:.4f} s (max |lambda| {r['lambda_max']:.4f});"
@@ -6259,10 +6260,12 @@ def main(argv=None) -> int:
                f"dense A at {SIZES['dmdc_dense']}: fit {r['dense'][2]:.4f} s,"
                f" {r['dense'][0]:.3e} in {r['dense'][1]:.4f} s; ensemble "
                f"{SIZES['ensemble'][0]}x{SIZES['ensemble'][1]}: fit "
-               f"{r['ens_fit_s']:.4f} s (its members fitted alone by DMDc "
-               f"{r['ens_vs_lone'][1]:.4f} s; eigenvalues "
-               f"{r['ens_vs_lone'][0]:.3e} of max|lambda| from theirs, tol "
-               f"1e-4), reduced {r['ens_reduced'][0]:.3e} in "
+               f"{r['ens_fit_s']:.4f} s batched (its members fitted alone "
+               f"by DMDc {r['ens_vs_lone'][1]:.4f} s; supported modes "
+               f"{held['supported']}, their eigenvalues "
+               f"{held['eig_err']:.3e} of max|lambda| from theirs, one-step "
+               f"residual {held['residual']:.3e}, {held['vs_lone']:.3e} from "
+               f"theirs, tol 1e-4 each), reduced {r['ens_reduced'][0]:.3e} in "
                f"{r['ens_reduced'][1]:.4f} s, modes {r['ens_modes'][0]:.3e} "
                f"in {r['ens_modes'][1]:.4f} s")
 

@@ -21,9 +21,8 @@ The products of eq. 36 are reassociated so that no (n_x, n_x) intermediate
 forms: the mode prefactor is (X' V) (S^+ U_1^T U^), not ((X' V S^+) U_1^T) U^.
 Rollouts are loops over steps of a few matrix-vector products on the
 device, with no synchronisation inside the loop. ``dmdc_fit_ensemble``
-fits the members one after another and takes their eigendecompositions in
-one batched call (``_dmdc_reduce`` also fits a member stack in one batched
-pass, which the ensemble does not take: see its docstring);
+fits a stack of members in one batched pass (``_dmdc_reduce`` over a
+leading member axis, one batched eigendecomposition);
 ``rollout_ensemble`` steps all members at once.
 
 ``DMDc(mesh=)`` shards the state axis over a 1-D ``DeviceMesh``, every rank
@@ -46,7 +45,7 @@ import torch
 
 from corrla_rs_tpu_torch.ops.eig import eig, eig_host
 from corrla_rs_tpu_torch.ops.mat_utils import pinv_comp_parts, pinv_diag
-from corrla_rs_tpu_torch.ops.random_svd import _random_svd_members, \
+from corrla_rs_tpu_torch.ops.random_svd import _mm, _random_svd_members, \
     random_svd
 from corrla_rs_tpu_torch.utils.config import DmdConfig
 from corrla_rs_tpu_torch.utils.device import _is_dtensor, as_tensor
@@ -94,7 +93,7 @@ def _dmdc_reduce(x, u, n_modes, n_iters, n_oversamples, key):
     member is fitted in one batched pass (``random_svd._random_svd_members``),
     member b seeded by ``keys[b]`` as a lone fit with that key, and equal to
     it up to rounding, which only a member with fewer supported modes than
-    ``n_modes`` amplifies (see ``dmdc_fit_ensemble``).
+    ``n_modes`` amplifies, in its trailing eigenvalues.
 
     Returns (a_til (..., r, r), b_op (..., n_x, n_u), tmp_modes_scale
     (..., n_x, r), u_hat (..., n_x, r)).
@@ -117,9 +116,9 @@ def _dmdc_reduce(x, u, n_modes, n_iters, n_oversamples, key):
     # S~^+ (pinv_diag of diag(s_til)) applied as a column / row scale
     s_til_inv = _inv_sigma(s_til)
     y_v = y_out @ v_til                                    # (n_x, r)
-    # eq. 29 (dmd_rom.rs:90-97)
-    tmp_op_scale = (u_hat.mT @ y_v) * s_til_inv[..., None, :]
-    u1t_uhat = u_til_1.mT @ u_hat                          # (r, r)
+    # eq. 29 (dmd_rom.rs:90-97); _mm: the contractions over n_x
+    tmp_op_scale = _mm(u_hat.mT, y_v) * s_til_inv[..., None, :]
+    u1t_uhat = _mm(u_til_1.mT, u_hat)                      # (r, r)
     a_til = tmp_op_scale @ u1t_uhat
     # eq. 30 (dmd_rom.rs:100-106)
     b_op = u_hat @ (tmp_op_scale @ u_til_2.mT)
@@ -460,20 +459,17 @@ def dmdc_fit_ensemble(x_batch, u_batch, n_modes: int, n_iters: int, key=0,
                       config: DmdConfig | None = None, device=None):
     """DMDc fits over an ensemble of snapshot families (EXTENSION).
 
-    x_batch: (B, n_x, n_t); u_batch: (B, n_u, n_t). Member b's RSVD seeds
-    are the children of the b-th child of ``key``, as the JAX package splits
-    its keys, and its reduction is ``DMDc``'s with that child, so member b is
-    ``DMDc`` fitted alone with it, up to the eig backend. The members are
-    reduced one after another; their eigendecompositions run as one batched
-    ``torch.linalg.eig`` on the device, and the factored dynamics use the
-    dtype-aware cutoff of ``pinv_comp_parts``.
-
-    The JAX package fits the members as one ``jit(vmap)`` program. The port
-    has that batched pass (``_dmdc_reduce`` on the member stack, 3-19x
-    faster than the loop on an H100) but does not take it: where a member
-    has fewer supported modes than ``n_modes`` in f32, its trailing
-    eigenvalues are set by rounding, and only the lone fit's own arithmetic
-    reproduces them (ROADMAP, "Differences by design").
+    x_batch: (B, n_x, n_t); u_batch: (B, n_u, n_t). The members are fitted
+    in one batched pass, as the JAX package's ``jit(vmap)`` fits them:
+    ``_dmdc_reduce`` on the member stack, then one batched
+    ``torch.linalg.eig`` on the device, and the factored dynamics with the
+    dtype-aware cutoff of ``pinv_comp_parts``. Member b's RSVD seeds are the
+    children of the b-th child of ``key``, as the JAX package splits its
+    keys, so member b is ``DMDc`` fitted alone with that child up to
+    rounding and the eig backend. Where a member's data support fewer modes
+    than ``n_modes``, the trailing eigenvalues are set by that rounding;
+    the supported ones, and the one-step residual, are what the data
+    determine (``bench_torch.ensemble_check`` holds those).
 
     Returns a dict of batched tensors: ``lambdas_re/lambdas_im`` (B, r),
     ``modes_re/modes_im`` (B, n_x, r), ``a_til`` (B, r, r), ``b_op``
@@ -481,11 +477,11 @@ def dmdc_fit_ensemble(x_batch, u_batch, n_modes: int, n_iters: int, key=0,
     for ``rollout_ensemble``.
 
     ``x_batch`` a DTensor sharded along the members (``Shard(0)`` on a 1-D
-    mesh; every rank calls): each rank fits its own members, member b
-    still seeded by the b-th child of ``key``, with no collective; the
-    batched ``eig`` runs over the rank's members. ``u_batch`` is then a
-    DTensor sharded alike or the full batch every rank holds, and every
-    tensor of the fit comes back a DTensor with ``Shard(0)``.
+    mesh; every rank calls): each rank fits its own members in one batched
+    pass, member b still seeded by the b-th child of ``key``, with no
+    collective. ``u_batch`` is then a DTensor sharded alike or the full
+    batch every rank holds, and every tensor of the fit comes back a
+    DTensor with ``Shard(0)``.
     """
     cfg = config or DmdConfig()
     sh = _ensemble_members(x_batch)
@@ -505,11 +501,9 @@ def dmdc_fit_ensemble(x_batch, u_batch, n_modes: int, n_iters: int, key=0,
                        x_batch.device)
     if sh is not None:
         keys = keys[sh.rows]
-    parts = [_dmdc_reduce(x, u, int(n_modes), int(n_iters),
-                          int(cfg.n_oversamples), k)
-             for x, u, k in zip(x_batch, u_batch, keys)]
-    a_til, b_op, tmp_modes_scale, u_hat = (torch.stack(p) for p in
-                                           zip(*parts))
+    a_til, b_op, tmp_modes_scale, u_hat = _dmdc_reduce(
+        x_batch, u_batch, int(n_modes), int(n_iters), int(cfg.n_oversamples),
+        keys)
     lam, v = torch.linalg.eig(a_til)
     dt = a_til.dtype
     lam_re, lam_im = lam.real.to(dt), lam.imag.to(dt)

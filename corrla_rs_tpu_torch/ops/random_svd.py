@@ -48,6 +48,29 @@ def _draw_sketch(seed_or_gen, shape, dtype, device) -> torch.Tensor:
     return torch.randn(shape, generator=gen, dtype=dtype, device=device)
 
 
+# A member stack's product over a long contraction runs as one cuBLAS
+# strided-batched GEMM, which sums the whole contraction in one pass: over
+# 20,002 rows on an H100 it read 5.3e-6 of the product's largest entry,
+# against 4.5e-7 for one GEMM a member (tests/ensemble_accuracy_probe.py),
+# and the DMDc ensemble's eigenvalues lost a digit to it. Summing the
+# products of chunks of this many rows restores one GEMM's accuracy.
+_MEMBER_CHUNK = 1024
+
+
+def _mm(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a @ b. For member stacks (3-D) whose contraction is longer than
+    ``_MEMBER_CHUNK``, the sum of the products over its chunks, accumulated
+    by ``baddbmm_``; a 2-D product is exactly ``a @ b``."""
+    n = a.shape[-1]
+    if a.ndim != 3 or n <= _MEMBER_CHUNK:
+        return a @ b
+    c = _MEMBER_CHUNK
+    out = a[..., :c] @ b[..., :c, :]
+    for i in range(c, n, c):
+        out.baddbmm_(a[..., i:i + c], b[..., i:i + c, :])
+    return out
+
+
 def _householder_qr(y: torch.Tensor) -> torch.Tensor:
     return torch.linalg.qr(y, mode="reduced").Q
 
@@ -63,7 +86,7 @@ def _cholesky_qr2(y: torch.Tensor) -> torch.Tensor:
     synchronises with the host. The small-ridge result also counts as failed
     if it holds a non-finite value, which is what the JAX package tests.
 
-    ``y`` may carry leading batch dimensions (a stack of members): every
+    ``y`` may carry a leading member dimension (a stack of members): every
     norm, Gram and ridge choice is then taken per member.
     """
     if y.dtype == torch.float32:
@@ -78,7 +101,7 @@ def _cholesky_qr2(y: torch.Tensor) -> torch.Tensor:
     def one_round(y):
         cn = torch.linalg.vector_norm(y, dim=-2, keepdim=True).clamp_min(tiny)
         ys = y / cn
-        g = ys.mT @ ys
+        g = _mm(ys.mT, ys)
         r_small, info = torch.linalg.cholesky_ex(g + eps_small * eye,
                                                  upper=True)
         ok = (info == 0) & torch.isfinite(r_small).all(dim=(-2, -1))
@@ -106,12 +129,12 @@ def _resolve(dtype, stabilize: str, qr_method: str):
 
 def _range_finder(a, omega, n_iter: int, stabilize: str, qr_method: str):
     """Q of the power iteration started from the sketch ``omega``; ``a``
-    and ``omega`` may carry the same leading batch dimensions."""
+    and ``omega`` may carry the same leading member dimension."""
     y = a @ omega
     for i in range(n_iter):
         if stabilize == "always" or i > 2:
             y = _thin_qr(y, qr_method)
-        y = a @ (a.mT @ y)
+        y = a @ _mm(a.mT, y)
         # guard: a zero panel (e.g. A == 0) must not produce 0/0 = NaN
         y = y / torch.linalg.vector_norm(y, dim=(-2, -1),
                                          keepdim=True).clamp_min(1e-30)
@@ -181,7 +204,7 @@ def _random_svd_members(a: torch.Tensor, omega_rank: int, n_iter: int,
                                       aa.dtype, aa.device) for k in keys])
     q = _range_finder(aa, omega, n_iter,
                       *_resolve(aa.dtype, stabilize, qr_method))
-    u_b, s, vt = torch.linalg.svd(q.mT @ aa, full_matrices=False)
+    u_b, s, vt = torch.linalg.svd(_mm(q.mT, aa), full_matrices=False)
     return _truncate(q @ u_b, s, vt, rank, fat)
 
 

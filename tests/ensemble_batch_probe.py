@@ -8,15 +8,16 @@ Run from the repo root (on the CPU, or on a machine with one NVIDIA GPU):
 On bench_torch.py's ensemble data (16 members x 20 states x 40 snapshots
 f32; numerical rank 2 in the states, 3 with the control, against 6 modes)
 it prints, each as the largest gap over the members relative to the
-member's largest entry (eigenvalues: ``bench_torch.ensemble_eig_err``):
+member's largest entry (all six eigenvalues: ``bench_torch.eig_gap``; what
+the data determine: ``bench_torch.ensemble_check``):
 
 - ``random_svd._random_svd_members`` on the input and output spaces of
   ``models.dmd._dmdc_reduce`` against ``random_svd`` of each member alone;
-- the batched reduction (``dmdc_fit_ensemble``'s fit on the member stack)
-  against the lone ``DMDc`` fits, with member 0's and 1's eigenvalues;
+- ``dmdc_fit_ensemble`` (the batched pass) against the lone ``DMDc`` fits,
+  with member 0's and 1's eigenvalues, by both measures;
 - how far the lone fits themselves move when only the arithmetic changes:
   the same snapshots in column-major layout, a second run, and f64 (where
-  the batched reduction is also held to the lone fits);
+  the batched pass is also held to the lone fits), by both measures;
 - stage by stage, each batched call of the RSVD core against the same call
   on each member alone on the batched call's own input, with the
   small-ridge Cholesky's info a member;
@@ -48,20 +49,18 @@ def gap(batched, lone):
     return worst
 
 
-def batched_fit(x, u, kw):
-    """The eigenvalues and B of the members' reduction in one batched pass,
-    seeded as ``dmdc_fit_ensemble`` seeds its members."""
-    keys = dmd._split_seed(kw["key"], len(x), x.device)
-    a_til, b_op, _, _ = dmd._dmdc_reduce(x, u, kw["n_modes"], kw["n_iters"],
-                                         OS, keys)
-    lam = torch.linalg.eigvals(a_til)
-    return {"lambdas_re": lam.real, "lambdas_im": lam.imag, "b_op": b_op}
+def all_six(fit, lone) -> float:
+    """The largest ``eig_gap`` over the members, all eigenvalues matched."""
+    return max(bench_torch.eig_gap(a, b) for a, b in
+               zip(bench_torch._lambdas(fit), bench_torch._lambdas(lone)))
 
 
-def fit_of(models):
-    """The eigenvalues of lone fits as an ensemble fit's two parts."""
-    lam = torch.as_tensor(np.stack([m.lambdas for m in models]))
-    return {"lambdas_re": lam.real, "lambdas_im": lam.imag}
+def both(name, x, u, fit, lone):
+    held = bench_torch.ensemble_check(x, u, fit, lone)
+    print(f"  {name:44s} all six {all_six(fit, lone):.3e}; supported "
+          f"{held['eig_err']:.3e}, one-step residual {held['residual']:.3e}"
+          f", {held['vs_lone']:.3e} from the lone fits' (k = "
+          f"{sorted(set(held['supported']))})", flush=True)
 
 
 def say(name, batched, lone):
@@ -104,32 +103,28 @@ def main(argv=None):
                                             kw["n_iters"], OS,
                                             key=k2[b])[0])
          for b in range(n_mem)])
-    fit = batched_fit(x, u, kw)
+    fit = dmd.dmdc_fit_ensemble(x, u, **kw)
     singles = bench_torch.lone_fits(x, u)
-    say("batched B against the lone fits", fit["b_op"],
-        [m.est_b_til() for m in singles])
-    print(f"  {'batched eigenvalues against the lone fits':44s} "
-          f"{bench_torch.ensemble_eig_err(fit, singles):.3e}")
-    lam = (fit["lambdas_re"] + 1j * fit["lambdas_im"]).cpu().numpy()
+    lone = bench_torch.stacked(singles)
+    say("batched B against the lone fits", fit["b_op"], lone["b_op"])
+    both("batched against the lone fits", x, u, fit, lone)
+    lam = bench_torch._lambdas(fit)
     for b in range(2):
         print(f"  member {b}: batched {np.sort_complex(lam[b])}\n"
               f"            lone    {np.sort_complex(singles[b].lambdas)}")
     # how far lone fits of the same data move when only the arithmetic
     # changes: the snapshots in column-major layout (other GEMM paths)
-    others = bench_torch.lone_fits(x.mT.contiguous().mT, u)
-    print(f"  {'lone fits, column-major data, against lone':44s} "
-          f"{bench_torch.ensemble_eig_err(fit_of(others), singles):.3e}")
-    again = bench_torch.lone_fits(x, u)
-    print(f"  {'lone fits run again against lone':44s} "
-          f"{bench_torch.ensemble_eig_err(fit_of(again), singles):.3e}")
+    others = bench_torch.stacked(bench_torch.lone_fits(x.mT.contiguous().mT,
+                                                       u))
+    both("lone fits, column-major data, against lone", x, u, others, lone)
+    again = bench_torch.stacked(bench_torch.lone_fits(x, u))
+    both("lone fits run again against lone", x, u, again, lone)
     # the same comparison in f64
     x64, u64 = x.double(), u.double()
-    fit64 = batched_fit(x64, u64, kw)
-    singles64 = bench_torch.lone_fits(x64, u64)
-    print(f"  {'f64: batched eigenvalues against lone fits':44s} "
-          f"{bench_torch.ensemble_eig_err(fit64, singles64):.3e}")
-    print(f"  {'f64 lone fits against f32 lone fits':44s} "
-          f"{bench_torch.ensemble_eig_err(fit_of(singles), singles64):.3e}")
+    fit64 = dmd.dmdc_fit_ensemble(x64, u64, **kw)
+    lone64 = bench_torch.stacked(bench_torch.lone_fits(x64, u64))
+    both("f64: batched against lone fits", x64, u64, fit64, lone64)
+    both("f64 lone fits against f32 lone fits", x, u, lone64, lone)
     # stage by stage, each batched call against per-member calls on the
     # same input
     k1 = [dmd._split_seed(k, 2, dev)[0] for k in keys]

@@ -1,15 +1,16 @@
-"""The DMDc reduction of a member stack as one batched pass.
+"""``dmdc_fit_ensemble`` as one batched pass over the members.
 
 ``models.dmd._dmdc_reduce`` fits a stack of members in one pass over a
 leading member axis, as the JAX package's ``jit(vmap)`` does, through the
-member-batched RSVD core ``random_svd._random_svd_members``. Held here:
-each member of a batch equals its lone ``random_svd`` (also when healthy
-members share the batch with deficient, non-finite or differently scaled
-ones, so every norm and ridge choice is per member), the number of
-factorization calls does not grow with the members, each member's
-reduction equals its lone one, and a one-member ``dmdc_fit_ensemble``
-equals ``DMDc`` and the JAX package's ensemble. (``dmdc_fit_ensemble``
-itself still reduces its members one after another: see its docstring.)
+member-batched RSVD core ``random_svd._random_svd_members``, and
+``dmdc_fit_ensemble`` takes that pass. Held here: each member of a batch
+equals its lone ``random_svd`` (also when healthy members share the batch
+with deficient, non-finite or differently scaled ones, so every norm and
+ridge choice is per member), the ensemble reduces its stack in one call of
+``_dmdc_reduce`` and its factorization calls do not grow with the members,
+each member's reduction equals its lone one, a one-member ensemble equals
+``DMDc`` and the JAX package's ensemble, and a four-member ensemble of
+distinct systems equals the JAX package's ``jit(vmap)`` fit.
 """
 import jax
 import numpy as np
@@ -18,7 +19,7 @@ import torch
 
 import corrla_rs_tpu as crt
 import corrla_rs_tpu_torch as port
-from _torch_parity import cpu_device, decaying, same_sketch  # noqa: F401
+from _torch_parity import EPS, cpu_device, decaying, same_sketch  # noqa: F401
 from corrla_rs_tpu.utils.prng import as_key
 from corrla_rs_tpu_torch.models import dmd as port_dmd
 from corrla_rs_tpu_torch.models.dmd import DMDc
@@ -58,13 +59,32 @@ def _held_to_lone(a, keys, dtype, **kw):
 
 @pytest.mark.parametrize("qr_method", ["householder", "cholesky"])
 @pytest.mark.parametrize("stabilize", ["always", "reference"])
-@pytest.mark.parametrize("shape", [(30, 12), (12, 30)], ids=["tall", "fat"])
+@pytest.mark.parametrize("shape", [(30, 12), (12, 30), (2100, 12)],
+                         ids=["tall", "fat", "long"])
 @pytest.mark.parametrize("dtype", [np.float64, np.float32])
 def test_members_equal_their_lone_rsvds(cpu_device, dtype, shape, stabilize,
                                         qr_method):
     rng = np.random.default_rng(3)
     a = np.stack([decaying(rng, shape, dtype, rate=0.7) for _ in KEYS])
     _held_to_lone(a, KEYS, dtype, stabilize=stabilize, qr_method=qr_method)
+
+
+@pytest.mark.parametrize("dtype", [np.float64, np.float32])
+def test_long_member_contractions_are_summed_in_chunks(cpu_device, dtype):
+    # a member stack's contraction longer than _MEMBER_CHUNK is summed over
+    # chunks (cuBLAS's batched GEMM loses digits over a long one on the
+    # card); the sum is the product, and a 2-D product is a @ b itself
+    rng = np.random.default_rng(6)
+    n = 2 * port_rsvd._MEMBER_CHUNK + 37
+    a = rng.standard_normal((3, 5, n)).astype(dtype)
+    b = rng.standard_normal((3, n, 4)).astype(dtype)
+    want = np.einsum("bij,bjk->bik", a.astype(np.float64),
+                     b.astype(np.float64))
+    got = port_rsvd._mm(torch.as_tensor(a), torch.as_tensor(b)).numpy()
+    scale = np.sqrt(n) * EPS[dtype] * np.abs(a).max() * np.abs(b).max()
+    assert np.abs(got - want).max() <= 10 * scale
+    t2 = (torch.as_tensor(a[0]), torch.as_tensor(b[0]))
+    assert torch.equal(port_rsvd._mm(*t2), t2[0] @ t2[1])
 
 
 @pytest.mark.parametrize("stabilize", ["always", "reference"])
@@ -127,13 +147,14 @@ def _member_stack(dtype, n):
 @pytest.mark.parametrize("dtype", [np.float64, np.float32])
 def test_member_stack_factorizations_do_not_grow_with_members(
         cpu_device, monkeypatch, dtype):
-    # the reduction of a member stack is one batched pass: two members and
-    # six make the same Cholesky and Householder calls (f32 takes the
-    # Cholesky QR in the loop, f64 the Householder QR from the fourth
-    # iteration)
-    calls = {"cholesky_ex": 0, "householder": 0}
+    # dmdc_fit_ensemble reduces its stack in one call of _dmdc_reduce, so
+    # two members and six make the same Cholesky and Householder calls (f32
+    # takes the Cholesky QR in the loop, f64 the Householder QR from the
+    # fourth iteration)
+    calls = {"cholesky_ex": 0, "householder": 0, "reduce": 0}
     cholesky_ex, householder = torch.linalg.cholesky_ex, \
         port_rsvd._householder_qr
+    reduce = port_dmd._dmdc_reduce
 
     def counted_cholesky(*args, **kw):
         calls["cholesky_ex"] += 1
@@ -143,17 +164,23 @@ def test_member_stack_factorizations_do_not_grow_with_members(
         calls["householder"] += 1
         return householder(y)
 
+    def counted_reduce(x, *args):
+        calls["reduce"] += 1
+        assert x.ndim == 3
+        return reduce(x, *args)
+
     monkeypatch.setattr(torch.linalg, "cholesky_ex", counted_cholesky)
     monkeypatch.setattr(port_rsvd, "_householder_qr", counted_householder)
+    monkeypatch.setattr(port_dmd, "_dmdc_reduce", counted_reduce)
     seen = []
     for n in (2, 6):
-        calls.update(cholesky_ex=0, householder=0)
+        calls.update(cholesky_ex=0, householder=0, reduce=0)
         x, u = _member_stack(dtype, n)
-        a_til = port_dmd._dmdc_reduce(x, u, 5, 10, 12,
-                                      port_dmd._split_seed(9, n, "cpu"))[0]
-        assert a_til.shape == (n, 5, 5)
+        fit = port.dmdc_fit_ensemble(x, u, 5, 10, key=9)
+        assert fit["a_til"].shape == (n, 5, 5)
         seen.append(dict(calls))
     assert seen[0] == seen[1], seen
+    assert seen[0]["reduce"] == 1
     assert seen[0]["householder"] > 0
     assert (seen[0]["cholesky_ex"] > 0) == (dtype == np.float32)
 
@@ -199,3 +226,37 @@ def test_one_member_ensemble_is_dmdc_and_jax(same_sketch, dtype):
         got = port.rollout_ensemble(fit, x0, u_b, method=m)[0]
         _close(got, lone.predict_multiple(x[:, :1], u, m), rtol)
         _close(got, crt.rollout_ensemble(fj, x0, u_b, method=m)[0], rtol)
+
+
+def _signs(u, u_j):
+    """The column signs that take the port's U^ to JAX's (SVD signs are the
+    backend's choice)."""
+    return np.sign(np.sum(np.asarray(u) * np.asarray(u_j), axis=-2))
+
+
+@pytest.mark.parametrize("dtype", [np.float64, np.float32])
+def test_four_members_equal_the_jax_vmap_fit(same_sketch, dtype):
+    # four driven systems with distinct dynamics, fitted in one batched
+    # pass by each package on the same sketches
+    x_b, u_b = (t.numpy() for t in _member_stack(dtype, 4))
+    rtol = RTOL[dtype]
+    fit = port.dmdc_fit_ensemble(x_b, u_b, 5, 10, key=9)
+    fj = crt.dmdc_fit_ensemble(x_b, u_b, 5, 10, key=9)
+    x0 = x_b[:, :, :1]
+    lam = (fit["lambdas_re"] + 1j * fit["lambdas_im"]).numpy()
+    lam_j = np.asarray(fj["lambdas_re"]) + 1j * np.asarray(fj["lambdas_im"])
+    assert np.abs(np.sort_complex(lam_j[0]) - np.sort_complex(lam_j[1])
+                  ).max() > 1e-2
+    for b in range(4):
+        np.testing.assert_allclose(np.sort_complex(lam[b]),
+                                   np.sort_complex(lam_j[b]), rtol=0,
+                                   atol=rtol)
+        d = _signs(fit["u_hat"][b], fj["u_hat"][b])
+        _close(d[:, None] * fit["a_til"][b].numpy() * d[None, :],
+               fj["a_til"][b], rtol)
+        _close(fit["b_op"][b], fj["b_op"][b], rtol)
+    for m in ("reduced", "modes"):
+        got = port.rollout_ensemble(fit, x0, u_b, method=m)
+        want = crt.rollout_ensemble(fj, x0, u_b, method=m)
+        for b in range(4):
+            _close(got[b], want[b], rtol)
