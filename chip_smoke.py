@@ -227,7 +227,17 @@ time, and any failure raises (exit code != 0):
     headline first and last and each of its five metric lines ok (its
     accuracy checks held); each line is printed, and the rsvd, single-pass
     and DREAM medians beside this script's own warm walls of phases 4 and
-    11. Its process's kernel launch counts are the phase's.
+    11. Its process's kernel launch counts are the phase's;
+29. docs: every python block of docs_torch/ (the API map, the tutorial,
+    the design notes) in one fresh process through
+    docs_torch/run_snippets.py, each with its own asserts, on the card but
+    for one: the multi-GPU block runs in a process of its own as 2 gloo
+    ranks on the CPU, beside the others. The tutorial's drop-in block fits
+    PyRbfInterp and PyPodI, so both kernels launch, and every launch is
+    held against its plain version in f64 as in phase 27. Each block's
+    wall and launches are printed, and the phase's line gives the walls of
+    the blocks on the card and of the CPU block apart; the output is
+    written to build/chip_smoke_docs.log.
 
 After phase 25 come the timing details of phases 7 and 9-10 (RbfInterp's
 fit with its saddle matrix built by concatenation, as before the kernel
@@ -237,12 +247,12 @@ build phase prints ptxas's registers and spills for both kernels'
 instances and fails if any spills. The kernels' launch counts
 are set to 0 before each phase and read just after it (phase 23 counts in
 its world of one, a path at a time; phase 27 sums the launch lines its
-scripts print; phase 28 reads its process's); phase 3, the details and
+scripts print; phases 28 and 29 read their process's); phase 3, the details and
 phase 26 compare or time the kernels and are not counted. Each phase in
 MUST_LAUNCH must have launched what it names there: phases 11-16, 20,
 22, 25 and 28 reach no kernel, and the run fails if their counts say
 otherwise; phases 9, 17 and 19 must launch the kernel matrix, phases 6,
-7, 18, 21, 23, 24 and 27 both kernels. The last lines are the kernel
+7, 18, 21, 23, 24, 27 and 29 both kernels. The last lines are the kernel
 table as JSON (which phases ran; every timed shape of each kernel, with
 its bound and, where one exists, a one-call PyTorch equivalent's time),
 the nvidia-smi line, and the result JSON. Nothing of JAX is
@@ -304,7 +314,8 @@ SIZES = {
     "gauss16": 16,                                # dims of the samplers' target
     "stretch": (4096, 7000, 1000),                # walkers, generations, discarded
     "hmc": (4096, 150, 200, 16),                  # chains, warmup, kept, leapfrog steps
-    "nuts": (1024, 100, 100, 6),                  # chains, warmup, kept, max depth
+    # chains, warmup, kept (100 -> 50, PERF.md §4), max depth
+    "nuts": (1024, 100, 50, 6),
     "smc": (8192, 4, 5),                          # particles, dims, mutation steps
     "ssm": (64, 16, 500),                         # states, observed, steps
     "enkf": (1024, 100),                          # members, steps of the ETKF run
@@ -5078,21 +5089,24 @@ MEMBERS_FULL = {
     # chains, dims, warmup, kept, leapfrog steps (warmup 150 -> 50, kept
     # 200 -> 100)
     "hmc": (SIZES["hmc"][0], SIZES["gauss16"], 50, 100, SIZES["hmc"][3]),
-    # chains, dims, warmup, kept, max depth (warmup 100 -> 20)
-    "nuts": (SIZES["nuts"][0], SIZES["gauss16"], 20, 100, SIZES["nuts"][3]),
+    # chains, dims, warmup, kept, max depth (warmup 100 -> 20, kept 100 ->
+    # 50, PERF.md §4)
+    "nuts": (SIZES["nuts"][0], SIZES["gauss16"], 20, 50, SIZES["nuts"][3]),
     "smc": SIZES["smc"],                       # particles, dims, mutations
-    "enkf": (SIZES["enkf"][0], 100),           # members, steps (500 -> 100)
+    # members, steps (500 -> 100 -> 50, PERF.md §4)
+    "enkf": (SIZES["enkf"][0], 50),
     "pf": (SIZES["pf"], 100),                  # particles, steps (500 -> 100)
     "esmda": SIZES["esmda"],                   # members, params, data, stages
-    # dims, population, generations (1800 -> 600), condition
-    "cma": SIZES["cma_ellipsoid"][:2] + (600, SIZES["cma_ellipsoid"][3]),
+    # dims, population, generations (1800 -> 600 -> 300, PERF.md §4),
+    # condition
+    "cma": SIZES["cma_ellipsoid"][:2] + (300, SIZES["cma_ellipsoid"][3]),
     # members, states, snapshots
     "ensemble": SIZES["ensemble"] + (SIZES["dmdc"][1],),
 }
 MEMBERS_SMALL = {
     # without warmup, so that the worlds' histories can be held alike
     "hmc": (256, SIZES["gauss16"], 0, 100, 16),
-    "nuts": (128, SIZES["gauss16"], 0, 100, 4),
+    "nuts": (128, SIZES["gauss16"], 0, 50, 4),   # kept 100 -> 50, PERF.md §4
     "smc": (1024, 4, 5),
     "enkf": (128, 50),
     "pf": (2048, 50),
@@ -5104,7 +5118,8 @@ MEMBERS_TOL = {
     "exact": (1e-10, "relative to the largest entry: the paths that are "
                      "deterministic given their draws, against single-device "
                      "on the same draws"),
-    "chains": (1e-5, "abs over the first 100 generations of HMC and NUTS "
+    "chains": (1e-5, "abs over the first 100 kept generations (NUTS: its "
+                     "50) of HMC and NUTS "
                      "(f32) on the same draws, as the samplers in PERF.md "
                      "§2"),
 }
@@ -5174,17 +5189,18 @@ def members_paths(port, pm, dev, seed, sizes, keep):
               and res.final.placements[0].is_shard(0),
               f"{name}_run(mesh=) history / final sharding")
         hist = pm._full(res.history)
-        diff = (hist[:100] - one.history[:100]).abs().max().item()
+        n_cmp = min(100, n_keep)
+        diff = (hist[:n_cmp] - one.history[:n_cmp]).abs().max().item()
         steps = abs(res.step_size / one.step_size - 1.0)
         check(diff <= tol_chains and steps <= tol_chains
               and bool(torch.isfinite(hist).all()),
-              f"{name}_run(mesh=): first 100 generations {diff:.3e}, step "
+              f"{name}_run(mesh=): first {n_cmp} generations {diff:.3e}, step "
               f"size {steps:.3e} off the single-device run")
-        keep[name] = hist[:100].cpu().numpy()
+        keep[name] = hist[:n_cmp].cpu().numpy()
         return (f"{name}_run(mesh=) {n} chains x {d} dims, {n_warm} warmup + "
                 f"{n_keep} kept ({'1-' if name == 'hmc' else 'max depth '}"
                 f"{depth}{' leapfrog steps' if name == 'hmc' else ''}) f32: "
-                f"first 100 generations {diff:.1e} off the single-device run "
+                f"first {n_cmp} generations {diff:.1e} off the single-device run "
                 f"on the same draws (tol {tol_chains}), step size "
                 f"{res.step_size:.4f}, acceptance {res.accept_ratio:.4f}; "
                 f"{t_gens} sampling generations at that step size, warm, "
@@ -5972,35 +5988,34 @@ EXAMPLES_TIMEOUT_S = 600
 EXAMPLE_LANES = 4
 
 
-def run_example(name, args, musts, folder, env):
-    """One script of EXAMPLES in a fresh process, every kernel launch held
-    against its plain version (``--check-kernels``); (label, line, launch
-    counts, kernel checks, result). Its output is written to ``folder``."""
-    label = " ".join((name,) + args)
+def run_checked(label, argv, musts, log, env, timeout):
+    """One script of the port in a fresh process, every kernel launch held
+    against its plain version (``--check-kernels``): it must exit 0, print
+    the card line first, a launch line before its last and one JSON result
+    line last with ``ok`` true, hold what ``musts`` names and print no FAIL.
+    Its output is written to ``log``. Returns (the launch counts, the kernel
+    checks, the result, the process wall)."""
     t0 = time.perf_counter()
     try:
-        proc = subprocess.run(
-            [sys.executable, os.path.join("examples_torch", f"{name}.py"),
-             *args, "--check-kernels"], capture_output=True, text=True,
-            env=env, timeout=EXAMPLES_TIMEOUT_S)
+        proc = subprocess.run([sys.executable, *argv, "--check-kernels"],
+                              capture_output=True, text=True, env=env,
+                              timeout=timeout)
     except subprocess.TimeoutExpired as exc:
-        raise SmokeFailure(f"examples_torch/{label}: no end in "
-                           f"{EXAMPLES_TIMEOUT_S} s") from exc
+        raise SmokeFailure(f"{label}: no end in {timeout} s") from exc
     wall_s = time.perf_counter() - t0
-    log = os.path.join(folder, label.replace(" ", "_") + ".log")
     with open(log, "w") as f:
         f.write(proc.stdout + "\n--- stderr ---\n" + proc.stderr)
     out = proc.stdout.strip().splitlines()
     check(proc.returncode == 0 and len(out) >= 3,
-          f"examples_torch/{label} exit {proc.returncode}:\n"
+          f"{label} exit {proc.returncode}:\n"
           f"{proc.stdout[-3000:]}\n{proc.stderr[-3000:]}")
     result = json.loads(out[-1])
     launch = [ln for ln in out[:-1] if ln.startswith("launches: ")]
-    check(len(launch) == 1, f"examples_torch/{label}: launch line {launch}")
+    check(len(launch) == 1, f"{label}: launch line {launch}")
     missing = [m for m in musts if m not in proc.stdout]
     check(result["ok"] and not missing and "FAIL" not in proc.stdout
           and out[0].startswith("card: ") and result["device"] != "cpu",
-          f"examples_torch/{label}: ok {result['ok']}, missing {missing}, "
+          f"{label}: ok {result['ok']}, missing {missing}, "
           f"FAIL in output {'FAIL' in proc.stdout}, first line {out[0]!r}; "
           f"see {log}")
     got = json.loads(launch[0][len("launches: "):])
@@ -6010,10 +6025,23 @@ def run_example(name, args, musts, folder, env):
     for kernel, count in got.items():
         calls = sum(c["calls"] for c in checks
                     if c["check"].startswith(kernel + " "))
-        check(calls == count, f"examples_torch/{label}: {count} {kernel} "
-              f"launches, {calls} of them held to the plain version")
+        check(calls == count, f"{label}: {count} {kernel} launches, {calls} "
+              "of them held to the plain version")
     bad = [c for c in checks if not c["worst_ratio"] <= 1.0]
-    check(not bad, f"examples_torch/{label}: kernel checks failed {bad}")
+    check(not bad, f"{label}: kernel checks failed {bad}")
+    return got, checks, result, wall_s
+
+
+def run_example(name, args, musts, folder, env):
+    """One script of EXAMPLES in a fresh process (``run_checked``); (label,
+    line, launch counts, kernel checks, result). Its output is written to
+    ``folder``."""
+    label = " ".join((name,) + args)
+    log = os.path.join(folder, label.replace(" ", "_") + ".log")
+    got, checks, result, wall_s = run_checked(
+        f"examples_torch/{label}",
+        [os.path.join("examples_torch", f"{name}.py"), *args], musts, log,
+        env, EXAMPLES_TIMEOUT_S)
     line = (f"{label}: exit 0 in {wall_s:.2f} s of process "
             f"({result['wall_s']:.2f} s after start); launches {got}, each "
             f"held to its plain version; {result['headline']}")
@@ -6097,20 +6125,42 @@ def phase_bench():
     return lines[:-1], json.loads(counts[0][len(BENCH_LAUNCHES):])
 
 
+# ---------------------------------------------------------------------------
+# phase 29: every code block of docs_torch/ on the card, in a fresh process
+
+DOCS_TIMEOUT_S = 300
+
+
+def phase_docs():
+    """docs_torch/run_snippets.py in a fresh process on the card
+    (``run_checked``: every kernel launch held against its plain version);
+    its output goes to build/chip_smoke_docs.log. Returns (the launch
+    counts, the kernel checks, the result line, the process wall)."""
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.path.abspath(".")
+    os.makedirs("build", exist_ok=True)
+    return run_checked("docs_torch/run_snippets.py",
+                       [os.path.join("docs_torch", "run_snippets.py"),
+                        "--device", "cuda"], (),
+                       os.path.join("build", "chip_smoke_docs.log"), env,
+                       DOCS_TIMEOUT_S)
+
+
 # the phases after device and build, in the order they run; --phases picks
 # some of them (device and build always run first)
 PHASES = ("kernels", "rsvd", "single_pass", "rpca", "podi", "rbf", "dmdc",
           "active_ss", "samplers", "dream", "factorize", "mle", "inference",
           "filters", "evidence", "gp", "rom", "koopman", "uq", "streaming",
           "stats", "parallel", "export", "eig_device", "details", "tracing",
-          "examples", "bench")
+          "examples", "bench", "docs")
 KERNELS = ("pairwise_kernel_matrix", "rbf_matvec")
 # what a phase of the main path must launch: the kernels named, or none
 # (None); the other counted phases are counted and not held to either
 MUST_LAUNCH = {"podi": KERNELS, "rbf": KERNELS, "active_ss": KERNELS[:1],
                "gp": KERNELS[:1], "rom": KERNELS, "koopman": KERNELS[:1],
                "streaming": KERNELS, "parallel": KERNELS, "export": KERNELS,
-               "examples": KERNELS, "dream": None, "factorize": None,
+               "examples": KERNELS, "docs": KERNELS, "dream": None,
+               "factorize": None,
                "mle": None, "inference": None, "filters": None,
                "evidence": None, "uq": None, "stats": None,
                "eig_device": None, "bench": None}
@@ -6438,6 +6488,29 @@ def main(argv=None) -> int:
                f" {got[BENCH_METRICS[4]]['sequential_wall']:.4f} s | {smi}")
         return counts
 
+    # 29. docs_torch/: every code block in a fresh process on the card; its
+    # launch line is the phase's counts
+    def run_docs():
+        t0 = time.perf_counter()
+        counts, checks, result, wall_s = phase_docs()
+        for row in result["blocks"]:
+            print(f"    {row['block']} (line {row['line']}): "
+                  f"{row['wall_s']:.3f} s, launches {row['launches']}",
+                  flush=True)
+        for c in checks:
+            print(f"    held to the plain version: {c['check']}: "
+                  f"{c['calls']} launches, max|err| {c['max_abs_err']:.3e}, "
+                  f"{c['worst_ratio']:.3f} of the tolerance", flush=True)
+        on_cpu = sum(r["wall_s"] for r in result["blocks"]
+                     if r["own_process"])
+        report("docs", t0, f"{len(result['blocks'])} blocks of docs_torch/ "
+               f"in {result['wall_s']:.2f} s ({wall_s:.2f} s of process): "
+               f"{result['in_process_wall_s']:.2f} s of blocks on the card "
+               f"one after another, {on_cpu:.2f} s of the CPU block beside "
+               f"them; each with its asserts held; launches {counts}, each "
+               f"within tolerance of its plain version | {smi}")
+        return counts
+
     bodies = {
         "kernels": run_kernels, "rsvd": run_rsvd,
         "single_pass": run_single_pass, "rpca": run_rpca, "podi": run_podi,
@@ -6458,7 +6531,8 @@ def main(argv=None) -> int:
                            args.seed + 15),
         "parallel": run_parallel, "export": run_export,
         "eig_device": run_eig_device, "details": run_details,
-        "tracing": run_tracing, "examples": run_examples, "bench": run_bench}
+        "tracing": run_tracing, "examples": run_examples, "bench": run_bench,
+        "docs": run_docs}
 
     # every counted phase runs with both launch counts from 0, read just
     # after it (or handed back by the processes it spawned)
