@@ -42,6 +42,7 @@ from corrla_rs_tpu_torch.ops.rbf_kernels import (
 )
 from corrla_rs_tpu_torch.ops.stats_corr import build_full_vandermonde
 from corrla_rs_tpu_torch.utils.device import as_tensor
+from corrla_rs_tpu_torch.utils.tracing import annotate
 
 __all__ = ["RbfInterp", "pairwise_dists", "rbf_kernel_eval", "rbf_fit",
            "rbf_predict"]
@@ -115,6 +116,9 @@ def rbf_fit(x: torch.Tensor, y: torch.Tensor, kernel: str, eps: float,
         indefinite and ill-conditioned);
       - 'pinv': the reference's eps-regularized pseudoinverse
         (interp_utils.rs:139-142).
+
+    Under a ``torch.profiler`` profile the LU solve is the span
+    ``corrla.solve.saddle`` (``pinv`` opens ``corrla.solve.pinv`` itself).
     """
     x = x.contiguous()
     p_mat = build_full_vandermonde(x, poly_degree)
@@ -128,7 +132,8 @@ def rbf_fit(x: torch.Tensor, y: torch.Tensor, kernel: str, eps: float,
     y_pad[:n] = y
     if method == "pinv":
         return pinv(kp) @ y_pad
-    return torch.linalg.solve(kp, y_pad)
+    with annotate("corrla.solve.saddle"):
+        return torch.linalg.solve(kp, y_pad)
 
 
 def rbf_predict(x_known: torch.Tensor, coeffs: torch.Tensor,

@@ -24,6 +24,8 @@ import warnings
 import numpy as np
 import torch
 
+from corrla_rs_tpu_torch.utils.tracing import annotate
+
 __all__ = [
     "pinv", "pinv_batched", "pinv_diag", "truncated_svd", "sort_evd", "col_means",
     "center_mat_col", "zcenter_mat_col", "mat_linspace", "mat_pinv_comp",
@@ -38,10 +40,13 @@ def pinv(a: torch.Tensor, eps: float = 1.0e-14) -> torch.Tensor:
     Parity with reference mat_utils.rs:37-53: inverts every singular value
     as ``1 / (s + eps)`` (no rank cutoff), so exact-zero singular values are
     amplified to ``1/eps`` as in the reference. Batched over leading dims.
+    Under a ``torch.profiler`` profile the call is the span
+    ``corrla.solve.pinv``.
     """
-    u, s, vh = torch.linalg.svd(a, full_matrices=False)
-    s_inv = 1.0 / (s + eps)
-    return (vh.mT * s_inv[..., None, :]) @ u.mT
+    with annotate("corrla.solve.pinv"):
+        u, s, vh = torch.linalg.svd(a, full_matrices=False)
+        s_inv = 1.0 / (s + eps)
+        return (vh.mT * s_inv[..., None, :]) @ u.mT
 
 
 # Batched one-sided Jacobi: sweeps run before the first read of the

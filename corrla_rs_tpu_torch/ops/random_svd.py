@@ -27,6 +27,7 @@ import torch
 
 from corrla_rs_tpu_torch.utils.device import as_tensor
 from corrla_rs_tpu_torch.utils.prng import as_generator, fold_seed, split_seed
+from corrla_rs_tpu_torch.utils.tracing import annotate
 
 __all__ = ["power_iter", "random_svd", "block_krylov_svd", "single_pass_svd"]
 
@@ -174,16 +175,18 @@ def random_svd(a: torch.Tensor, omega_rank: int, n_iter: int,
     """Randomized SVD: A ~= U diag(s) Vt with U (n, r), s (r,), Vt (r, m).
 
     Parity with reference random_svd.rs:63-110, including the fat-matrix
-    transpose path. ``key`` is an int seed or a ``torch.Generator``.
+    transpose path. ``key`` is an int seed or a ``torch.Generator``. Under
+    a ``torch.profiler`` profile the call is the span ``corrla.rsvd``.
     """
-    a = as_tensor(a)
-    fat = a.shape[0] < a.shape[1]
-    aa = a.mT if fat else a
-    sketch_rank, rank = _widths(aa, omega_rank, n_oversamples)
-    q = power_iter(aa, sketch_rank, n_iter, key=key, stabilize=stabilize,
-                   qr_method=qr_method)
-    u_b, s, vt = torch.linalg.svd(q.mT @ aa, full_matrices=False)
-    return _truncate(q @ u_b, s, vt, rank, fat)
+    with annotate("corrla.rsvd"):
+        a = as_tensor(a)
+        fat = a.shape[0] < a.shape[1]
+        aa = a.mT if fat else a
+        sketch_rank, rank = _widths(aa, omega_rank, n_oversamples)
+        q = power_iter(aa, sketch_rank, n_iter, key=key, stabilize=stabilize,
+                       qr_method=qr_method)
+        u_b, s, vt = torch.linalg.svd(q.mT @ aa, full_matrices=False)
+        return _truncate(q @ u_b, s, vt, rank, fat)
 
 
 def _random_svd_members(a: torch.Tensor, omega_rank: int, n_iter: int,

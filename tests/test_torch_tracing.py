@@ -3,6 +3,9 @@
 ``device_sync`` returns the JAX function's checksum on the same nested tree;
 ``timed`` warms up once and calls ``fn`` ``n_runs`` more times; ``trace``
 writes a trace file into ``log_dir`` that holds the ``annotate`` regions.
+The package's own spans: none is recorded without a profiler, each fit
+opens its spans once inside its caller's, and an exported program holds no
+profiler node.
 """
 import glob
 import json
@@ -73,3 +76,79 @@ def test_trace_writes_the_annotated_regions(cpu_device, tmp_path):
         names = {e.get("name") for e in json.load(f)["traceEvents"]}
     assert {"rsvd_block", "other_block"} <= names
     assert "rsvd_block" in {e.key for e in prof.key_averages()}
+
+
+def _refuse_record_function(monkeypatch):
+    def refuse(name, *args, **kwargs):
+        raise AssertionError(f"record_function({name!r}) with no profiler")
+
+    monkeypatch.setattr(torch.profiler, "record_function", refuse)
+    monkeypatch.setattr(torch.autograd.profiler, "record_function", refuse)
+
+
+def _pod_and_rbf_fits(rng):
+    """A small ``PodI`` fit (10 snapshots of 120 points, 3 modes) and a
+    small ``RbfInterp`` fit of 40 points in 2-D, on the CPU."""
+    from corrla_rs_tpu_torch.models.pod import PodI
+    from corrla_rs_tpu_torch.ops.interp import RbfInterp
+
+    t = torch.linspace(1.0, 9.0, 10, dtype=torch.float64)[:, None]
+    x = torch.exp(-(torch.linspace(0.0, 10.0, 120, dtype=torch.float64)
+                    - t) ** 2 / 8.0)
+    pts = torch.as_tensor(rng.standard_normal((40, 2)))
+    return (lambda: PodI(x, t, 3, key=1, device="cpu"),
+            lambda: RbfInterp(2, 1.0, 2, 1, device="cpu").fit(
+                pts, torch.sin(pts).sum(1, keepdim=True)))
+
+
+def test_annotate_records_nothing_without_a_profiler(cpu_device, rng,
+                                                     monkeypatch):
+    _refuse_record_function(monkeypatch)
+    span = tracing.annotate("corrla.rsvd")
+    assert span is tracing.annotate("corrla.solve.saddle")
+    with span:
+        pass
+    # the package's own spans take the same road on the fit paths
+    for fit in _pod_and_rbf_fits(rng):
+        fit()
+
+
+# spans each fit opens, once each, in this order
+FIT_SPANS = {"pod": ["corrla.rsvd", "corrla.solve.pinv",
+                     "corrla.solve.saddle"],
+             "rbf": ["corrla.solve.saddle"]}
+
+
+@pytest.mark.parametrize("model", ["pod", "rbf"])
+def test_each_fit_opens_its_spans_once_inside_the_callers(cpu_device, rng,
+                                                          model):
+    fit = dict(zip(("pod", "rbf"), _pod_and_rbf_fits(rng)))[model]
+    activities = [torch.profiler.ProfilerActivity.CPU]
+    with torch.profiler.profile(activities=activities) as prof:
+        for _ in range(2):
+            with tracing.annotate("caller.fit"):
+                fit()
+    events = sorted((e.time_range.start, e.time_range.end, e.name)
+                    for e in prof.events()
+                    if e.name == "caller.fit" or e.name.startswith("corrla."))
+    callers = [(a, b) for a, b, name in events if name == "caller.fit"]
+    assert len(callers) == 2
+    for a, b in callers:
+        inside = [name for s, e, name in events
+                  if name != "caller.fit" and a <= s and e <= b]
+        assert inside == FIT_SPANS[model]
+    spans = [name for _, _, name in events if name != "caller.fit"]
+    assert len(spans) == 2 * len(FIT_SPANS[model])
+
+
+def test_an_exported_random_svd_holds_no_profiler_node(cpu_device, rng,
+                                                       tmp_path):
+    from corrla_rs_tpu_torch.ops.random_svd import random_svd
+    from corrla_rs_tpu_torch.utils.export import export_fn
+
+    a = torch.as_tensor(rng.standard_normal((64, 16)))
+    program = export_fn(lambda a: random_svd(a, 4, 6, 4, key=1), (a,),
+                        str(tmp_path / "rsvd.pt2"))
+    targets = [str(n.target) for n in program.graph.nodes]
+    assert any("linalg_svd" in t for t in targets)
+    assert not [t for t in targets if "profiler" in t or "record" in t]
