@@ -21,7 +21,10 @@ built on first use by ``ops._build``.
   y_i = sum_j phi(||q_i - x_j||) c_j without forming the (M, N) matrix. On
   the H100 it is bound by instruction issue, about 2d + 8 + C FP32
   instructions a pair (7 of them the accurate sqrt, taken for a thread's
-  four queries at once). Each thread keeps four queries in registers and
+  four queries at once), and in f64 by the FP64 pipe (16 FP64 instructions
+  a pair for the multiquadric at d=3, C=1, 8 of them the root). phi is
+  taken from the squared distance: one root a pair for the multiquadric,
+  none for the gaussian. Each thread keeps four queries in registers and
   their partial sums for a chunk of columns, and each packed support point
   (coordinates and coefficients, one 16-byte shared load at d=3, C=1)
   serves all four; support tiles stream through a ring of cp.async
@@ -70,6 +73,7 @@ __all__ = [
 
 # phi codes of csrc/rbf_kernels.cu
 _PHI_CODES = {"linear": 1, "multiquadric": 2, "cubic": 3, "gaussian": 4}
+_PHI_NAMES = {code: name for name, code in _PHI_CODES.items()}
 # plain matvec: query rows per chunk so a chunk's kernel matrix holds at
 # most this many elements
 _REF_CHUNK_ELEMS = 1 << 26
@@ -376,7 +380,9 @@ def rbf_matvec(x_query: torch.Tensor, x_support: torch.Tensor,
     x_query (M, d), x_support (N, d), coeffs (N, C); returns (M, C). CUDA
     tensors launch the kernel (``_matvec_plan`` picks its launch shape, and
     a second, small kernel when it splits the support; ``launches`` counts
-    one a call); CPU tensors run ``rbf_matvec_ref``.
+    one a call, and ``launches_by`` one a call under its instance's (dtype,
+    kernel), e.g. ``(torch.float64, "multiquadric")``); CPU tensors run
+    ``rbf_matvec_ref``.
     """
     first, phi = _matvec_operands(x_query, x_support, coeffs, kernel)
     if first.device.type == "cpu":
@@ -388,6 +394,7 @@ def rbf_matvec(x_query: torch.Tensor, x_support: torch.Tensor,
 
 
 rbf_matvec.launches = 0
+rbf_matvec.launches_by = {}
 
 
 def _matvec_operands(x_query, x_support, coeffs, kernel):
@@ -427,6 +434,8 @@ def _matvec_cuda(x_query, x_support, coeffs, phi, eps):
     if rc:
         _raise_on_error(load_library(), "rbf_matvec", rc)
     rbf_matvec.launches += 1
+    key = (coeffs.dtype, _PHI_NAMES[phi])
+    rbf_matvec.launches_by[key] = rbf_matvec.launches_by.get(key, 0) + 1
     return out
 
 

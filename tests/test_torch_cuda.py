@@ -113,6 +113,68 @@ def test_matvec_is_deterministic(dev, m, n, d, c):
         assert torch.equal(first, rk.rbf_matvec(q, x, coef, "cubic", 1.0))
 
 
+def _root_inputs(dev, m=1 << 20):
+    """m f64 query coordinates whose squares span the exponent range: the
+    first half in blocks of 512 (one block of the matvec's queries) inside
+    the range where sqrt_n takes its fast path, the second half from 2^-1074
+    to 2^1023 with exact zeros, subnormal squares, squares in the normals
+    below the fast path and squares that overflow, mixed within a thread's
+    four queries."""
+    gen = torch.Generator(device=dev).manual_seed(24)
+    sign = torch.where(torch.rand(m, generator=gen, device=dev) < 0.5, -1.0,
+                       1.0).double()
+    mant = 1 + torch.rand(m, generator=gen, device=dev, dtype=torch.float64)
+    half = m // 2
+    e_fast = torch.randint(-480, 510, (half,), generator=gen, device=dev)
+    e_any = torch.randint(-1074, 1024, (m - half,), generator=gen, device=dev)
+    special = torch.tensor([-538, -530, -520, -512, -511, -500, -486, 512,
+                            600, 1023], device=dev)
+    e_any[:special.numel() * 64] = special.repeat_interleave(64)
+    q = torch.ldexp(mant, torch.cat([e_fast, e_any]).double()) * sign
+    q[half::9] = 0.0
+    q[half + 1::23] = 2.0 ** -1074
+    return q[:, None].contiguous()
+
+
+def test_f64_root_is_ieee_sqrt_bit_for_bit(dev):
+    # sqrt_n<double> against the correctly rounded root, through the d = 1
+    # linear matvec at one support point (x0 = 0, so r^2 is one rounded
+    # product) and the d = 1 linear kernel matrix (direct and TMA stores);
+    # and the multiquadric's one root, sqrt(1 + r^2) at eps = 1
+    q = _root_inputs(dev)
+    x0 = torch.zeros(1, 1, device=dev, dtype=torch.float64)
+    diff = q - x0
+    r2 = diff * diff
+    assert bool((r2 == 0).any() and ((r2 > 0) & (r2 < 2.0 ** -1022)).any()
+                and torch.isinf(r2).any())
+    want = torch.sqrt(r2)
+    one = torch.ones(1, 1, device=dev, dtype=torch.float64)
+    assert torch.equal(rk.rbf_matvec(q, x0, one, "linear", 1.0), want)
+    for xb in (x0, x0.expand(2, 1).contiguous()):   # 8- and 16-byte rows
+        k = rk.pairwise_kernel_matrix(q, xb, "linear", 1.0)
+        assert torch.equal(k, want.expand(-1, xb.shape[0]))
+    mq = rk.rbf_matvec(q, x0, one, "multiquadric", 1.0)
+    assert torch.equal(mq, torch.sqrt(1 + r2))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("phi", ["multiquadric", "gaussian"])
+@pytest.mark.parametrize("d", [3, 5], ids=["templated", "runtime-d"])
+def test_matvec_phi_at_a_support_point_is_exact(dev, dtype, phi, d):
+    # q = x_j with the one-hot coefficient e_j: y = phi(0) = 1 exactly, and
+    # launches_by counts the call under its instance
+    gen = torch.Generator(device=dev).manual_seed(d)
+    x = torch.randn(64, d, generator=gen, device=dev, dtype=dtype)
+    eye = torch.eye(64, device=dev, dtype=dtype)
+    before = dict(rk.rbf_matvec.launches_by)
+    y = rk.rbf_matvec(x, x, eye, phi, 0.7)
+    torch.cuda.synchronize()
+    assert bool((torch.diagonal(y) == 1).all())
+    after = dict(rk.rbf_matvec.launches_by)
+    assert after.pop((dtype, phi)) == before.pop((dtype, phi), 0) + 1
+    assert after == before
+
+
 def test_matvec_refuses_a_bad_plan(dev):
     # the C side checks the plan it is given: splits must cover the support
     # exactly, and more than one needs scratch

@@ -111,7 +111,8 @@ def test_direct_differences_zero_diagonal(rng, dtype):
 def test_cpu_tensors_take_the_plain_version(rng):
     xa, xb = _t(rng.standard_normal((9, 2))), _t(rng.standard_normal((5, 2)))
     c = _t(rng.standard_normal((5, 2)))
-    before = (pairwise_kernel_matrix.launches, rbf_matvec.launches)
+    before = (pairwise_kernel_matrix.launches, rbf_matvec.launches,
+              dict(rbf_matvec.launches_by))
     torch.testing.assert_close(pairwise_kernel_matrix(xa, xb, "gaussian", 2.0),
                                pairwise_kernel_matrix_ref(xa, xb, "gaussian",
                                                           2.0),
@@ -120,7 +121,8 @@ def test_cpu_tensors_take_the_plain_version(rng):
                                rbf_matvec_ref(xa, xb, c, "multiquadric", 0.3),
                                rtol=0, atol=0)
     # the launch counts count CUDA launches only
-    assert (pairwise_kernel_matrix.launches, rbf_matvec.launches) == before
+    assert (pairwise_kernel_matrix.launches, rbf_matvec.launches,
+            rbf_matvec.launches_by) == before
 
 
 def test_wrappers_reject_bad_operands(rng):
