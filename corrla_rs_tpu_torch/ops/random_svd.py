@@ -37,6 +37,10 @@ __all__ = ["power_iter", "random_svd", "block_krylov_svd", "single_pass_svd"]
 _split_seed = split_seed
 _fold_seed = fold_seed
 
+# the spans inside ``corrla.rsvd`` (see utils.tracing)
+_PRODUCTS, _ORTH, _SVD = ("corrla.rsvd.products", "corrla.rsvd.orth",
+                          "corrla.rsvd.svd")
+
 
 def _draw_sketch(seed_or_gen, shape, dtype, device) -> torch.Tensor:
     """Standard-normal sketch Omega of ``shape``.
@@ -130,18 +134,26 @@ def _resolve(dtype, stabilize: str, qr_method: str):
 
 def _range_finder(a, omega, n_iter: int, stabilize: str, qr_method: str):
     """Q of the power iteration started from the sketch ``omega``; ``a``
-    and ``omega`` may carry the same leading member dimension."""
-    y = a @ omega
+    and ``omega`` may carry the same leading member dimension. Each product
+    that reads ``a`` is a span ``corrla.rsvd.products``, each
+    orthonormalization a span ``corrla.rsvd.orth``."""
+    with annotate(_PRODUCTS):
+        y = a @ omega
     for i in range(n_iter):
         if stabilize == "always" or i > 2:
-            y = _thin_qr(y, qr_method)
-        y = a @ _mm(a.mT, y)
+            with annotate(_ORTH):
+                y = _thin_qr(y, qr_method)
+        with annotate(_PRODUCTS):
+            z = _mm(a.mT, y)
+        with annotate(_PRODUCTS):
+            y = a @ z
         # guard: a zero panel (e.g. A == 0) must not produce 0/0 = NaN
         y = y / torch.linalg.vector_norm(y, dim=(-2, -1),
                                          keepdim=True).clamp_min(1e-30)
     # the final orthonormalization sets B = Q^T A and every sigma after it:
     # exact Householder even on the cholesky fast path
-    return _householder_qr(y)
+    with annotate(_ORTH):
+        return _householder_qr(y)
 
 
 def power_iter(a: torch.Tensor, omega_rank: int, n_iter: int, key=0,
@@ -176,7 +188,10 @@ def random_svd(a: torch.Tensor, omega_rank: int, n_iter: int,
 
     Parity with reference random_svd.rs:63-110, including the fat-matrix
     transpose path. ``key`` is an int seed or a ``torch.Generator``. Under
-    a ``torch.profiler`` profile the call is the span ``corrla.rsvd``.
+    a ``torch.profiler`` profile the call is the span ``corrla.rsvd``, and
+    inside it each product that reads A is a span ``corrla.rsvd.products``
+    (2 + 2 ``n_iter``), each orthonormalization a span ``corrla.rsvd.orth``
+    and the SVD of B = Q^T A with U = Q U_B the span ``corrla.rsvd.svd``.
     """
     with annotate("corrla.rsvd"):
         a = as_tensor(a)
@@ -185,8 +200,12 @@ def random_svd(a: torch.Tensor, omega_rank: int, n_iter: int,
         sketch_rank, rank = _widths(aa, omega_rank, n_oversamples)
         q = power_iter(aa, sketch_rank, n_iter, key=key, stabilize=stabilize,
                        qr_method=qr_method)
-        u_b, s, vt = torch.linalg.svd(q.mT @ aa, full_matrices=False)
-        return _truncate(q @ u_b, s, vt, rank, fat)
+        with annotate(_PRODUCTS):
+            b = q.mT @ aa
+        with annotate(_SVD):
+            u_b, s, vt = torch.linalg.svd(b, full_matrices=False)
+            u = q @ u_b
+        return _truncate(u, s, vt, rank, fat)
 
 
 def _random_svd_members(a: torch.Tensor, omega_rank: int, n_iter: int,

@@ -17,13 +17,26 @@ Counterpart of ``corrla_rs_tpu/utils/tracing.py``:
 - ``device_sync(tree)``: synchronises every CUDA device that a tensor of
   ``tree`` lies on and returns a checksum of the tensors.
 
-The package opens three spans of its own, each through ``annotate`` and so
-only while a profile runs: ``corrla.rsvd`` around the body of
-``ops.random_svd.random_svd``, ``corrla.solve.pinv`` around the body of
-``ops.mat_utils.pinv``, and ``corrla.solve.saddle`` around the LU solve of
-the saddle system in ``ops.interp.rbf_fit``. ``PodI.fit`` opens each once,
-``RbfInterp.fit`` the last once. The other helpers are tools for callers
-and for the scripts that measure the package.
+The package opens six spans of its own, each through ``annotate`` and so
+only while a profile runs:
+
+- ``corrla.rsvd`` around the body of ``ops.random_svd.random_svd``;
+- inside it ``corrla.rsvd.products`` around each product that reads A (A
+  Omega, each A^T Y and A Z of the power iteration, and B = Q^T A: 2 + 2
+  ``n_iter`` a call), ``corrla.rsvd.orth`` around each orthonormalization
+  of the power iteration and its final Householder QR, and
+  ``corrla.rsvd.svd`` around the SVD of B and U = Q U_B. The first two come
+  from the range finder, so ``ops.random_svd.power_iter`` (and through it
+  ``ops.id_cur``) and the DMDc ensemble's batched pass open them as well,
+  outside any ``corrla.rsvd``;
+- ``corrla.solve.pinv`` around the body of ``ops.mat_utils.pinv``, and
+  ``corrla.solve.saddle`` around the LU solve of the saddle system in
+  ``ops.interp.rbf_fit``.
+
+``api.rsvd`` and ``PodI.fit`` open ``corrla.rsvd`` once with its inner
+spans, ``PodI.fit`` then ``corrla.solve.pinv`` and ``corrla.solve.saddle``
+once each, ``RbfInterp.fit`` the last once. The other helpers are tools for
+callers and for the scripts that measure the package.
 """
 from __future__ import annotations
 

@@ -113,9 +113,13 @@ def test_annotate_records_nothing_without_a_profiler(cpu_device, rng,
         fit()
 
 
-# spans each fit opens, once each, in this order
-FIT_SPANS = {"pod": ["corrla.rsvd", "corrla.solve.pinv",
-                     "corrla.solve.saddle"],
+_PRODUCTS, _ORTH = "corrla.rsvd.products", "corrla.rsvd.orth"
+# the RSVD of PodI's float64 fit: 10 iterations, a thin QR from the fourth on
+_POD_RSVD = (["corrla.rsvd", _PRODUCTS] + [_PRODUCTS, _PRODUCTS] * 3
+             + [_ORTH, _PRODUCTS, _PRODUCTS] * 7
+             + [_ORTH, _PRODUCTS, "corrla.rsvd.svd"])
+# spans each fit opens, in this order (a span's inner spans after it)
+FIT_SPANS = {"pod": _POD_RSVD + ["corrla.solve.pinv", "corrla.solve.saddle"],
              "rbf": ["corrla.solve.saddle"]}
 
 
@@ -139,6 +143,35 @@ def test_each_fit_opens_its_spans_once_inside_the_callers(cpu_device, rng,
         assert inside == FIT_SPANS[model]
     spans = [name for _, _, name in events if name != "caller.fit"]
     assert len(spans) == 2 * len(FIT_SPANS[model])
+
+
+@pytest.mark.parametrize("n_iter", [0, 3])
+def test_random_svd_opens_its_inner_spans_inside_its_own(cpu_device, rng,
+                                                         monkeypatch,
+                                                         n_iter):
+    from corrla_rs_tpu_torch.ops.random_svd import random_svd
+
+    a = torch.as_tensor(rng.standard_normal((96, 40)), dtype=torch.float32)
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+        want = random_svd(a, 5, n_iter, 4, key=3)
+    events = [(e.time_range.start, e.time_range.end, e.name)
+              for e in prof.events() if e.name.startswith("corrla.")]
+    outer = [(s, e) for s, e, name in events if name == "corrla.rsvd"]
+    assert len(outer) == 1
+    lo, hi = outer[0]
+    inner = [name for s, e, name in events if name != "corrla.rsvd"]
+    assert all(lo <= s and e <= hi for s, e, name in events)
+    # float32: a thin QR every iteration, then the final Householder QR
+    assert inner.count(_PRODUCTS) == 2 + 2 * n_iter
+    assert inner.count(_ORTH) == n_iter + 1
+    assert inner.count("corrla.rsvd.svd") == 1
+    assert len(inner) == 3 * n_iter + 4
+    # without a profiler no span is opened, and the answer is the same
+    _refuse_record_function(monkeypatch)
+    got = random_svd(a, 5, n_iter, 4, key=3)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
 
 
 def test_an_exported_random_svd_holds_no_profiler_node(cpu_device, rng,
