@@ -16,10 +16,12 @@ power iterate in one preallocated Krylov block, and ``single_pass_svd`` reads
 A exactly twice (a range sketch and a co-range sketch).
 
 The big products run through cuBLAS in full f32 (TF32 is off, see
-``utils.device``); QR, Cholesky, triangular solves and the small SVD are
-``torch.linalg`` (cuSOLVER on the GPU), as the JAX package leaves them to
-XLA. The loop is a Python loop over a Python int, so nothing in it
-synchronises with the device.
+``utils.device``); QR, Cholesky, the k x k triangular inverses and the small
+SVD are ``torch.linalg`` (cuSOLVER on the GPU), as the JAX package leaves
+them to XLA. A CholeskyQR round applies its factor's inverse to the tall
+panel as one product, not as a triangular solve over the panel's rows.
+The loop is a Python loop over a Python int, so nothing in it synchronises
+with the device.
 """
 from __future__ import annotations
 
@@ -83,16 +85,24 @@ def _householder_qr(y: torch.Tensor) -> torch.Tensor:
 def _cholesky_qr2(y: torch.Tensor) -> torch.Tensor:
     """Preconditioned CholeskyQR with ridge fallback (3 rounds).
 
-    Per round: column-normalize, form the k x k Gram, Cholesky with a small
-    ridge and, where that factorization fails (deficient panels, whose Gram
-    is indefinite at working precision), take the one with a large ridge
-    instead. ``cholesky_ex`` reports failure in ``info`` instead of raising,
-    and the choice is a ``torch.where`` on the device, so no round
-    synchronises with the host. The small-ridge result also counts as failed
-    if it holds a non-finite value, which is what the JAX package tests.
+    Per round: column-normalize, form the k x k Gram, and factor it with a
+    small and with a large ridge in one batched ``cholesky_ex`` over a new
+    leading axis of 2. Where the small-ridge factorization fails (deficient
+    panels, whose Gram is indefinite at working precision), take the
+    large-ridge factor R instead. Then invert R (a k x k triangular solve
+    against the identity) and return the panel times R^-1 as one product:
+    equal in exact arithmetic to a triangular solve over the panel's n
+    rows, which runs far below its bound on the GPU. ``cholesky_ex``
+    reports failure in ``info`` instead of raising, and the choice is a
+    ``torch.where`` on the device, so no round synchronises with the host.
+    The small-ridge result also counts as failed if it holds a non-finite
+    value, which is what the JAX package tests.
 
     ``y`` may carry a leading member dimension (a stack of members): every
     norm, Gram and ridge choice is then taken per member.
+
+    ``_cholesky_qr2.rounds`` counts the rounds run in this process (three a
+    call), on the host.
     """
     if y.dtype == torch.float32:
         # the big ridge must exceed the worst negative eigenvalue of a
@@ -102,19 +112,26 @@ def _cholesky_qr2(y: torch.Tensor) -> torch.Tensor:
     else:
         eps_small, eps_big, tiny = 1e-15, 1e-8, 1e-290
     eye = torch.eye(y.shape[-1], dtype=y.dtype, device=y.device)
+    ridges = torch.stack([eps_small * eye, eps_big * eye])
+    # the ridges' axis in front of any member axis
+    ridges = ridges.reshape((2,) + (1,) * (y.ndim - 2) + eye.shape)
 
     def one_round(y):
         cn = torch.linalg.vector_norm(y, dim=-2, keepdim=True).clamp_min(tiny)
         ys = y / cn
         g = _mm(ys.mT, ys)
-        r_small, info = torch.linalg.cholesky_ex(g + eps_small * eye,
-                                                 upper=True)
+        (r_small, r_big), (info, _) = torch.linalg.cholesky_ex(g + ridges,
+                                                               upper=True)
         ok = (info == 0) & torch.isfinite(r_small).all(dim=(-2, -1))
-        r_big, _ = torch.linalg.cholesky_ex(g + eps_big * eye, upper=True)
         r = torch.where(ok[..., None, None], r_small, r_big)
-        return torch.linalg.solve_triangular(r, ys, upper=True, left=False)
+        m = torch.linalg.solve_triangular(r, eye, upper=True)
+        _cholesky_qr2.rounds += 1
+        return _mm(ys, m)
 
     return one_round(one_round(one_round(y)))
+
+
+_cholesky_qr2.rounds = 0
 
 
 def _thin_qr(y: torch.Tensor, qr_method: str = "householder") -> torch.Tensor:

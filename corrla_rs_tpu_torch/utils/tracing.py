@@ -37,6 +37,13 @@ only while a profile runs:
 spans, ``PodI.fit`` then ``corrla.solve.pinv`` and ``corrla.solve.saddle``
 once each, ``RbfInterp.fit`` the last once. The other helpers are tools for
 callers and for the scripts that measure the package.
+
+Beside the spans, host-side counters that run with or without a profile:
+``ops.rbf_kernels.pairwise_kernel_matrix.launches`` and
+``ops.rbf_kernels.rbf_matvec.launches`` count the kernels' launches, and
+``ops.random_svd._cholesky_qr2.rounds`` the CholeskyQR rounds (three a thin
+QR inside ``corrla.rsvd.orth``: 24 a fit of ``api.rsvd`` at 8 iterations,
+30 a ``PodI.fit`` at 10).
 """
 from __future__ import annotations
 

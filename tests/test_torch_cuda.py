@@ -1871,3 +1871,23 @@ def test_slice_eig_device_on_the_card_matches_cpu(dev, dtype, tol, shape):
     assert bool(ok.all())
     eye = torch.eye(shape[-1], dtype=dtype, device=dev)
     assert float((q.mT @ q - eye).abs().max()) <= 100 * tol
+
+
+@pytest.mark.parametrize("panel", ["sketch", "power_step"])
+@pytest.mark.parametrize("n,k", [(100_000, 110), (200_000, 30)],
+                         ids=["rsvd100k", "pod2k"])
+def test_cholesky_qr2_on_the_cells_panels(dev, n, k, panel):
+    # the RSVD cells' thin-QR shapes in f32 with TF32 off: Q orthonormal
+    # and spanning Y to 100 eps, and within eps * cond(Y) of the rounds
+    # that solve over the panel's rows, computed in f64
+    import _cholesky_qr_ref as qr_ref
+    from corrla_rs_tpu_torch.ops import random_svd
+
+    assert not torch.backends.cuda.matmul.allow_tf32
+    y = qr_ref.panels(n, 2_000, k, dev, seed=n + k)[panel]
+    got = qr_ref.gaps(random_svd._cholesky_qr2(y), y,
+                      qr_ref.solve_round_qr2(y.double()))
+    eps = torch.finfo(torch.float32).eps
+    assert got["orth"] <= 100 * eps, got
+    assert got["recon"] <= 100 * eps, got
+    assert got["to_ref"] <= eps * got["cond"], got

@@ -9,6 +9,7 @@ import numpy as np
 import pytest
 import torch
 
+import _cholesky_qr_ref as _qr_ref
 from _torch_parity import (  # noqa: F401 (fixtures)
     EPS,
     cpu_device,
@@ -92,6 +93,53 @@ def test_cholesky_qr2_ridge_fallback_matches_jax(cpu_device, dtype, noise):
     np.testing.assert_allclose(qt.T @ qt, np.eye(12), atol=100 * EPS[dtype])
     recon = qt @ (qt.T @ y.astype(np.float64)) - y
     assert np.abs(recon).max() <= 100 * EPS[dtype] * np.abs(y).max()
+
+
+@pytest.mark.parametrize("members", [None, 3], ids=["2d", "3d"])
+def test_cholesky_qr2_round_call_shapes(cpu_device, monkeypatch, members):
+    # a round factors both ridges in one cholesky_ex over a leading axis of
+    # 2, solves only k x k systems (R^-1) and applies R^-1 as a product
+    n, k = 200, 12
+    shape = (n, k) if members is None else (members, n, k)
+    y = torch.randn(shape, generator=torch.Generator().manual_seed(4),
+                    dtype=torch.float64)
+    seen = {"cholesky_ex": [], "solve_triangular": []}
+    cholesky_ex = torch.linalg.cholesky_ex
+    solve_triangular = torch.linalg.solve_triangular
+
+    def counted_cholesky(a, *args, **kw):
+        seen["cholesky_ex"].append(tuple(a.shape))
+        return cholesky_ex(a, *args, **kw)
+
+    def counted_solve(a, b, *args, **kw):
+        seen["solve_triangular"].append((tuple(a.shape), tuple(b.shape)))
+        return solve_triangular(a, b, *args, **kw)
+
+    monkeypatch.setattr(torch.linalg, "cholesky_ex", counted_cholesky)
+    monkeypatch.setattr(torch.linalg, "solve_triangular", counted_solve)
+    rounds = port_rsvd._cholesky_qr2.rounds
+    q = port_rsvd._cholesky_qr2(y)
+    assert port_rsvd._cholesky_qr2.rounds == rounds + 3
+    assert q.shape == y.shape
+    stack = (2,) + shape[:-2] + (k, k)
+    assert seen["cholesky_ex"] == [stack] * 3
+    assert len(seen["solve_triangular"]) == 3
+    for a_shape, b_shape in seen["solve_triangular"]:
+        assert a_shape[-2:] == (k, k) and b_shape[-2:] == (k, k)
+
+
+@pytest.mark.parametrize("panel", ["sketch", "power_step"])
+def test_cholesky_qr2_product_round_matches_solve_round(cpu_device, panel):
+    # f32 at 20,000 x 110, A of 200 sigma logspace(0, -3): R^-1 as a
+    # product keeps Q orthonormal and spanning Y to 100 eps, and within
+    # eps * cond(Y) of the rounds that solve over the panel's rows
+    y = _qr_ref.panels(20_000, 1_000, 110, "cpu", seed=26)[panel]
+    got = _qr_ref.gaps(port_rsvd._cholesky_qr2(y), y,
+                       _qr_ref.solve_round_qr2(y))
+    eps = EPS[np.float32]
+    assert got["orth"] <= 100 * eps, got
+    assert got["recon"] <= 100 * eps, got
+    assert got["to_ref"] <= eps * got["cond"], got
 
 
 @pytest.mark.parametrize("dtype", [np.float32, np.float64])
