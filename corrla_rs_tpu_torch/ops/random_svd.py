@@ -25,6 +25,8 @@ with the device.
 """
 from __future__ import annotations
 
+import functools
+
 import torch
 
 from corrla_rs_tpu_torch.utils.device import as_tensor
@@ -82,49 +84,65 @@ def _householder_qr(y: torch.Tensor) -> torch.Tensor:
     return torch.linalg.qr(y, mode="reduced").Q
 
 
+def _round_constants(dtype):
+    """(small ridge, large ridge, column-norm floor) of a CholeskyQR round
+    of a panel in ``dtype``."""
+    if dtype == torch.float32:
+        # the big ridge must exceed the worst negative eigenvalue of a
+        # rounded deficient Gram (~k sqrt(n) 2^-24); the next round's
+        # small-ridge pass removes the distortion it introduces
+        return 1e-7, 1e-2, 1e-30
+    return 1e-15, 1e-8, 1e-290
+
+
+def _ridges(y, eps_small, eps_big):
+    """(I, the stack [eps_small I, eps_big I]) for the k columns of the
+    panel ``y``, the ridges' axis in front of any member axis of ``y``.
+    Made once a call and used by each of its rounds."""
+    eye = torch.eye(y.shape[-1], dtype=y.dtype, device=y.device)
+    ridges = torch.stack([eps_small * eye, eps_big * eye])
+    return eye, ridges.reshape((2,) + (1,) * (y.ndim - 2) + eye.shape)
+
+
+def _ridged_r_inv(g, eye, ridges):
+    """R^-1 of the upper Cholesky factor of the k x k Gram ``g`` (or of each
+    of a member stack) with a ridge fallback: ``g`` plus each ridge of
+    ``ridges`` (from ``_ridges``) in one batched ``cholesky_ex``, and the
+    large-ridge factor wherever the small-ridge one failed (``info``, or a
+    non-finite value, which is what the JAX package tests): deficient
+    panels, whose Gram is indefinite at working precision. The choice is a
+    ``torch.where`` on the device, so nothing synchronises with the host.
+    Every CholeskyQR of the package factors here."""
+    (r_small, r_big), (info, _) = torch.linalg.cholesky_ex(g + ridges,
+                                                           upper=True)
+    ok = (info == 0) & torch.isfinite(r_small).all(dim=(-2, -1))
+    r = torch.where(ok[..., None, None], r_small, r_big)
+    return torch.linalg.solve_triangular(r, eye, upper=True)
+
+
 def _cholesky_qr2(y: torch.Tensor) -> torch.Tensor:
     """Preconditioned CholeskyQR with ridge fallback (3 rounds).
 
-    Per round: column-normalize, form the k x k Gram, and factor it with a
-    small and with a large ridge in one batched ``cholesky_ex`` over a new
-    leading axis of 2. Where the small-ridge factorization fails (deficient
-    panels, whose Gram is indefinite at working precision), take the
-    large-ridge factor R instead. Then invert R (a k x k triangular solve
-    against the identity) and return the panel times R^-1 as one product:
-    equal in exact arithmetic to a triangular solve over the panel's n
-    rows, which runs far below its bound on the GPU. ``cholesky_ex``
-    reports failure in ``info`` instead of raising, and the choice is a
-    ``torch.where`` on the device, so no round synchronises with the host.
-    The small-ridge result also counts as failed if it holds a non-finite
-    value, which is what the JAX package tests.
+    Per round: column-normalize, form the k x k Gram, take R^-1 of its
+    ridge-fallback Cholesky factor (``_ridged_r_inv``) and return the panel
+    times R^-1 as one product: equal in exact arithmetic to a triangular
+    solve over the panel's n rows, which runs far below its bound on the
+    GPU. No round synchronises with the host.
 
     ``y`` may carry a leading member dimension (a stack of members): every
     norm, Gram and ridge choice is then taken per member.
 
     ``_cholesky_qr2.rounds`` counts the rounds run in this process (three a
-    call), on the host.
+    call), on the host; the row-sharded rounds of ``parallel.sharded_rsvd``
+    add to it too.
     """
-    if y.dtype == torch.float32:
-        # the big ridge must exceed the worst negative eigenvalue of a
-        # rounded deficient Gram (~k sqrt(n) 2^-24); the next round's
-        # small-ridge pass removes the distortion it introduces
-        eps_small, eps_big, tiny = 1e-7, 1e-2, 1e-30
-    else:
-        eps_small, eps_big, tiny = 1e-15, 1e-8, 1e-290
-    eye = torch.eye(y.shape[-1], dtype=y.dtype, device=y.device)
-    ridges = torch.stack([eps_small * eye, eps_big * eye])
-    # the ridges' axis in front of any member axis
-    ridges = ridges.reshape((2,) + (1,) * (y.ndim - 2) + eye.shape)
+    eps_small, eps_big, tiny = _round_constants(y.dtype)
+    eye, ridges = _ridges(y, eps_small, eps_big)
 
     def one_round(y):
         cn = torch.linalg.vector_norm(y, dim=-2, keepdim=True).clamp_min(tiny)
         ys = y / cn
-        g = _mm(ys.mT, ys)
-        (r_small, r_big), (info, _) = torch.linalg.cholesky_ex(g + ridges,
-                                                               upper=True)
-        ok = (info == 0) & torch.isfinite(r_small).all(dim=(-2, -1))
-        r = torch.where(ok[..., None, None], r_small, r_big)
-        m = torch.linalg.solve_triangular(r, eye, upper=True)
+        m = _ridged_r_inv(_mm(ys.mT, ys), eye, ridges)
         _cholesky_qr2.rounds += 1
         return _mm(ys, m)
 
@@ -192,10 +210,11 @@ def power_iter(a: torch.Tensor, omega_rank: int, n_iter: int, key=0,
                          *_resolve(a.dtype, stabilize, qr_method))
 
 
-def _widths(aa, omega_rank: int, n_oversamples: int):
-    """(sketch rank, returned rank) of ``random_svd`` on the tall ``aa``."""
-    sketch_rank = min(omega_rank + n_oversamples, aa.shape[-1])
-    return sketch_rank, min(omega_rank, sketch_rank)
+def _widths(m: int, omega_rank: int, n_oversamples: int):
+    """(sketch rank, returned rank) of a randomized SVD of a tall matrix
+    with ``m`` columns."""
+    sketch_rank = min(int(omega_rank) + int(n_oversamples), m)
+    return sketch_rank, min(int(omega_rank), sketch_rank)
 
 
 def random_svd(a: torch.Tensor, omega_rank: int, n_iter: int,
@@ -210,41 +229,43 @@ def random_svd(a: torch.Tensor, omega_rank: int, n_iter: int,
     (2 + 2 ``n_iter``), each orthonormalization a span ``corrla.rsvd.orth``
     and the SVD of B = Q^T A with U = Q U_B the span ``corrla.rsvd.svd``.
     """
-    with annotate("corrla.rsvd"):
-        a = as_tensor(a)
-        fat = a.shape[0] < a.shape[1]
-        aa = a.mT if fat else a
-        sketch_rank, rank = _widths(aa, omega_rank, n_oversamples)
-        q = power_iter(aa, sketch_rank, n_iter, key=key, stabilize=stabilize,
-                       qr_method=qr_method)
-        with annotate(_PRODUCTS):
-            b = q.mT @ aa
-        with annotate(_SVD):
-            u_b, s, vt = torch.linalg.svd(b, full_matrices=False)
-            u = q @ u_b
-        return _truncate(u, s, vt, rank, fat)
+    return _rsvd(a, omega_rank, n_iter, n_oversamples, stabilize, qr_method,
+                 functools.partial(_draw_sketch, key))
 
 
 def _random_svd_members(a: torch.Tensor, omega_rank: int, n_iter: int,
                         n_oversamples: int, keys, stabilize: str = "auto",
                         qr_method: str = "auto"):
     """``random_svd`` of every member of the stack ``a`` (B, n, m) in one
-    batched pass: U (B, n, r), s (B, r), Vt (B, r, m).
+    batched pass: U (B, n, r), s (B, r), Vt (B, r, m), with the same spans.
 
     Member b draws its sketch from ``keys[b]``, as ``random_svd(a[b],
     key=keys[b])`` would; the draws are stacked and every product, QR,
     Cholesky and SVD after them is one call over the member axis, with
     each norm and ridge choice taken per member.
     """
-    fat = a.shape[-2] < a.shape[-1]
-    aa = a.mT if fat else a
-    sketch_rank, rank = _widths(aa, omega_rank, n_oversamples)
-    omega = torch.stack([_draw_sketch(k, (aa.shape[-1], sketch_rank),
-                                      aa.dtype, aa.device) for k in keys])
-    q = _range_finder(aa, omega, n_iter,
-                      *_resolve(aa.dtype, stabilize, qr_method))
-    u_b, s, vt = torch.linalg.svd(_mm(q.mT, aa), full_matrices=False)
-    return _truncate(q @ u_b, s, vt, rank, fat)
+    return _rsvd(a, omega_rank, n_iter, n_oversamples, stabilize, qr_method,
+                 lambda shape, dtype, device: torch.stack(
+                     [_draw_sketch(k, shape, dtype, device) for k in keys]))
+
+
+def _rsvd(a, omega_rank, n_iter, n_oversamples, stabilize, qr_method, draw):
+    """The body of ``random_svd`` and ``_random_svd_members``: ``draw(shape,
+    dtype, device)`` makes the (m, k) sketch, a stack of them for a stack."""
+    with annotate("corrla.rsvd"):
+        a = as_tensor(a)
+        fat = a.shape[-2] < a.shape[-1]
+        aa = a.mT if fat else a
+        sketch_rank, rank = _widths(aa.shape[-1], omega_rank, n_oversamples)
+        omega = draw((aa.shape[-1], sketch_rank), aa.dtype, aa.device)
+        q = _range_finder(aa, omega, n_iter,
+                          *_resolve(aa.dtype, stabilize, qr_method))
+        with annotate(_PRODUCTS):
+            b = _mm(q.mT, aa)
+        with annotate(_SVD):
+            u_b, s, vt = torch.linalg.svd(b, full_matrices=False)
+            u = q @ u_b
+        return _truncate(u, s, vt, rank, fat)
 
 
 def _truncate(u, s, vt, rank: int, fat: bool):
@@ -275,7 +296,7 @@ def block_krylov_svd(a: torch.Tensor, rank: int, n_iter: int,
     fat = a.shape[0] < a.shape[1]
     aa = a.mT if fat else a
     n, m = aa.shape
-    k = min(rank + n_oversamples, m)
+    k, _ = _widths(m, rank, n_oversamples)
     q = max(int(n_iter), 0)
     omega = _draw_sketch(key, (m, k), aa.dtype, aa.device)
     blocks = aa.new_empty((n, k * (q + 1)))
@@ -316,12 +337,12 @@ def single_pass_svd(a: torch.Tensor, rank: int, n_oversamples: int = 10,
 
     Returns (U (n, rank), s (rank,), Vt (rank, m)) like ``random_svd``.
     """
-    from corrla_rs_tpu_torch.parallel.mesh import rows_of_dtensor
+    from corrla_rs_tpu_torch.parallel import mesh, sharded_rsvd
 
-    rows = rows_of_dtensor(a)
+    rows = mesh.rows_of_dtensor(a)
     if rows is not None:
-        return _single_pass_sharded(rows, rank, n_oversamples,
-                                    core_oversamples, key)
+        return sharded_rsvd._single_pass_sharded(rows, rank, n_oversamples,
+                                                 core_oversamples, key)
     a = as_tensor(a)
     fat = a.shape[0] < a.shape[1]
     aa = a.mT if fat else a
@@ -334,48 +355,24 @@ def single_pass_svd(a: torch.Tensor, rank: int, n_oversamples: int = 10,
     y = aa @ omega                                      # pass 1: (n, k)
     w = psi @ aa                                        # pass 2: (ell, m)
     q = _householder_qr(y)                              # (n, k)
-    # core: X = (Psi Q)^+ W by QR least squares; (ell, k) is small and
-    # well conditioned w.h.p. for ell ~ 2k
-    qb, rb = torch.linalg.qr(psi @ q, mode="reduced")
-    x = torch.linalg.solve_triangular(rb, qb.mT @ w, upper=True)   # (k, m)
-    u_x, s, vt = torch.linalg.svd(x, full_matrices=False)
+    u_x, s, vt = _core_svd(psi @ q, w)
     return _truncate(q @ u_x, s, vt, rank, fat)
+
+
+def _core_svd(psi_q, w):
+    """SVD of the two-sided sketch's core X = (Psi Q)^+ W (k, m), by QR
+    least squares: Psi Q (ell, k) is small and well conditioned w.h.p. for
+    ell ~ 2k. Every ``single_pass_svd`` of the package (dense, row-sharded,
+    streamed) solves its core here."""
+    qb, rb = torch.linalg.qr(psi_q, mode="reduced")
+    x = torch.linalg.solve_triangular(rb, qb.mT @ w, upper=True)
+    return torch.linalg.svd(x, full_matrices=False)
 
 
 def _single_pass_widths(n: int, m: int, rank: int, n_oversamples: int,
                         core_oversamples):
     """(k, ell): the range sketch's and the co-range sketch's widths."""
-    k = min(rank + n_oversamples, m)
+    k, _ = _widths(m, rank, n_oversamples)
     if core_oversamples is None:
         return k, min(2 * k + 1, n)
     return k, min(k + int(core_oversamples), n)
-
-
-def _single_pass_sharded(rows, rank, n_oversamples, core_oversamples, key):
-    """``single_pass_svd`` of a row-sharded DTensor (``rows`` from
-    ``parallel.mesh.rows_of_dtensor``)."""
-    from corrla_rs_tpu_torch.parallel.mesh import _coord, _dtensor, _psum
-    from corrla_rs_tpu_torch.parallel.sharded_rsvd import _tsqr
-
-    a_l, (n, m), mesh, axis = rows
-    if n < m:
-        raise ValueError(
-            f"single_pass_svd of a row-sharded matrix needs it tall (n >= "
-            f"m), got {n} x {m}")
-    k, ell = _single_pass_widths(n, m, rank, n_oversamples,
-                                 core_oversamples)
-    k_om, k_psi = _split_seed(key, 2, a_l.device)
-    omega = _draw_sketch(k_om, (m, k), a_l.dtype, a_l.device)
-    n_l = a_l.shape[0]
-    lo = _coord(mesh, axis) * n_l
-    psi_l = _draw_sketch(k_psi, (ell, n), a_l.dtype,
-                         a_l.device)[:, lo:lo + n_l]
-    y_l = a_l @ omega                                   # pass 1, sharded
-    w = _psum(psi_l @ a_l, mesh, axis)                  # pass 2: (ell, m)
-    q_l, _ = _tsqr(y_l, None, mesh, axis)
-    qb, rb = torch.linalg.qr(_psum(psi_l @ q_l, mesh, axis), mode="reduced")
-    x = torch.linalg.solve_triangular(rb, qb.mT @ w, upper=True)   # (k, m)
-    u_x, s, vt = torch.linalg.svd(x, full_matrices=False)
-    u_l = (q_l @ u_x)[:, :rank]
-    return (_dtensor(u_l, mesh, axis, 0, (n, u_l.shape[1])), s[:rank],
-            vt[:rank, :])

@@ -11,8 +11,9 @@ Passes over the source are the budget, as in the JAX package:
 
 - ``method='gram'`` (default): one pass accumulates G = A^T A; the
   ``n_iter`` power iterations run on G on the device (W <- G W with
-  CholeskyQR in m-space, ``_chol_qr_cols``); one pass for Y = A W and one
-  for B = Q^T A. Three passes whatever ``n_iter``;
+  CholeskyQR in m-space, ``_chol_qr_cols``, whose factor is the one every
+  CholeskyQR of the package takes, ``random_svd._ridged_r_inv``); one pass
+  for Y = A W and one for B = Q^T A. Three passes whatever ``n_iter``;
 - ``method='power'``: each iteration applies H = A^T (A W) in one pass;
   n_iter + 2 passes, O(m k) on the device;
 - ``streamed_single_pass_svd``: both sketches of the two-sided sketch SVD
@@ -323,16 +324,12 @@ def _chol_qr_cols(w, h):
     (A^T A W stabilized, the next iterate): CholeskyQR in m-space.
 
     Rank-deficient sketches: the diagonal normalizer gets a relative floor
-    (eps * max diag), and the Cholesky carries the small/large ridge
-    fallback of ``random_svd._cholesky_qr2`` (``cholesky_ex`` and a
-    ``torch.where``, no synchronisation)."""
+    (eps * max diag), and R^-1 is ``random_svd._ridged_r_inv``'s, with this
+    round's own small and large ridges."""
     if w.dtype == torch.float32:
         eps_small, floor_rel = 1e-6, 1e-6
     else:
         eps_small, floor_rel = 1e-14, 1e-14
-    # with the floored normalizer the entries of ytyn are bounded by ~1.1,
-    # so lambda_min >= -1.1 k; 2 (1 + k) dominates it
-    eps_big = 2.0
     k = w.shape[1]
     yty = w.mT @ h
     yty = 0.5 * (yty + yty.mT)
@@ -340,15 +337,10 @@ def _chol_qr_cols(w, h):
     mx = diag.max().clamp_min(1e-300)
     d = torch.sqrt(torch.maximum(diag, floor_rel * mx))
     ytyn = yty / (d[:, None] * d[None, :])
-    eye = torch.eye(k, dtype=w.dtype, device=w.device)
-    r_small, info = torch.linalg.cholesky_ex(ytyn + eps_small * eye,
-                                             upper=True)
-    ok = (info == 0) & torch.isfinite(r_small).all()
-    r_big, _ = torch.linalg.cholesky_ex(ytyn + eps_big * (1 + k) * eye,
-                                        upper=True)
-    r = torch.where(ok, r_small, r_big)
-    return torch.linalg.solve_triangular(r, h / d[None, :], upper=True,
-                                         left=False)
+    # with the floored normalizer the entries of ytyn are bounded by ~1.1,
+    # so lambda_min >= -1.1 k; 2 (1 + k) dominates it
+    eye, ridges = _rsvd._ridges(w, eps_small, 2.0 * (1 + k))
+    return (h / d[None, :]) @ _rsvd._ridged_r_inv(ytyn, eye, ridges)
 
 
 def _gram_power(g, omega, n_iter: int):
@@ -454,8 +446,7 @@ def streamed_random_svd(
     tdt = _torch_dtype(dtype)
     if block_rows is None:
         block_rows = _default_block_rows(n, m, dtype)
-    k = min(int(rank) + int(n_oversamples), m)
-    rank = min(int(rank), k)
+    k, rank = _rsvd._widths(m, rank, n_oversamples)
     omega = _rsvd._draw_sketch(key, (m, k), tdt, dev)
 
     csum = torch.zeros((m,), dtype=tdt, device=dev)
@@ -569,12 +560,11 @@ def streamed_single_pass_svd(
     tdt = _torch_dtype(dtype)
     if block_rows is None:
         block_rows = _default_block_rows(n, m, dtype)
-    k = min(int(rank) + int(n_oversamples), m)
+    k, ell = _rsvd._single_pass_widths(n, m, rank, n_oversamples,
+                                       core_oversamples)
     rank = min(int(rank), k)
     k_om, k_psi = _rsvd._split_seed(key, 2, dev)
     omega = _rsvd._draw_sketch(k_om, (m, k), tdt, dev)
-    ell = min(2 * k + 1 if core_oversamples is None
-              else k + int(core_oversamples), n)
     psi_keys = _psi_keys(k_psi, -(-n // block_rows), dev)
 
     def step(acc, blk, i):
@@ -599,9 +589,7 @@ def streamed_single_pass_svd(
         q_i = q[lo:lo + block_rows]
         b.addmm_(_psi_block(psi_keys[i], ell, block_rows, q_i.shape[0], tdt,
                             dev), q_i)
-    qb, rb = torch.linalg.qr(b, mode="reduced")
-    x = torch.linalg.solve_triangular(rb, qb.mT @ w, upper=True)
-    u_x, s, vt = torch.linalg.svd(x, full_matrices=False)
+    u_x, s, vt = _rsvd._core_svd(b, w)
     u = q @ u_x
     return u[:, :rank], s[:rank], vt[:rank, :]
 

@@ -8,14 +8,16 @@ local products and the collectives join them. Per power iteration:
     Z     = allreduce(A_l^T @ Y_l)            (Gram reduction)
     Y_l   = A_l @ Z                           (local GEMM)
 
-The in-loop thin QR is the preconditioned ridge-fallback CholeskyQR (three
-rounds of all-reduced column norms and Gram, Cholesky with the small/large
-ridge chosen by ``torch.where`` on the device, as in
-``ops.random_svd._cholesky_qr2``): two k x k all-reduces a round. The final
-orthonormalization is an exact TSQR (``_tsqr``): a local Householder QR,
-an all-gather of the k x k R factors, one replicated QR of their stack, and
-this rank's block of its Q. B = allreduce(Q_l^T A_l) and its small SVD are
-replicated on every rank.
+The in-loop thin QR is the three rounds of ``ops.random_svd._cholesky_qr2``
+with the column norms and the Gram all-reduced (two k x k all-reduces a
+round) and R^-1 from ``ops.random_svd._ridged_r_inv``; the widths and
+``stabilize`` are ``ops.random_svd``'s too. The loops are this module's own,
+since their products are collectives. The final orthonormalization is an
+exact TSQR (``_tsqr``): a local Householder QR, an all-gather of the k x k
+R factors, one replicated QR of their stack, and this rank's block of its
+Q. B = allreduce(Q_l^T A_l) and its small SVD are replicated on every rank.
+``ops.random_svd.single_pass_svd`` of a row-sharded DTensor runs here too
+(``_single_pass_sharded``), on the same TSQR.
 
 Omega is drawn whole through ``ops.random_svd._draw_sketch``, so the same
 key gives the same sketch on every rank and in the single-device
@@ -52,41 +54,27 @@ def _reduce(local, tail_part, mesh, axis_name):
     return total if tail_part is None else total + tail_part
 
 
-def _chol_qr_once(y_l, y_t, mesh, axis_name, eps_small, eps_big, tiny):
-    """One preconditioned CholeskyQR round (ridge fallback) on the sharded
-    panel y_l (and the replicated tail y_t): column norms and the Gram are
-    all-reduced, everything else is local."""
-    k = y_l.shape[1]
-    cn2 = _reduce(torch.sum(y_l * y_l, dim=0),
-                  None if y_t is None else torch.sum(y_t * y_t, dim=0),
-                  mesh, axis_name)
-    cn = torch.sqrt(cn2).clamp_min(tiny)
-    ys_l = y_l / cn[None, :]
-    ys_t = None if y_t is None else y_t / cn[None, :]
-    g = _reduce(ys_l.mT @ ys_l, None if ys_t is None else ys_t.mT @ ys_t,
-                mesh, axis_name)
-    eye = torch.eye(k, dtype=y_l.dtype, device=y_l.device)
-    r_small, info = torch.linalg.cholesky_ex(g + eps_small * eye, upper=True)
-    ok = (info == 0) & torch.isfinite(r_small).all()
-    r_big, _ = torch.linalg.cholesky_ex(g + eps_big * eye, upper=True)
-    r = torch.where(ok, r_small, r_big)
-
-    def solve(y):
-        return torch.linalg.solve_triangular(r, y, upper=True, left=False)
-
-    return solve(ys_l), None if ys_t is None else solve(ys_t)
-
-
 def _chol_qr2(y_l, y_t, mesh, axis_name):
-    """Three robust rounds: see ops.random_svd._cholesky_qr2 for why
-    (rank-deficient sketches, f32 Gram rounding)."""
-    if y_l.dtype == torch.float32:
-        eps_small, eps_big, tiny = 1e-7, 1e-2, 1e-30
-    else:
-        eps_small, eps_big, tiny = 1e-15, 1e-8, 1e-290
+    """The three rounds of ``ops.random_svd._cholesky_qr2`` on the sharded
+    panel y_l (and the replicated tail y_t): the column norms and the Gram
+    are all-reduced, R^-1 is ``random_svd._ridged_r_inv``'s, replicated,
+    and each rank multiplies its rows by it. Counted in
+    ``_cholesky_qr2.rounds``."""
+    eps_small, eps_big, tiny = _rsvd._round_constants(y_l.dtype)
+    eye, ridges = _rsvd._ridges(y_l, eps_small, eps_big)
     for _ in range(3):
-        y_l, y_t = _chol_qr_once(y_l, y_t, mesh, axis_name, eps_small,
-                                 eps_big, tiny)
+        cn2 = _reduce(torch.sum(y_l * y_l, dim=0),
+                      None if y_t is None else torch.sum(y_t * y_t, dim=0),
+                      mesh, axis_name)
+        cn = torch.sqrt(cn2).clamp_min(tiny)
+        y_l = y_l / cn[None, :]
+        y_t = None if y_t is None else y_t / cn[None, :]
+        g = _reduce(y_l.mT @ y_l, None if y_t is None else y_t.mT @ y_t,
+                    mesh, axis_name)
+        m = _rsvd._ridged_r_inv(g, eye, ridges)
+        _rsvd._cholesky_qr2.rounds += 1
+        y_l = y_l @ m
+        y_t = None if y_t is None else y_t @ m
     return y_l, y_t
 
 
@@ -111,6 +99,32 @@ def _tsqr_factors(y_l, y_t, mesh, axis_name):
 def _tsqr(y_l, y_t, mesh, axis_name):
     """``_tsqr_factors`` without R: (Q_l, Q_tail)."""
     return _tsqr_factors(y_l, y_t, mesh, axis_name)[:2]
+
+
+def _single_pass_sharded(rows, rank, n_oversamples, core_oversamples, key):
+    """``ops.random_svd.single_pass_svd`` of a row-sharded DTensor (``rows``
+    from ``parallel.mesh.rows_of_dtensor``): Y = A Omega stays row-sharded,
+    W = Psi A and Psi Q are psums, and the QR of Y is ``_tsqr``."""
+    a_l, (n, m), mesh, axis = rows
+    if n < m:
+        raise ValueError(
+            f"single_pass_svd of a row-sharded matrix needs it tall (n >= "
+            f"m), got {n} x {m}")
+    k, ell = _rsvd._single_pass_widths(n, m, rank, n_oversamples,
+                                       core_oversamples)
+    k_om, k_psi = _rsvd._split_seed(key, 2, a_l.device)
+    omega = _rsvd._draw_sketch(k_om, (m, k), a_l.dtype, a_l.device)
+    n_l = a_l.shape[0]
+    lo = _coord(mesh, axis) * n_l
+    psi_l = _rsvd._draw_sketch(k_psi, (ell, n), a_l.dtype,
+                               a_l.device)[:, lo:lo + n_l]
+    y_l = a_l @ omega                                   # pass 1, sharded
+    w = _psum(psi_l @ a_l, mesh, axis)                  # pass 2: (ell, m)
+    q_l, _ = _tsqr(y_l, None, mesh, axis)
+    u_x, s, vt = _rsvd._core_svd(_psum(psi_l @ q_l, mesh, axis), w)
+    u_l = (q_l @ u_x)[:, :rank]
+    return (_dtensor(u_l, mesh, axis, 0, (n, u_l.shape[1])), s[:rank],
+            vt[:rank, :])
 
 
 def _power_iter_sharded(a_l, a_t, omega, n_iter, stabilize, mesh, axis_name):
@@ -157,22 +171,14 @@ def _check_tall(n: int, m: int, n_dev: int) -> None:
         )
 
 
-def _resolve(stabilize: str, dtype) -> str:
-    """'auto' as ``ops.random_svd.power_iter`` resolves it."""
-    if stabilize == "auto":
-        return "always" if dtype == torch.float32 else "reference"
-    return stabilize
-
-
 def _sharded_svd(a_l, a_t, m, omega_rank, n_iter, n_oversamples, key,
                  stabilize, mesh, axis_name):
     """The body of every sharded randomized SVD: (U_l, U_tail, s, Vt) of
     [a_l; a_t] (m columns), truncated to the rank, s and Vt replicated."""
-    sketch_rank = min(int(omega_rank) + int(n_oversamples), m)
-    rank = min(int(omega_rank), sketch_rank)
+    sketch_rank, rank = _rsvd._widths(m, omega_rank, n_oversamples)
+    stabilize, _ = _rsvd._resolve(a_l.dtype, stabilize, "auto")
     omega = _rsvd._draw_sketch(key, (m, sketch_rank), a_l.dtype, a_l.device)
-    q_l, q_t = _power_iter_sharded(a_l, a_t, omega, n_iter,
-                                   _resolve(stabilize, a_l.dtype), mesh,
+    q_l, q_t = _power_iter_sharded(a_l, a_t, omega, n_iter, stabilize, mesh,
                                    axis_name)
     b = _reduce(q_l.mT @ a_l, None if a_t is None else q_t.mT @ a_t, mesh,
                 axis_name)
@@ -191,10 +197,8 @@ def _col_sharded_svd(a_l, n, m, omega_rank, n_iter, n_oversamples, key,
     row-sharded and is factored by ``_tsqr_factors``, B = R^T Qb^T, so
     B's SVD is that of the small R^T. Returns (U, s, Vt_local) truncated
     to the rank: U and s replicated, Vt's columns this rank's block."""
-    sketch_rank = min(int(omega_rank) + int(n_oversamples), m)
-    rank = min(int(omega_rank), sketch_rank)
-    stabilize = _resolve(stabilize, a_l.dtype)
-    qr_method = "cholesky" if stabilize == "always" else "householder"
+    sketch_rank, rank = _rsvd._widths(m, omega_rank, n_oversamples)
+    stabilize, qr_method = _rsvd._resolve(a_l.dtype, stabilize, "auto")
     m_l = a_l.shape[1]
     lo = _coord(mesh, axis_name) * m_l
     omega = _rsvd._draw_sketch(key, (m, sketch_rank), a_l.dtype,

@@ -20,15 +20,16 @@ Counterpart of ``corrla_rs_tpu/utils/tracing.py``:
 The package opens six spans of its own, each through ``annotate`` and so
 only while a profile runs:
 
-- ``corrla.rsvd`` around the body of ``ops.random_svd.random_svd``;
+- ``corrla.rsvd`` around the body of ``ops.random_svd.random_svd``, which
+  is also the body of the member pass ``random_svd._random_svd_members``
+  (the DMDc ensemble's batched fit: one span a pass over all members);
 - inside it ``corrla.rsvd.products`` around each product that reads A (A
   Omega, each A^T Y and A Z of the power iteration, and B = Q^T A: 2 + 2
   ``n_iter`` a call), ``corrla.rsvd.orth`` around each orthonormalization
   of the power iteration and its final Householder QR, and
   ``corrla.rsvd.svd`` around the SVD of B and U = Q U_B. The first two come
   from the range finder, so ``ops.random_svd.power_iter`` (and through it
-  ``ops.id_cur``) and the DMDc ensemble's batched pass open them as well,
-  outside any ``corrla.rsvd``;
+  ``ops.id_cur``) opens them as well, outside any ``corrla.rsvd``;
 - ``corrla.solve.pinv`` around the body of ``ops.mat_utils.pinv``, and
   ``corrla.solve.saddle`` around the LU solve of the saddle system in
   ``ops.interp.rbf_fit``.
@@ -43,7 +44,10 @@ Beside the spans, host-side counters that run with or without a profile:
 ``ops.rbf_kernels.rbf_matvec.launches`` count the kernels' launches, and
 ``ops.random_svd._cholesky_qr2.rounds`` the CholeskyQR rounds (three a thin
 QR inside ``corrla.rsvd.orth``: 24 a fit of ``api.rsvd`` at 8 iterations,
-30 a ``PodI.fit`` at 10).
+30 a ``PodI.fit`` at 10). It counts the rounds of the dense path, of the
+member pass (one a round over all members) and of the row-sharded path
+(``parallel.sharded_rsvd``); the m-space round of ``ops.streaming`` is not
+counted.
 """
 from __future__ import annotations
 

@@ -80,7 +80,7 @@ def main(argv=None):
     a = torch.cat([x, u], dim=-2)[..., :-1]
     fat = a.shape[-2] < a.shape[-1]
     aa = a.mT if fat else a
-    sketch, rank = rs._widths(aa, kw["n_modes"], OS)
+    sketch, rank = rs._widths(aa.shape[-1], kw["n_modes"], OS)
     print(f"{dev}: input space {tuple(a.shape)}, fat {fat}, sketch {sketch}"
           f", rank {rank}")
     # the whole core, batched against the members fitted alone

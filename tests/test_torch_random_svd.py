@@ -95,12 +95,17 @@ def test_cholesky_qr2_ridge_fallback_matches_jax(cpu_device, dtype, noise):
     assert np.abs(recon).max() <= 100 * EPS[dtype] * np.abs(y).max()
 
 
-@pytest.mark.parametrize("members", [None, 3], ids=["2d", "3d"])
+@pytest.mark.parametrize("members", [None, 3, "sharded"],
+                         ids=["2d", "3d", "sharded"])
 def test_cholesky_qr2_round_call_shapes(cpu_device, monkeypatch, members):
     # a round factors both ridges in one cholesky_ex over a leading axis of
-    # 2, solves only k x k systems (R^-1) and applies R^-1 as a product
+    # 2, solves only k x k systems (R^-1) and applies R^-1 as a product;
+    # so does the row-sharded round (its rows and a replicated tail, in a
+    # world of one: the all-reduce is the identity), as the dense one does
+    from corrla_rs_tpu_torch.parallel import sharded_rsvd
+
     n, k = 200, 12
-    shape = (n, k) if members is None else (members, n, k)
+    shape = (members, n, k) if isinstance(members, int) else (n, k)
     y = torch.randn(shape, generator=torch.Generator().manual_seed(4),
                     dtype=torch.float64)
     seen = {"cholesky_ex": [], "solve_triangular": []}
@@ -118,7 +123,11 @@ def test_cholesky_qr2_round_call_shapes(cpu_device, monkeypatch, members):
     monkeypatch.setattr(torch.linalg, "cholesky_ex", counted_cholesky)
     monkeypatch.setattr(torch.linalg, "solve_triangular", counted_solve)
     rounds = port_rsvd._cholesky_qr2.rounds
-    q = port_rsvd._cholesky_qr2(y)
+    if members == "sharded":
+        monkeypatch.setattr(sharded_rsvd, "_psum", lambda t, mesh, axis: t)
+        q = torch.cat(sharded_rsvd._chol_qr2(y[:150], y[150:], None, "x"))
+    else:
+        q = port_rsvd._cholesky_qr2(y)
     assert port_rsvd._cholesky_qr2.rounds == rounds + 3
     assert q.shape == y.shape
     stack = (2,) + shape[:-2] + (k, k)
@@ -126,6 +135,9 @@ def test_cholesky_qr2_round_call_shapes(cpu_device, monkeypatch, members):
     assert len(seen["solve_triangular"]) == 3
     for a_shape, b_shape in seen["solve_triangular"]:
         assert a_shape[-2:] == (k, k) and b_shape[-2:] == (k, k)
+    if members == "sharded":
+        want = port_rsvd._cholesky_qr2(y)
+        assert (q - want).abs().max() <= 100 * EPS[np.float64]
 
 
 @pytest.mark.parametrize("panel", ["sketch", "power_step"])

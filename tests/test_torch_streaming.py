@@ -20,7 +20,7 @@ import pytest
 import torch
 
 import corrla_rs_tpu_torch as port
-from _torch_parity import cpu_device, same_sketch  # noqa: F401 (fixtures)
+from _torch_parity import EPS, cpu_device, same_sketch  # noqa: F401
 from corrla_rs_tpu.ops import streaming as jst
 from corrla_rs_tpu_torch.ops import streaming as pst
 from corrla_rs_tpu_torch.utils import checkpoint as pck
@@ -75,6 +75,42 @@ def test_streamed_random_svd_sketch_only_and_f32(same_sketch, rng):
     want = jst.streamed_random_svd(a32, 5, 4, 6, key=1, block_rows=50)
     assert got[1].dtype == torch.float32
     assert np.abs(_np(got[1]) - _np(want[1])).max() <= 1e-5 * _np(want[1])[0]
+
+
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+def test_chol_qr_cols_ridge_fallback_matches_jax(cpu_device, dtype):
+    # W's last columns lie in the null space of a rank-3 A: their diagonals
+    # of W^T H are rounding, floored, and the normalized Gram + small ridge
+    # is indefinite, so both packages take the large-ridge factor
+    rng = np.random.default_rng(5)
+    n, m, r, k = 400, 30, 3, 10
+    a = rng.standard_normal((n, r)) @ rng.standard_normal((r, m))
+    null = np.linalg.svd(a)[2][r:].T
+    w = np.concatenate([rng.standard_normal((m, r)),
+                        null @ rng.standard_normal((m - r, k - r))], 1)
+    w = torch.as_tensor(w.astype(dtype))
+    h = torch.as_tensor((a.T @ a).astype(dtype)) @ w
+    # the round's relative floor and small ridge, equal in both packages
+    floor_rel = eps_small = 1e-6 if dtype == np.float32 else 1e-14
+    yty = w.mT @ h
+    yty = 0.5 * (yty + yty.mT)
+    diag = torch.diagonal(yty)
+    d = torch.sqrt(torch.clamp_min(diag, floor_rel * diag.max()))
+    g = yty / (d[:, None] * d[None, :]) + eps_small * torch.eye(k,
+                                                                dtype=w.dtype)
+    assert int(torch.linalg.cholesky_ex(g, upper=True).info) != 0, \
+        "W does not force the large-ridge branch"
+    assert not np.isfinite(np.asarray(jnp.linalg.cholesky(
+        jnp.asarray(g.numpy()), upper=True))).all()
+
+    got = _np(pst._chol_qr_cols(w, h))
+    want = np.asarray(jst._chol_qr_cols(jnp.asarray(w.numpy()),
+                                        jnp.asarray(h.numpy())))
+    assert np.isfinite(got).all()
+    # the null columns are rounding over the floored normalizer
+    # sqrt(floor_rel max diag)
+    tol = EPS[dtype] / np.sqrt(floor_rel) * np.abs(want).max()
+    assert np.abs(got - want).max() <= tol
 
 
 def test_streamed_pca_matches_jax(same_sketch, rng):

@@ -145,16 +145,29 @@ def test_each_fit_opens_its_spans_once_inside_the_callers(cpu_device, rng,
     assert len(spans) == 2 * len(FIT_SPANS[model])
 
 
+@pytest.mark.parametrize("members", [None, 3], ids=["one", "members"])
 @pytest.mark.parametrize("n_iter", [0, 3])
 def test_random_svd_opens_its_inner_spans_inside_its_own(cpu_device, rng,
                                                          monkeypatch,
-                                                         n_iter):
-    from corrla_rs_tpu_torch.ops.random_svd import random_svd
+                                                         n_iter, members):
+    # the member pass (the DMDc ensemble's) opens the same spans once a
+    # pass over all its members
+    from corrla_rs_tpu_torch.ops.random_svd import (
+        _random_svd_members,
+        random_svd,
+    )
 
-    a = torch.as_tensor(rng.standard_normal((96, 40)), dtype=torch.float32)
+    shape = (96, 40) if members is None else (members, 96, 40)
+    a = torch.as_tensor(rng.standard_normal(shape), dtype=torch.float32)
+
+    def rsvd():
+        if members is None:
+            return random_svd(a, 5, n_iter, 4, key=3)
+        return _random_svd_members(a, 5, n_iter, 4, range(3, 3 + members))
+
     with torch.profiler.profile(
             activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
-        want = random_svd(a, 5, n_iter, 4, key=3)
+        want = rsvd()
     events = [(e.time_range.start, e.time_range.end, e.name)
               for e in prof.events() if e.name.startswith("corrla.")]
     outer = [(s, e) for s, e, name in events if name == "corrla.rsvd"]
@@ -169,7 +182,7 @@ def test_random_svd_opens_its_inner_spans_inside_its_own(cpu_device, rng,
     assert len(inner) == 3 * n_iter + 4
     # without a profiler no span is opened, and the answer is the same
     _refuse_record_function(monkeypatch)
-    got = random_svd(a, 5, n_iter, 4, key=3)
+    got = rsvd()
     for g, w in zip(got, want):
         assert torch.equal(g, w)
 
