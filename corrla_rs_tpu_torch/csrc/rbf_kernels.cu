@@ -49,9 +49,9 @@
 //      16-feature slabs in shared memory instead, as a runtime loop.
 //   3. Square roots go through sqrt_n (rbf_common.cuh), KM_RB rows' KM_RB x
 //      VEC at once: sqrtf's bits, with the chains interleaved.
-//   4. Stores, two paths of this kernel, chosen here from the output's
-//      address and shape (km_takes_tma; corrla_kernel_matrix_tma reports
-//      the choice):
+//   4. Stores, two paths of this kernel (tile_store.cuh), chosen here from
+//      the output's address and shape (tma_store_fits;
+//      corrla_kernel_matrix_tma reports the choice):
 //      - TMA: each finished tile goes to one of two shared buffers, and one
 //        thread stores it with cp.async.bulk.tensor (evict-first L2 hint),
 //        which clips the ragged edge; the store of one tile overlaps the
@@ -80,6 +80,7 @@
 #include <cstdint>
 
 #include "rbf_common.cuh"
+#include "tile_store.cuh"
 
 namespace {
 
@@ -133,78 +134,6 @@ struct KmArgs {
   T eps;
   int tma;
 };
-
-// ---------------------------------------------------------------------------
-// device helpers: TMA store, bulk groups, the proxy fence, streaming stores
-
-__device__ __forceinline__ uint64_t evict_first_policy() {
-  uint64_t p;
-  asm volatile("createpolicy.fractional.L2::evict_first.b64 %0, 1.0;\n"
-               : "=l"(p));
-  return p;
-}
-
-__device__ __forceinline__ void tma_store_tile(const CUtensorMap* map,
-                                               const void* smem, int col,
-                                               int row, uint64_t policy) {
-  asm volatile(
-      "cp.async.bulk.tensor.2d.global.shared::cta.bulk_group.L2::cache_hint"
-      " [%0, {%1, %2}], [%3], %4;\n" ::"l"(reinterpret_cast<uint64_t>(map)),
-      "r"(col), "r"(row),
-      "r"(static_cast<unsigned>(__cvta_generic_to_shared(smem))),
-      "l"(policy)
-      : "memory");
-}
-
-__device__ __forceinline__ void bulk_commit() {
-  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
-}
-
-// at most PENDING bulk groups still reading their shared source
-template <int PENDING>
-__device__ __forceinline__ void bulk_wait_read() {
-  asm volatile("cp.async.bulk.wait_group.read %0;\n" ::"n"(PENDING)
-               : "memory");
-}
-
-__device__ __forceinline__ void bulk_wait_all() {
-  asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
-}
-
-// this thread's shared-memory writes, made visible to the TMA (async proxy)
-__device__ __forceinline__ void fence_proxy_async() {
-  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-}
-
-// the first `valid` of v's VEC values to p, with evict-first stores
-__device__ __forceinline__ void store_direct(float* p, const float* v,
-                                             int valid) {
-  const auto a = reinterpret_cast<uintptr_t>(p);
-  if (valid >= 4 && (a & 15) == 0) {
-    __stcs(reinterpret_cast<float4*>(p), make_float4(v[0], v[1], v[2], v[3]));
-  } else if (valid >= 4 && (a & 7) == 0) {
-    __stcs(reinterpret_cast<float2*>(p), make_float2(v[0], v[1]));
-    __stcs(reinterpret_cast<float2*>(p + 2), make_float2(v[2], v[3]));
-  } else {
-#pragma unroll
-    for (int c = 0; c < 4; ++c) {
-      if (c < valid) __stcs(p + c, v[c]);
-    }
-  }
-}
-
-__device__ __forceinline__ void store_direct(double* p, const double* v,
-                                             int valid) {
-  const auto a = reinterpret_cast<uintptr_t>(p);
-  if (valid >= 2 && (a & 15) == 0) {
-    __stcs(reinterpret_cast<double2*>(p), make_double2(v[0], v[1]));
-  } else {
-#pragma unroll
-    for (int c = 0; c < 2; ++c) {
-      if (c < valid) __stcs(p + c, v[c]);
-    }
-  }
-}
 
 // ---------------------------------------------------------------------------
 // the tile's pieces
@@ -450,55 +379,6 @@ kernel_matrix_kernel(const __grid_constant__ CUtensorMap map,
 // ---------------------------------------------------------------------------
 // host side
 
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
-                                 void*, const cuuint64_t*, const cuuint64_t*,
-                                 const cuuint32_t*, const cuuint32_t*,
-                                 CUtensorMapInterleave, CUtensorMapSwizzle,
-                                 CUtensorMapL2promotion,
-                                 CUtensorMapFloatOOBfill);
-
-// cuTensorMapEncodeTiled, looked up once through the runtime; null if the
-// installed CUDA has none
-EncodeTiled encode_tiled() {
-  static const EncodeTiled fn = [] {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found{};
-#if CUDART_VERSION >= 12050
-    const cudaError_t err = cudaGetDriverEntryPointByVersion(
-        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
-#else
-    const cudaError_t err = cudaGetDriverEntryPoint(
-        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
-#endif
-    return err == cudaSuccess && found == cudaDriverEntryPointSuccess
-               ? reinterpret_cast<EncodeTiled>(p)
-               : nullptr;
-  }();
-  return fn;
-}
-
-// the output as a 2-D tensor map (nb columns innermost, rows ldo apart) with
-// one tile as its box
-template <typename T>
-cudaError_t encode_out_map(CUtensorMap* map, const KmArgs<T>& a) {
-  const EncodeTiled fn = encode_tiled();
-  if (fn == nullptr) return cudaErrorNotSupported;
-  const cuuint64_t dims[2] = {static_cast<cuuint64_t>(a.nb),
-                              static_cast<cuuint64_t>(a.na)};
-  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(a.ldo) * sizeof(T)};
-  const cuuint32_t box[2] = {static_cast<cuuint32_t>(km_tn<T>()),
-                             static_cast<cuuint32_t>(KM_TM)};
-  const cuuint32_t elem[2] = {1, 1};
-  const CUresult r = fn(
-      map,
-      sizeof(T) == 4 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32
-                     : CU_TENSOR_MAP_DATA_TYPE_FLOAT64,
-      2, a.out, dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
-      CU_TENSOR_MAP_SWIZZLE_NONE, CU_TENSOR_MAP_L2_PROMOTION_NONE,
-      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
-}
-
 template <typename T, int PHI, int D>
 cudaError_t launch_kernel_matrix(const KmArgs<T>& a, cudaStream_t stream) {
   auto kern = kernel_matrix_kernel<T, PHI, D>;
@@ -533,7 +413,8 @@ cudaError_t launch_kernel_matrix(const KmArgs<T>& a, cudaStream_t stream) {
   const int64_t grid = a.tiles < full ? a.tiles : full;
   CUtensorMap map{};
   if (a.tma) {
-    err = encode_out_map(&map, a);
+    err = encode_store_map(&map, a.out, a.na, a.nb, a.ldo, KM_TM,
+                           km_tn<T>());
     if (err != cudaSuccess) return err;
   }
   kern<<<static_cast<unsigned>(grid), KM_THREADS, smem, stream>>>(map, a);
@@ -555,17 +436,6 @@ cudaError_t kernel_matrix_dim(const KmArgs<T>& a, cudaStream_t s) {
   }
 }
 
-// whether the (na, nb) output at out, rows ldo elements of itemsize bytes
-// apart, is stored by TMA: a 16-byte-aligned base and row stride (below
-// 2^40 bytes), int32 coordinates
-bool km_takes_tma(const void* out, int64_t na, int64_t nb, int64_t ldo,
-                  int64_t itemsize) {
-  const auto base = reinterpret_cast<uintptr_t>(out);
-  const int64_t stride_bytes = ldo * itemsize;
-  return base % 16 == 0 && stride_bytes % 16 == 0 &&
-         stride_bytes < (int64_t{1} << 40) && na <= INT_MAX && nb <= INT_MAX;
-}
-
 template <typename T>
 int kernel_matrix(const void* xa, const void* xb, void* out, int64_t na,
                   int64_t nb, int64_t d, int64_t ldo, int64_t phi, double eps,
@@ -574,7 +444,7 @@ int kernel_matrix(const void* xa, const void* xb, void* out, int64_t na,
       na - 1 > (INT64_MAX - nb) / ldo) {
     return cudaErrorInvalidValue;
   }
-  const bool tma = km_takes_tma(out, na, nb, ldo, sizeof(T));
+  const bool tma = tma_store_fits(out, na, nb, ldo, sizeof(T));
   const int64_t col_tiles = (nb + km_tn<T>() - 1) / km_tn<T>();
   const int64_t row_tiles = (na + KM_TM - 1) / KM_TM;
   if (row_tiles > (int64_t{INT_MAX} - 65536) / col_tiles) {
@@ -618,7 +488,7 @@ int corrla_kernel_matrix_f64(const void* xa, const void* xb, void* out,
 // TMA, 0 where it stores directly
 int corrla_kernel_matrix_tma(const void* out, int64_t na, int64_t nb,
                              int64_t ldo, int64_t itemsize) {
-  return km_takes_tma(out, na, nb, ldo, itemsize) ? 1 : 0;
+  return tma_store_fits(out, na, nb, ldo, itemsize) ? 1 : 0;
 }
 
 }  // extern "C"

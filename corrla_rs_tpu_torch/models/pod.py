@@ -6,7 +6,10 @@ iterations / 10 oversamples (pod_rom.rs:56), optimal per-snapshot weights
 via pinv(modes) in one batched product (pod_rom.rs:61-75), one
 linear-kernel RBF fit of all mode weights over the exogenous variable t
 (pod_rom.rs:78-95), prediction y(t) = modes @ w(t) (pod_rom.rs:107-118).
-The RBF fit and predict run through the port's CUDA kernels on the GPU.
+The RBF fit and predict run through the port's CUDA kernels on the GPU, and
+so does the field y(t): ``ops.rbf_kernels.modes_product`` (the operator
+``corrla::modes_product``; ``torch.matmul`` past 32 modes, the plain
+``modes @ w.mT`` on the CPU), inside the span ``corrla.pod.modes``.
 
 ``mesh=`` (a 1-D ``DeviceMesh``) shards the points axis, every rank of the
 mesh making the same call: the modes are the sharded RSVD of x^T (points
@@ -24,8 +27,10 @@ import torch
 from corrla_rs_tpu_torch.ops.interp import rbf_fit, rbf_predict
 from corrla_rs_tpu_torch.ops.mat_utils import pinv
 from corrla_rs_tpu_torch.ops.random_svd import random_svd
+from corrla_rs_tpu_torch.ops.rbf_kernels import modes_product
 from corrla_rs_tpu_torch.utils.config import PodConfig
 from corrla_rs_tpu_torch.utils.device import _is_dtensor, as_tensor
+from corrla_rs_tpu_torch.utils.tracing import annotate
 
 __all__ = ["PodI"]
 
@@ -114,7 +119,9 @@ class PodI:
             from corrla_rs_tpu_torch.parallel.mesh import _dtensor, _placement
 
             mesh, axis, _ = _placement(self.modes)
-            y_l = modes @ w.mT
+            with annotate("corrla.pod.modes"):
+                y_l = modes_product(modes, w)
             return _dtensor(y_l, mesh, axis, 0,
                             (self.modes.shape[0], y_l.shape[1]))
-        return self.modes @ w.mT
+        with annotate("corrla.pod.modes"):
+            return modes_product(modes, w)

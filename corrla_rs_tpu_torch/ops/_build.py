@@ -45,6 +45,12 @@ _SIGNATURES = {
                               _I64, _F64, _I64, _I64, _I64, _P),
     "corrla_rbf_matvec_f64": (_P, _P, _P, _P, _P, _I64, _I64, _I64, _I64,
                               _I64, _F64, _I64, _I64, _I64, _P),
+    # modes, w, out, n_pts, n_q, k, the strides of modes and of w, ldo,
+    # stream
+    "corrla_modes_product_f32": (_P, _P, _P, _I64, _I64, _I64, _I64, _I64,
+                                 _I64, _I64, _I64, _P),
+    "corrla_modes_product_f64": (_P, _P, _P, _I64, _I64, _I64, _I64, _I64,
+                                 _I64, _I64, _I64, _P),
     # cudaError_t -> its message
     "corrla_error_string": (ctypes.c_int,),
 }

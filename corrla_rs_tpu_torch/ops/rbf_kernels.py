@@ -1,9 +1,11 @@
-"""RBF kernel-matrix and streaming-matvec kernels (CUDA) and their plain versions.
+"""RBF kernel-matrix, streaming-matvec and modes-product kernels (CUDA) and
+their plain versions.
 
-Counterparts of the two Pallas TPU kernels in
+The first two are counterparts of the two Pallas TPU kernels in
 ``corrla_rs_tpu/ops/pallas_kernels.py``; the CUDA C++ sources (sm_90a) are
-``csrc/rbf_kernels.cu`` (kernel matrix) and ``csrc/rbf_matvec.cuh`` (matvec),
-built on first use by ``ops._build``.
+``csrc/rbf_kernels.cu`` (kernel matrix), ``csrc/rbf_matvec.cuh`` (matvec)
+and ``csrc/modes_product.cu`` (modes product), built on first use by
+``ops._build``.
 
 - ``pairwise_kernel_matrix(xa, xb, kernel, eps)`` replaces
   ``pallas_kernels.pairwise_kernel_matrix`` (``pallas_call`` at :100):
@@ -31,31 +33,45 @@ built on first use by ``ops._build``.
   buffers. When the grid would underfill the card, the
   support is split over blocks and a second kernel adds the splits' partial
   sums in order (``_matvec_plan``). No atomics: reruns are bit-identical.
+- ``modes_product(modes, w)`` is ``modes @ w.mT``, the field of
+  ``PodI.predict``: sum_m modes[i, m] w[j, m] as an (n_pts, n_q) matrix. It
+  replaces no TPU kernel (the JAX package leaves the product to XLA). For
+  k <= 32 modes the product is bound by the stores of its output (2k
+  operations an element, under the card's ridge), and the kernel writes it
+  near the HBM rate (81% of it at 200,000 x 16,384 x 20 f32 on an H100,
+  cuBLAS 44%): persistent CTAs, each thread's k weights in registers, a
+  row's modes by broadcast shared loads, k FMAs an element in mode order,
+  and the kernel matrix's two store paths (``_kmat_store_path`` reports
+  either kernel's choice for an output). Both layouts of the modes go in
+  without a copy. k > 32, bound by compute, goes to ``torch.matmul``.
 
-Both take f32 or f64 (all operands of one dtype) and return that dtype.
+All take f32 or f64 (all operands of one dtype) and return that dtype.
 Distances are direct differences, as the JAX XLA path computes them
 (``interp.pairwise_dists``), not the Gram expansion of the Pallas kernels.
 
 Each wrapper checks its operands, and then, for CUDA tensors, launches its
 kernel on the current stream without synchronising and adds one to its
 ``launches`` count; a failed launch raises. For CPU tensors it runs the
-plain PyTorch version (``pairwise_kernel_matrix_ref``, ``rbf_matvec_ref``),
-which nothing on the CUDA path calls.
+plain PyTorch version (``pairwise_kernel_matrix_ref``, ``rbf_matvec_ref``,
+``modes_product_ref``), which nothing on the CUDA path calls.
 
 The kernels are also ``torch.library`` custom operators, registered when
 this module is imported: ``corrla::pairwise_kernel_matrix``,
-``corrla::pairwise_kernel_matrix_into`` (writes into ``out``) and
-``corrla::rbf_matvec``. Each has the kernel's launch as its CUDA
-implementation (the same C entry point and ``launches`` count), the plain
-version as its CPU implementation, and a fake implementation for tracing
-(shapes and dtypes only); the kernel matrix with phi = linear, the
-distance matrix, has the distance gradient of ``interp.pairwise_dists``.
-A wrapper given CUDA tensors calls its operator while ``torch.export`` or
-``torch.compile`` traces it (``torch.compiler.is_compiling()``), so an
-exported program holds ``corrla.*`` nodes where the eager call launches the
-kernel, never the plain version; eager CUDA calls launch directly, without
-the operator's dispatch. A process that loads such a program must have
-imported this module first (``utils.export``).
+``corrla::pairwise_kernel_matrix_into`` (writes into ``out``),
+``corrla::rbf_matvec`` and ``corrla::modes_product``. Each has the kernel's
+launch as its CUDA implementation (the same C entry point and ``launches``
+count), the plain version as its CPU implementation, and a fake
+implementation for tracing (shapes and dtypes only); the kernel matrix with
+phi = linear, the distance matrix, has the distance gradient of
+``interp.pairwise_dists``, and the modes product the two plain products of
+its gradient. A wrapper given CUDA tensors calls its operator while
+``torch.export`` or ``torch.compile`` traces it
+(``torch.compiler.is_compiling()``), so an exported program holds
+``corrla.*`` nodes where the eager call launches the kernel, never the
+plain version; eager CUDA calls launch directly, without the operator's
+dispatch (the modes product takes its operator also where autograd records
+a gradient). A process that loads such a program must have imported this
+module first (``utils.export``).
 """
 from __future__ import annotations
 
@@ -69,6 +85,7 @@ __all__ = [
     "pairwise_dists", "rbf_kernel_eval",
     "pairwise_kernel_matrix", "pairwise_kernel_matrix_ref",
     "rbf_matvec", "rbf_matvec_ref",
+    "modes_product", "modes_product_ref",
 ]
 
 # phi codes of csrc/rbf_kernels.cu
@@ -90,6 +107,11 @@ _MV_MAX_GRID_YZ = 65535
 _MV_PAIR_COST = 12
 # blocks an SM that the plan aims for before it splits the support
 _MV_BLOCKS_PER_SM = 2
+# the modes product's widest k on the kernel: up to it, 2k operations an
+# element of 4 or 8 bytes stay under the card's ridge (20 operations a byte
+# in f32, 10 in f64), so the stores bound the product; a wider one is bound
+# by compute and goes to torch.matmul (csrc/modes_product.cu: MP_MAX_K)
+_MODES_MAX_K = 32
 
 
 class MatvecPlan(NamedTuple):
@@ -439,6 +461,91 @@ def _matvec_cuda(x_query, x_support, coeffs, phi, eps):
     return out
 
 
+def modes_product_ref(modes: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch version of ``modes_product``: ``modes @ w.mT``."""
+    return modes @ w.mT
+
+
+def _modes_operands(modes, w) -> None:
+    """Checks of the modes product's operands: 2-D tensors of one dtype (f32
+    or f64) on one CPU or CUDA device, (n_pts, k) and (n_q, k) with k >= 1,
+    in any strides."""
+    name = "modes_product"
+    for arg, t in (("modes", modes), ("w", w)):
+        if not isinstance(t, torch.Tensor):
+            raise TypeError(f"{name}: {arg} must be a tensor")
+        if t.ndim != 2:
+            raise ValueError(f"{name}: {arg} must be 2-D, got {tuple(t.shape)}")
+        if t.dtype is not torch.float32 and t.dtype is not torch.float64:
+            raise TypeError(f"{name}: {arg} must be float32 or float64")
+    if w.dtype is not modes.dtype or w.device != modes.device:
+        raise ValueError(f"{name}: operands differ in dtype or device (w: "
+                         f"{w.dtype} on {w.device}, modes: {modes.dtype} on "
+                         f"{modes.device})")
+    if modes.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"{name}: unsupported device {modes.device}")
+    if w.shape[1] != modes.shape[1] or modes.shape[1] == 0:
+        raise ValueError(f"{name}: modes {tuple(modes.shape)} and w "
+                         f"{tuple(w.shape)} need one k >= 1")
+
+
+def modes_product(modes: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``modes @ w.mT``: sum_m modes[i, m] w[j, m] as an (n_pts, n_q) matrix
+    for modes (n_pts, k) and w (n_q, k), either in any strides.
+
+    CPU tensors run ``modes_product_ref``. CUDA tensors with k <= 32 launch
+    the kernel (``launches`` counts one a launch); with k > 32, bound by
+    compute, they go to ``torch.matmul``. ``launches_by`` counts the CUDA
+    calls by (route, dtype, k), the route ``"kernel"`` or ``"matmul"``.
+    """
+    _modes_operands(modes, w)
+    if modes.device.type == "cpu":
+        return modes_product_ref(modes, w)
+    if torch.compiler.is_compiling() or (
+            torch.is_grad_enabled()
+            and (modes.requires_grad or w.requires_grad)):
+        return torch.ops.corrla.modes_product(modes, w)
+    return _modes_product_cuda(modes, w)
+
+
+modes_product.launches = 0
+modes_product.launches_by = {}
+
+
+def _modes_product_cuda(modes, w):
+    """The modes product of checked CUDA operands on its route: one launch
+    of the kernel for k <= 32 (none for an empty output), else
+    ``torch.matmul``."""
+    k = modes.shape[1]
+    if k > _MODES_MAX_K:
+        out, route = modes @ w.mT, "matmul"
+    else:
+        out = torch.empty((modes.shape[0], w.shape[0]), dtype=modes.dtype,
+                          device=modes.device)
+        route = "kernel"
+        if out.numel():
+            _launch_modes_product(out, modes, w)
+            modes_product.launches += 1
+    key = (route, modes.dtype, k)
+    modes_product.launches_by[key] = modes_product.launches_by.get(key, 0) + 1
+    return out
+
+
+def _launch_modes_product(out, modes, w):
+    """One launch of the modes-product kernel into ``out``, a non-empty
+    (n_pts, n_q) view of the operands' dtype and device with unit column
+    stride and row stride ``>= n_q`` that overlaps neither operand; the
+    kernel picks its store path from ``out`` as the kernel matrix's does
+    (``_kmat_store_path``)."""
+    fn = _entry("modes_product", out.dtype)
+    rc = _launch(out.device, fn, modes.data_ptr(), w.data_ptr(),
+                 out.data_ptr(), modes.shape[0], w.shape[0], modes.shape[1],
+                 modes.stride(0), modes.stride(1), w.stride(0), w.stride(1),
+                 out.stride(0))
+    if rc:
+        _raise_on_error(load_library(), "modes_product", rc)
+
+
 # ---------------------------------------------------------------------------
 # the kernels as torch.library custom operators
 
@@ -535,3 +642,36 @@ def _(x_query, x_support, coeffs, kernel, eps):
 def _(x_query, x_support, coeffs, kernel, eps):
     _matvec_operands(x_query, x_support, coeffs, kernel)
     return coeffs.new_empty((x_query.shape[0], coeffs.shape[1]))
+
+
+@torch.library.custom_op("corrla::modes_product", mutates_args=(),
+                         device_types="cuda")
+def _modes_op(modes: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    _modes_operands(modes, w)
+    return _modes_product_cuda(modes, w)
+
+
+@_modes_op.register_kernel("cpu")
+def _(modes, w):
+    _modes_operands(modes, w)
+    return modes_product_ref(modes, w)
+
+
+@_modes_op.register_fake
+def _(modes, w):
+    _modes_operands(modes, w)
+    return modes.new_empty((modes.shape[0], w.shape[0]))
+
+
+def _modes_setup(ctx, inputs, output):
+    ctx.save_for_backward(*inputs)
+
+
+def _modes_backward(ctx, grad):
+    """The plain products of the gradient: dmodes = G w, dw = G^T modes."""
+    modes, w = ctx.saved_tensors
+    return (grad @ w if ctx.needs_input_grad[0] else None,
+            grad.mT @ modes if ctx.needs_input_grad[1] else None)
+
+
+_modes_op.register_autograd(_modes_backward, setup_context=_modes_setup)

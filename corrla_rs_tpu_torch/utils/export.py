@@ -20,8 +20,9 @@ A program runs on the device it was traced on: export on the device you
 serve on. A method that reaches one of the port's CUDA kernels on a CUDA
 tensor (``PodI.predict``, ``RbfInterp.predict``, the GPs' distances,
 ``GrassmannInterp``) exports with the kernel as a node of the custom
-operators ``corrla::pairwise_kernel_matrix``, ``corrla::rbf_matvec`` (and
-``corrla::pairwise_kernel_matrix_into``), registered by
+operators ``corrla::pairwise_kernel_matrix``, ``corrla::rbf_matvec``,
+``corrla::modes_product`` (and ``corrla::pairwise_kernel_matrix_into``),
+registered by
 ``corrla_rs_tpu_torch.ops.rbf_kernels``; served, each node launches the
 kernel. Such a program loads only in a process where those operators are
 registered: the serving side imports torch and that module (which builds

@@ -17,7 +17,7 @@ Counterpart of ``corrla_rs_tpu/utils/tracing.py``:
 - ``device_sync(tree)``: synchronises every CUDA device that a tensor of
   ``tree`` lies on and returns a checksum of the tensors.
 
-The package opens six spans of its own, each through ``annotate`` and so
+The package opens seven spans of its own, each through ``annotate`` and so
 only while a profile runs:
 
 - ``corrla.rsvd`` around the body of ``ops.random_svd.random_svd``, which
@@ -32,16 +32,24 @@ only while a profile runs:
   ``ops.id_cur``) opens them as well, outside any ``corrla.rsvd``;
 - ``corrla.solve.pinv`` around the body of ``ops.mat_utils.pinv``, and
   ``corrla.solve.saddle`` around the LU solve of the saddle system in
-  ``ops.interp.rbf_fit``.
+  ``ops.interp.rbf_fit``;
+- ``corrla.pod.modes`` around the modes product of ``PodI.predict``
+  (``ops.rbf_kernels.modes_product``, on the local rows with ``mesh=``).
 
 ``api.rsvd`` and ``PodI.fit`` open ``corrla.rsvd`` once with its inner
 spans, ``PodI.fit`` then ``corrla.solve.pinv`` and ``corrla.solve.saddle``
-once each, ``RbfInterp.fit`` the last once. The other helpers are tools for
-callers and for the scripts that measure the package.
+once each, ``RbfInterp.fit`` the last once, and ``PodI.predict``
+``corrla.pod.modes`` once a call. The other helpers are tools for callers
+and for the scripts that measure the package.
 
 Beside the spans, host-side counters that run with or without a profile:
-``ops.rbf_kernels.pairwise_kernel_matrix.launches`` and
-``ops.rbf_kernels.rbf_matvec.launches`` count the kernels' launches, and
+``ops.rbf_kernels.pairwise_kernel_matrix.launches``,
+``ops.rbf_kernels.rbf_matvec.launches`` and
+``ops.rbf_kernels.modes_product.launches`` count the kernels' launches;
+``rbf_matvec.launches_by`` counts the matvec's by (dtype, kernel), and
+``modes_product.launches_by`` the modes product's CUDA calls by (route,
+dtype, k), the route ``"kernel"`` or ``"matmul"`` (k > 32), which says how
+often the kernel takes the product; and
 ``ops.random_svd._cholesky_qr2.rounds`` the CholeskyQR rounds (three a thin
 QR inside ``corrla.rsvd.orth``: 24 a fit of ``api.rsvd`` at 8 iterations,
 30 a ``PodI.fit`` at 10). It counts the rounds of the dense path, of the

@@ -192,6 +192,7 @@ OPS = {
     "pairwise_kernel_matrix": torch.ops.corrla.pairwise_kernel_matrix,
     "pairwise_kernel_matrix_into": torch.ops.corrla.pairwise_kernel_matrix_into,
     "rbf_matvec": torch.ops.corrla.rbf_matvec,
+    "modes_product": torch.ops.corrla.modes_product,
 }
 
 
@@ -220,6 +221,10 @@ def _op_args(name, dtype, rng, n_a=7, n_b=5, d=3, c=2, requires_grad=False):
         # a block of a wider matrix, as rbf_fit hands it
         return (torch.zeros(n_a, n_b + 3, dtype=dtype)[:, :n_b], xa, xb,
                 "cubic", 1.0)
+    if name == "modes_product":
+        # (n_a, d) modes and (n_b, d) weights: an (n_a, n_b) field
+        return (xa.requires_grad_(requires_grad),
+                xb.requires_grad_(requires_grad))
     coeffs = torch.as_tensor(rng.standard_normal((n_b, c)), dtype=dtype)
     return xa, xb, coeffs, "gaussian", 0.7
 
@@ -228,8 +233,9 @@ def _op_args(name, dtype, rng, n_a=7, n_b=5, d=3, c=2, requires_grad=False):
 @pytest.mark.parametrize("name", sorted(OPS))
 def test_op_passes_opcheck_on_the_cpu(name, dtype, rng):
     # schema, fake implementation, autograd registration (the distance
-    # gradient of the kernel matrix with phi = linear) and the traced
-    # dispatch, on the CPU implementation (the plain version)
+    # gradient of the kernel matrix with phi = linear, the modes product's
+    # two plain products) and the traced dispatch, on the CPU
+    # implementation (the plain version)
     args = _op_args(name, dtype, rng, requires_grad=True)
     torch.library.opcheck(OPS[name].default, args)
 
@@ -247,6 +253,7 @@ def test_op_fake_shapes(dtype, n_a, n_b, rng):
                           for s in ((n_a, 3), (n_b, 3), (n_b, 4)))
         k = OPS["pairwise_kernel_matrix"](xa, xb, "linear", 1.0)
         y = OPS["rbf_matvec"](xa, xb, coeffs, "linear", 1.0)
+        f = OPS["modes_product"](xa, xb)
         # the mutating operator on fake CPU tensors: called outside a trace,
         # fake mode's check of a mutated argument makes a real tensor of its
         # device (a trace takes it on CUDA: the next test)
@@ -256,6 +263,7 @@ def test_op_fake_shapes(dtype, n_a, n_b, rng):
     assert isinstance(out, FakeTensor)
     assert (k.shape, k.dtype, k.device.type) == ((n_a, n_b), dtype, "cuda")
     assert (y.shape, y.dtype, y.device.type) == ((n_a, 4), dtype, "cuda")
+    assert (f.shape, f.dtype, f.device.type) == ((n_a, n_b), dtype, "cuda")
     # a refused shape is refused while tracing too
     with FakeTensorMode(allow_non_fake_inputs=True):
         bad = torch.empty((n_b, 2), dtype=dtype, device="cuda")
@@ -263,6 +271,9 @@ def test_op_fake_shapes(dtype, n_a, n_b, rng):
             OPS["pairwise_kernel_matrix"](torch.empty((n_a, 3), dtype=dtype,
                                                       device="cuda"), bad,
                                           "linear", 1.0)
+        with pytest.raises(ValueError, match="one k >= 1"):
+            OPS["modes_product"](torch.empty((n_a, 3), dtype=dtype,
+                                             device="cuda"), bad)
 
 
 def _targets(program):
@@ -284,18 +295,25 @@ def test_cuda_wrappers_trace_to_the_ops(cpu_device):
         # a block of a wider matrix (slicing a fake CUDA tensor needs CUDA)
         out = torch.empty_strided((9, 6), (8, 1), dtype=torch.float64,
                                   device="cuda")
+        # column-major modes, as PodI.fit may leave them
+        modes = torch.empty_strided((40, 3), (1, 40), dtype=torch.float64,
+                                    device="cuda")
 
-    def fn(q, x, coeffs, out):
+    def fn(q, x, coeffs, out, modes):
         rbf_kernels._pairwise_kernel_matrix_into(out, q, x, "cubic")
         return (rbf_kernels.pairwise_kernel_matrix(q, x, "gaussian", 0.5),
                 interp.pairwise_dists(q, x), out,
-                rbf_kernels.rbf_matvec(q, x, coeffs, "linear"))
+                rbf_kernels.rbf_matvec(q, x, coeffs, "linear"),
+                rbf_kernels.modes_product(modes, coeffs))
 
-    program = torch.export.export(_Call(fn), (q, x, coeffs, out))
+    program = torch.export.export(_Call(fn), (q, x, coeffs, out, modes))
     targets = _targets(program)
     assert targets.count("corrla.pairwise_kernel_matrix.default") == 2
     assert targets.count("corrla.rbf_matvec.default") == 1
     assert targets.count("corrla.pairwise_kernel_matrix_into.default") == 1
+    assert targets.count("corrla.modes_product.default") == 1
+    # nothing of the plain product
+    assert not any("aten.mm" in t or "matmul" in t for t in targets), targets
     # nothing of the plain versions (their sqrt of the summed squares)
     assert not any("sqrt" in t for t in targets), targets
 

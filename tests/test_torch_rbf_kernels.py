@@ -304,7 +304,8 @@ def test_library_name_follows_sources(tmp_path, monkeypatch):
     src.write_text("// v2\n")
     assert _build._library_path([src]) != first
     assert [p.name for p in _build._sources()] == [
-        "rbf_kernels.cu", "rbf_matvec_f32.cu", "rbf_matvec_f64.cu"]
+        "modes_product.cu", "rbf_kernels.cu", "rbf_matvec_f32.cu",
+        "rbf_matvec_f64.cu"]
 
 
 def test_library_name_follows_headers(tmp_path, monkeypatch):

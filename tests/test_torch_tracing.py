@@ -4,8 +4,8 @@
 ``timed`` warms up once and calls ``fn`` ``n_runs`` more times; ``trace``
 writes a trace file into ``log_dir`` that holds the ``annotate`` regions.
 The package's own spans: none is recorded without a profiler, each fit
-opens its spans once inside its caller's, and an exported program holds no
-profiler node.
+opens its spans once inside its caller's, ``PodI.predict`` its modes
+product's once a call, and an exported program holds no profiler node.
 """
 import glob
 import json
@@ -143,6 +143,29 @@ def test_each_fit_opens_its_spans_once_inside_the_callers(cpu_device, rng,
         assert inside == FIT_SPANS[model]
     spans = [name for _, _, name in events if name != "caller.fit"]
     assert len(spans) == 2 * len(FIT_SPANS[model])
+
+
+def test_pod_predict_opens_the_modes_span_once_a_call(cpu_device, rng,
+                                                     monkeypatch):
+    # the modes product, inside the caller's span, once a predict call;
+    # nothing without a profiler
+    pod = _pod_and_rbf_fits(rng)[0]()
+    tq = torch.tensor([[2.0], [4.5], [7.0]], dtype=torch.float64)
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+        for _ in range(3):
+            with tracing.annotate("caller.predict"):
+                want = pod.predict(tq)
+    events = sorted((e.time_range.start, e.time_range.end, e.name)
+                    for e in prof.events()
+                    if e.name in ("caller.predict", "corrla.pod.modes"))
+    callers = [(a, b) for a, b, name in events if name == "caller.predict"]
+    spans = [(a, b) for a, b, name in events if name == "corrla.pod.modes"]
+    assert len(callers) == len(spans) == 3
+    for (a, b), (s, e) in zip(callers, spans):
+        assert a <= s and e <= b
+    _refuse_record_function(monkeypatch)
+    assert torch.equal(pod.predict(tq), want)
 
 
 @pytest.mark.parametrize("members", [None, 3], ids=["one", "members"])
