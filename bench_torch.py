@@ -678,8 +678,9 @@ def main() -> int:
     from corrla_rs_tpu_torch.ops import rbf_kernels
 
     _say("kernel launches " + json.dumps({
-        "pairwise_kernel_matrix": rbf_kernels.pairwise_kernel_matrix.launches,
-        "rbf_matvec": rbf_kernels.rbf_matvec.launches}))
+        name: getattr(rbf_kernels, name).launches
+        for name in ("pairwise_kernel_matrix", "rbf_matvec",
+                     "modes_product")}))
     if b.abandoned:
         # an abandoned phase thread may sit in a device call: leave without
         # waiting for it

@@ -17,8 +17,9 @@ time, and any failure raises (exit code != 0):
 
 1. device: name and power limit from nvidia-smi, TF32 off;
 2. build: nvcc compiles corrla_rs_tpu_torch/csrc/*.cu (timed);
-3. kernels: both CUDA kernels against their plain PyTorch versions (run in
-   f64 on the card) for every phi, f32 and f64, at odd shapes (ragged
+3. kernels: the three CUDA kernels against their plain PyTorch versions
+   (run in f64 on the card); the kernel matrix and the matvec for every
+   phi, f32 and f64, at odd shapes (ragged
    ones on the kernel matrix's direct stores, aligned ones on its TMA
    stores, and blocks of a larger matrix whose guard cells must stay
    untouched) and at the main path's shapes, called as the main path calls
@@ -29,7 +30,17 @@ time, and any failure raises (exit code != 0):
    and plain times (the median of 5 windows of at least 20 ms each),
    bit-identical reruns and the kernel matrix's exact phi(0) diagonal. For
    the kernel matrix also its device time (torch.profiler) and the store
-   path it took; the wrappers' host time a call; the matvec's launch plans;
+   path it took; the wrappers' host time a call; the matvec's launch plans.
+   The modes product of PodI.predict (MODES_SHAPES): through its wrapper
+   at PodI's 200,000 points x 512 queries x 20 modes and at pod2k.predict's
+   16,384 queries, modes column-major as the fit leaves them, every
+   element held to the f64 product within MODES_ERR_KU k u sum|a_m w_m|,
+   a bit-identical rerun and one launch a call on the kernel's route;
+   beside them row-major modes, f64, 4 and 32 modes and narrow outputs on
+   both sides of the route's crossover (ops.rbf_kernels._MODES_MIN_Q),
+   where the kernel launched straight is held and timed too; the kernel's
+   time and device time, the bound, torch.matmul's time (the plain
+   version) and the store path;
 4. rsvd: A = U diag(s) V^T, 100,000 x 10,000 f32 with 200 known geometric
    sigma, rank 100, 8 iterations, 10 oversamples;
    then, on the same matrix, single_pass_svd (rank 100, with 10 and with
@@ -243,16 +254,20 @@ After phase 25 come the timing details of phases 7 and 9-10 (RbfInterp's
 fit with its saddle matrix built by concatenation, as before the kernel
 matrix wrote K in place, and built in place; the kNN and grads steps of
 active_ss; a DEMC generation) and the kNN against its plain version. The
-build phase prints ptxas's registers and spills for both kernels'
-instances and fails if any spills. The kernels' launch counts
+build phase prints ptxas's registers and spills for the three kernels'
+instances and fails if any spills. The three kernels' launch counts
 are set to 0 before each phase and read just after it (phase 23 counts in
 its world of one, a path at a time; phase 27 sums the launch lines its
 scripts print; phases 28 and 29 read their process's); phase 3, the details and
 phase 26 compare or time the kernels and are not counted. Each phase in
 MUST_LAUNCH must have launched what it names there: phases 11-16, 20,
 22, 25 and 28 reach no kernel, and the run fails if their counts say
-otherwise; phases 9, 17 and 19 must launch the kernel matrix, phases 6,
-7, 18, 21, 23, 24, 27 and 29 both kernels. The last lines are the kernel
+otherwise; phases 9, 17 and 19 must launch the kernel matrix, phases 7,
+18, 27 and 29 the kernel matrix and the matvec, phases 6, 21, 23 and 24
+those two and the modes product (their PodI predicts ask for 512
+queries; phases 27 and 29 count it and are not held to it, as most of
+their predicts ask for fewer than _MODES_MIN_Q and take torch.matmul).
+The last lines are the kernel
 table as JSON (which phases ran; every timed shape of each kernel, with
 its bound and, where one exists, a one-call PyTorch equivalent's time),
 the nvidia-smi line, and the result JSON. Nothing of JAX is
@@ -283,6 +298,11 @@ PHIS = ("linear", "multiquadric", "cubic", "gaussian")
 # typical f32 error sqrt(n) u ~ 8e-6 at n = 16384 and 1e-4 stated.
 KMAT_RTOL = {torch.float32: 5e-6, torch.float64: 1e-12}
 MATVEC_RTOL = {torch.float32: 1e-4, torch.float64: 1e-12}
+# the modes product against the f64 product, elementwise: a sum of k
+# products with one rounding each (an FMA) errs at most about k u
+# sum_m |a_m w_m| (u = 2^-24 or 2^-53); twice that leaves room for the f64
+# product's own rounding
+MODES_ERR_KU = 2
 # the main path's sizes (see the module docstring)
 SIZES = {
     "rsvd": (100_000, 10_000, 100, 8, 10, 200),   # n, m, rank, iters, os, #sigma
@@ -643,10 +663,13 @@ KNN_TIE_RTOL = 1e-5
 SOURCE = {
     "pairwise_kernel_matrix": "corrla_rs_tpu_torch/csrc/rbf_kernels.cu",
     "rbf_matvec": "corrla_rs_tpu_torch/csrc/rbf_matvec.cuh",
+    "modes_product": "corrla_rs_tpu_torch/csrc/modes_product.cu",
 }
 REPLACES = {
     "pairwise_kernel_matrix": "corrla_rs_tpu/ops/pallas_kernels.py:100",
     "rbf_matvec": "corrla_rs_tpu/ops/pallas_kernels.py:154",
+    "modes_product": "none (the JAX package leaves PodI.predict's "
+                     "modes @ w.T to XLA)",
 }
 
 
@@ -757,6 +780,8 @@ def ptxas_summary(rows: list) -> str:
 MATVEC_INSTANCE = re.compile(
     r"rbf_matvec_kernelI([fd])Li(\d+)ELi(\d+)ELi(\d+)E")
 KMAT_INSTANCE = re.compile(r"kernel_matrix_kernelI([fd])Li(\d+)ELi(\d+)E")
+# modes_product_kernel<T, K>
+MODES_INSTANCE = re.compile(r"modes_product_kernelI([fd])Li(\d+)EE")
 # the kernel matrix's main-path instances: (dtype, phi, D)
 KMAT_MAIN = (("f32", "linear", 1), ("f32", "linear", 3), ("f32", "linear", 8),
              ("f64", "linear", 3), ("f64", "linear", 8), ("f64", "linear", 2),
@@ -803,6 +828,30 @@ def matvec_registers(rows: list, plans: list) -> None:
         for label, _, _, d, _, plan in plans), flush=True)
     spilling = [r for r in inst if r[2]]
     check(not spilling, f"matvec instances spill: {spilling}")
+
+
+def modes_registers(rows: list) -> None:
+    """Print the modes product's instances' registers and spills, those of
+    PodI's 20 modes among them; fail on a spill."""
+    inst = {}
+    for name, regs, spills in rows:
+        m = MODES_INSTANCE.search(name)
+        if m:
+            dt, k = m.groups()
+            inst[("f32" if dt == "f" else "f64", int(k))] = (regs, spills)
+    if not inst:
+        print("    modes product: no ptxas report (library was already "
+              "built)")
+        return
+    for dt in ("f32", "f64"):
+        regs = [r for (d, _), (r, _) in inst.items() if d == dt]
+        print(f"    modes product {dt}: {len(regs)} instances (k = 1-32), "
+              f"registers {min(regs)}-{max(regs)}, k = 20 "
+              f"{inst.get((dt, 20), (None,))[0]}, spill bytes "
+              f"{sum(sp for (d, _), (_, sp) in inst.items() if d == dt)}",
+              flush=True)
+    spilling = [key for key, (_, sp) in inst.items() if sp]
+    check(not spilling, f"modes-product instances spill: {spilling}")
 
 
 def kmat_registers(rows: list) -> None:
@@ -1019,6 +1068,116 @@ def matvec_case(rk, gen, dev, m, n, d, c, phi, dtype, eps=0.7, check_rows=None,
     return out
 
 
+# the modes product of PodI.predict at PodI's points and modes: (label,
+# queries, modes, dtype, layout of the modes, main path). The main path's
+# are PodI's phase (and pod2k.fit's judge: 512 queries) and pod2k.predict's
+# 16,384 queries, with the modes column-major as PodI's fit leaves them
+# (vt.mT); beside them row-major modes, narrow outputs on both sides of the
+# route's crossover (ops.rbf_kernels._MODES_MIN_Q) in f32 and f64, and the
+# upstream example's 4 modes and the widest instance, 32
+MODES_SHAPES = (
+    ("PodI predict", SIZES["podi"][3], 20, torch.float32, "col", True),
+    ("pod2k.predict", 16_384, 20, torch.float32, "col", True),
+    ("pod2k.predict row-major", 16_384, 20, torch.float32, "row", False),
+    *((f"narrow {q}", q, 20, torch.float32, "col", False)
+      for q in (1, 8, 32, 48, 64, 80, 96, 128)),
+    *((f"narrow {q} f64", q, 20, torch.float64, "col", False)
+      for q in (32, 64, 128)),
+    ("f64", 2048, 20, torch.float64, "col", False),
+    ("the example's 4 modes", 16_384, 4, torch.float32, "col", False),
+    ("the widest instance", 16_384, 32, torch.float32, "col", False),
+)
+MODES_CHECK_BLOCK = 8192   # rows of the f64 product held at a time
+
+
+def modes_bound(n_pts, n_q, k, itemsize=4):
+    """The modes and weights read once and the (n_pts, n_q) output written
+    once; an element costs k multiply-adds (2 operations each)."""
+    return bound(itemsize * (n_pts * n_q + (n_pts + n_q) * k),
+                 2 * k * n_pts * n_q, itemsize)
+
+
+def modes_error(got, modes, w):
+    """(max |got - plain|, worst ratio to MODES_ERR_KU k u sum_m |a_m w_m|)
+    of a modes product ``got`` against the f64 product, every element,
+    MODES_CHECK_BLOCK rows at a time."""
+    k = modes.shape[1]
+    u = torch.finfo(got.dtype).eps / 2
+    wd = w.double()
+    max_err = worst = 0.0
+    for r0 in range(0, got.shape[0], MODES_CHECK_BLOCK):
+        md = modes[r0:r0 + MODES_CHECK_BLOCK].double()
+        err = (got[r0:r0 + MODES_CHECK_BLOCK].double() - md @ wd.mT).abs()
+        err = torch.nan_to_num(err, nan=float("inf"))
+        allowed = MODES_ERR_KU * k * u * (md.abs() @ wd.abs().mT) + 1e-300
+        max_err = max(max_err, err.max().item())
+        worst = max(worst, (err / allowed).max().item())
+        del md, err, allowed
+    return max_err, worst
+
+
+def modes_case(rk, gen, dev, n_q, k, dtype, layout):
+    """The modes product through its wrapper, as PodI.predict calls it, at
+    PodI's points: every element held to the f64 product (modes_error), a
+    bit-identical rerun and the launch count (one a call on the kernel's
+    route, none on torch.matmul's). Where the route is torch.matmul (k <=
+    32), the kernel launched straight is held the same way. Then the
+    kernel's time (launched straight), its bound and torch.matmul's time,
+    which is the plain version's too."""
+    n_pts = SIZES["podi"][1]
+    if layout == "col":
+        modes = torch.randn(k, n_pts, generator=gen, device=dev,
+                            dtype=dtype).mT
+    else:
+        modes = torch.randn(n_pts, k, generator=gen, device=dev, dtype=dtype)
+    w = torch.randn(n_q, k, generator=gen, device=dev, dtype=dtype)
+    route = ("kernel" if k <= rk._MODES_MAX_K and n_q >= rk._MODES_MIN_Q
+             else "matmul")
+    what = (f"modes_product {str(dtype)[6:]} {n_pts}x{n_q} k={k} "
+            f"{layout}-major modes ({route})")
+    before = rk.modes_product.launches
+    got = rk.modes_product(modes, w)
+    torch.cuda.synchronize()
+    launched = rk.modes_product.launches - before
+    check(launched == (route == "kernel"),
+          f"{what}: {launched} launches a call")
+    check(got.shape == (n_pts, n_q) and got.dtype == dtype,
+          f"{what}: bad output")
+    check(torch.equal(got, rk.modes_product(modes, w)),
+          f"{what}: a rerun differs")
+    max_err, worst = modes_error(got, modes, w)
+    check(worst <= 1.0, f"{what}: max err {max_err:.3e}, {worst:.3f} of "
+          f"{MODES_ERR_KU} k u sum|a_m w_m|")
+    out = {"max_abs_err": max_err, "worst_ratio": worst, "route": route,
+           "checked_rows": n_pts}
+    if route == "kernel":
+        direct = got
+    else:
+        direct = torch.empty_like(got)
+        rk._launch_modes_product(direct, modes, w)
+        torch.cuda.synchronize()
+        max_err, worst = modes_error(direct, modes, w)
+        check(worst <= 1.0, f"{what}, the kernel launched straight: max "
+              f"err {max_err:.3e}, {worst:.3f} of the tolerance")
+        out["kernel_max_abs_err"], out["kernel_worst_ratio"] = max_err, worst
+    out["store"] = rk._kmat_store_path(direct)
+    del got
+    out["ms"] = cuda_ms(lambda: rk._launch_modes_product(direct, modes, w))
+    del direct
+    torch.cuda.empty_cache()
+    out["profile"] = lambda: device_ms(
+        lambda: rk._launch_modes_product(
+            torch.empty((n_pts, n_q), dtype=dtype, device=dev), modes, w),
+        ("modes_product_kernel",))
+    out["plain_ms"] = cuda_ms(lambda: rk.modes_product_ref(modes, w))
+    out["bound_ms"], out["bound_by"] = modes_bound(n_pts, n_q, k,
+                                                   modes.element_size())
+    out["share"] = out["bound_ms"] / out["ms"]
+    # the plain version is the one-call library product
+    out["library_ms"] = out["plain_ms"]
+    return out
+
+
 def phase_kernels(rk, dev, seed):
     from corrla_rs_tpu_torch.ops import gp as gp_mod
 
@@ -1155,20 +1314,36 @@ def phase_kernels(rk, dev, seed):
          lambda: kmat_case(rk, gen, dev, n_ec, n_ep, 2, "gaussian", f64,
                            eps=math.sqrt(SIZES["edmd_gamma"]), timed=True)),
     ]
+    # the modes product of PodI.predict (MODES_SHAPES)
+    n_pts = SIZES["podi"][1]
+    shapes += [
+        ("modes_product", f"{label} {n_pts}x{q} k={k} {str(dt)[6:]} "
+         f"{layout}-major", main,
+         lambda q=q, k=k, dt=dt, layout=layout: modes_case(
+             rk, gen, dev, q, k, dt, layout))
+        for label, q, k, dt, layout, main in MODES_SHAPES]
     results = []
     for name, label, main, run in shapes:
         results.append((name, label, main, run()))
         torch.cuda.empty_cache()
-    # the wrappers' host cost a call, at 64 points (kernels of a few µs)
+    stores = {res["store"] for name, _, _, res in results
+              if name == "modes_product"}
+    check(stores == {"tma", "direct"},
+          f"the modes product's shapes took only {stores}")
+    # the wrappers' host cost a call, at 64 points (kernels of a few µs);
+    # the modes product at its fewest queries on the kernel's route
     x = torch.rand(64, 1, generator=gen, device=dev)
     k = torch.empty(64, 64, device=dev)
     c = torch.rand(64, 1, generator=gen, device=dev)
+    modes = torch.rand(64, 20, generator=gen, device=dev)
+    w = torch.rand(rk._MODES_MIN_Q, 20, generator=gen, device=dev)
     costs = {
         "pairwise_kernel_matrix": host_us(
             lambda: rk.pairwise_kernel_matrix(x, x, "linear", 1.0)),
         "_pairwise_kernel_matrix_into": host_us(
             lambda: rk._pairwise_kernel_matrix_into(k, x, x, "linear", 1.0)),
         "rbf_matvec": host_us(lambda: rk.rbf_matvec(x, x, c, "linear", 1.0)),
+        "modes_product": host_us(lambda: rk.modes_product(modes, w)),
     }
     print("    host time a call at 64 points (best of 3 x 5000 calls): "
           + ", ".join(f"{n} {us:.2f} us" for n, us in costs.items()),
@@ -1181,7 +1356,7 @@ def phase_kernels(rk, dev, seed):
             res["device_ms"] = res.pop("profile")()
             res["device_share"] = res["bound_ms"] / res["device_ms"]
             torch.cuda.empty_cache()
-    timings = {"pairwise_kernel_matrix": [], "rbf_matvec": []}
+    timings = {name: [] for name in KERNELS}
     for name, label, main, res in results:
         res["host_us_64"] = costs[name]
         lib = ("none" if res["library_ms"] is None
@@ -1193,6 +1368,13 @@ def phase_kernels(rk, dev, seed):
                     f"{res['store']}  share of bound {res['share']:.3f} per "
                     f"call, {res['device_share']:.3f} device  checked "
                     f"{res['checked_rows']} rows")
+        elif name == "modes_product":
+            faster = "kernel" if res["ms"] < res["plain_ms"] else "matmul"
+            kmat = (f"  device {res['device_ms']:.4f} ms  store "
+                    f"{res['store']}  share of bound {res['share']:.3f} per "
+                    f"call, {res['device_share']:.3f} device  route "
+                    f"{res['route']}, faster {faster}  "
+                    f"{res['worst_ratio']:.3f} of the tolerance")
         print(f"    {name:24s} {label:44s} kernel {res['ms']:.4f} ms{kmat}  "
               f"plain {res['plain_ms']:.4f} ms  library {lib}  bound "
               f"{res['bound_ms']:.4f} ms ({res['bound_by']})  max|err| "
@@ -4623,8 +4805,7 @@ def rows_paths(port, pm, dev, seed, sizes, keep):
         sp, sec = wall(lambda: port.SparseGpRegressor(
             inducing=m, key=seed).fit(shard(x), shard(y)))
         (mean, var), pred_s = wall(lambda: sp.predict(xq))
-        keep["launches"] = {k: getattr(rk, k).launches
-                            for k in ("pairwise_kernel_matrix", "rbf_matvec")}
+        keep["launches"] = {k: getattr(rk, k).launches for k in KERNELS}
         # the single-device fit at the sharded fit's hyperparameters
         one = port.SparseGpRegressor(
             inducing=m, key=seed, length_scale=sp.length_scale,
@@ -4825,13 +5006,11 @@ def par_full(port, pm, rk, dev, seed):
     out, counts = [], {}
     mesh = pm.make_mesh()
     gen = torch.Generator(device=dev).manual_seed(seed)
-    names = ("pairwise_kernel_matrix", "rbf_matvec")
-
     keep = {}
 
     def window(path, fn):
-        rk.pairwise_kernel_matrix.launches = 0
-        rk.rbf_matvec.launches = 0
+        for kernel in KERNELS:
+            getattr(rk, kernel).launches = 0
         t0 = time.perf_counter()
         line = fn()
         torch.cuda.synchronize()
@@ -4840,7 +5019,7 @@ def par_full(port, pm, rk, dev, seed):
         # a path that compares with single-device after its own work
         # records its launches before the comparison
         counts[path] = keep.pop("launches", None) or {
-            k: getattr(rk, k).launches for k in names}
+            k: getattr(rk, k).launches for k in KERNELS}
         out.append(f"  ({time.perf_counter() - t0:.2f} s, launches "
                    f"{counts[path]})")
         torch.cuda.empty_cache()
@@ -5058,8 +5237,8 @@ def par_full(port, pm, rk, dev, seed):
                      *members_paths(port, pm, dev, seed + 2, MEMBERS_FULL,
                                     keep)):
         window(path, fn)
-    check(all(counts["PodI"][k] > 0 for k in names),
-          f"PodI(mesh=) did not launch both kernels: {counts['PodI']}")
+    check(all(counts["PodI"][k] > 0 for k in KERNELS),
+          f"PodI(mesh=) did not launch the three kernels: {counts['PodI']}")
     check(counts["active_ss"]["pairwise_kernel_matrix"] > 0,
           "the active subspaces' kNN did not launch the kernel matrix")
     check(counts["sparse_gp"]["pairwise_kernel_matrix"] == 3,
@@ -5594,12 +5773,13 @@ EXPORT_SIZES = {
     "kmat_op": (2000, 200),
 }
 # the programs that hold kernel nodes, with the nodes each must hold
-# (kernel matrix, matvec): PodI.predict and RbfInterp.predict at their
-# phases' shapes, GpRegressor.predict at the gp phase's (two query blocks)
-EXPORT_NODES = {"pod_f32": (0, 1), "rbf_f32": (0, 1), "gp_f64": (2, 0),
-                "kmat_op_f32": (1, 0)}
+# (kernel matrix, matvec, modes product): PodI.predict and
+# RbfInterp.predict at their phases' shapes, GpRegressor.predict at the gp
+# phase's (two query blocks)
+EXPORT_NODES = {"pod_f32": (0, 1, 1), "rbf_f32": (0, 1, 0),
+                "gp_f64": (2, 0, 0), "kmat_op_f32": (1, 0, 0)}
 OP_TARGETS = ("corrla.pairwise_kernel_matrix.default",
-              "corrla.rbf_matvec.default")
+              "corrla.rbf_matvec.default", "corrla.modes_product.default")
 # one fresh process serves everything: first the programs without kernel
 # nodes with torch alone (no corrla module may load), then it imports the
 # module that registers the corrla:: operators and serves the rest, each
@@ -5625,12 +5805,13 @@ SERVE_SCRIPT = (
     "          for k, (p, _, _) in kernel_jobs.items()}\n"
     "t6 = time.perf_counter()\n"
     "launches, served_ms = {}, {}\n"
+    "kernels = (rk.pairwise_kernel_matrix, rk.rbf_matvec, rk.modes_product)\n"
     "for k, (_, x, reps) in kernel_jobs.items():\n"
-    "    before = (rk.pairwise_kernel_matrix.launches, rk.rbf_matvec.launches)\n"
+    "    before = [f.launches for f in kernels]\n"
     "    outs[k] = kcalls[k](*x)\n"
     "    torch.cuda.synchronize()\n"
-    "    launches[k] = (rk.pairwise_kernel_matrix.launches - before[0],\n"
-    "                   rk.rbf_matvec.launches - before[1])\n"
+    "    launches[k] = tuple(f.launches - b\n"
+    "                        for f, b in zip(kernels, before))\n"
     "    runs = []\n"
     "    for _ in range(3):\n"
     "        s0 = time.perf_counter()\n"
@@ -5761,19 +5942,20 @@ def phase_export(port, rk, dev, seed):
                    if nd.op == "call_function"]
         nodes = tuple(targets.count(t) for t in OP_TARGETS)
         check(nodes == EXPORT_NODES[name],
-              f"exported {name}: corrla nodes (kernel matrix, matvec) "
-              f"{nodes}, expected {EXPORT_NODES[name]}")
+              f"exported {name}: corrla nodes (kernel matrix, matvec, modes "
+              f"product) {nodes}, expected {EXPORT_NODES[name]}")
         # nothing of the plain distances (their sqrt of summed squares)
         check(not any("sqrt" in t or "cdist" in t for t in targets),
               f"exported {name} holds a plain-version node: {targets}")
         call = load_exported(path)
-        before = (rk.pairwise_kernel_matrix.launches, rk.rbf_matvec.launches)
+        before = [getattr(rk, k).launches for k in KERNELS]
         got = call(*args)
         torch.cuda.synchronize()
-        moved = (rk.pairwise_kernel_matrix.launches - before[0],
-                 rk.rbf_matvec.launches - before[1])
+        moved = tuple(getattr(rk, k).launches - b
+                      for k, b in zip(KERNELS, before))
         check(moved == nodes, f"loaded {name} launched {moved} kernels "
-              f"(kernel matrix, matvec), its graph holds {nodes}")
+              f"(kernel matrix, matvec, modes product), its graph holds "
+              f"{nodes}")
         for g, w in zip(got if isinstance(got, tuple) else (got,),
                         want if isinstance(want, tuple) else (want,)):
             err = rel_max(g, w)
@@ -5813,7 +5995,8 @@ def phase_export(port, rk, dev, seed):
             check(tuple(res["launches"][name]) == nodes,
                   f"served {name} launched {res['launches'][name]}, its "
                   f"graph holds {nodes}")
-            line += (f", nodes (kernel matrix, matvec) {nodes} = launches; "
+            line += (f", nodes (kernel matrix, matvec, modes product) "
+                     f"{nodes} = launches; "
                      f"served {res['served_ms'][name]:.4f} ms a call, "
                      f"loaded in this process {loaded_ms[name]:.4f}, eager "
                      f"{kjobs[name][5]:.4f} ms")
@@ -6067,8 +6250,7 @@ def phase_examples(lanes=EXAMPLE_LANES):
     with ThreadPoolExecutor(max_workers=lanes) as pool:
         runs = [pool.submit(run_example, *ex, folder, env) for ex in EXAMPLES]
         done = [r.result() for r in runs]
-    counts = {k: sum(d[2][k] for d in done)
-              for k in ("pairwise_kernel_matrix", "rbf_matvec")}
+    counts = {k: sum(d[2][k] for d in done) for k in KERNELS}
     from examples_torch._harness import merge_checks
 
     checks = merge_checks(*({c["check"]: c for c in d[3]} for d in done))
@@ -6153,13 +6335,13 @@ PHASES = ("kernels", "rsvd", "single_pass", "rpca", "podi", "rbf", "dmdc",
           "filters", "evidence", "gp", "rom", "koopman", "uq", "streaming",
           "stats", "parallel", "export", "eig_device", "details", "tracing",
           "examples", "bench", "docs")
-KERNELS = ("pairwise_kernel_matrix", "rbf_matvec")
+KERNELS = ("pairwise_kernel_matrix", "rbf_matvec", "modes_product")
 # what a phase of the main path must launch: the kernels named, or none
 # (None); the other counted phases are counted and not held to either
-MUST_LAUNCH = {"podi": KERNELS, "rbf": KERNELS, "active_ss": KERNELS[:1],
-               "gp": KERNELS[:1], "rom": KERNELS, "koopman": KERNELS[:1],
+MUST_LAUNCH = {"podi": KERNELS, "rbf": KERNELS[:2], "active_ss": KERNELS[:1],
+               "gp": KERNELS[:1], "rom": KERNELS[:2], "koopman": KERNELS[:1],
                "streaming": KERNELS, "parallel": KERNELS, "export": KERNELS,
-               "examples": KERNELS, "docs": KERNELS, "dream": None,
+               "examples": KERNELS[:2], "docs": KERNELS[:2], "dream": None,
                "factorize": None,
                "mle": None, "inference": None, "filters": None,
                "evidence": None, "uq": None, "stats": None,
@@ -6217,6 +6399,7 @@ def main(argv=None) -> int:
     matvec_registers(rows, main_path_plans(
         rk, torch.cuda.get_device_properties(dev).multi_processor_count))
     kmat_registers(rows)
+    modes_registers(rows)
     report("build", t0, f"{'built' if info.get('built') else 'loaded'} "
            f"{info['path']} nvcc {info.get('seconds', 0.0):.1f} s "
            f"({len(_build._sources())} sources at once); "
@@ -6234,7 +6417,8 @@ def main(argv=None) -> int:
     def run_kernels():
         t0 = time.perf_counter()
         state["timings"] = phase_kernels(rk, dev, args.seed)
-        report("kernels", t0, "both kernels agree with their plain versions")
+        report("kernels", t0, "the three kernels agree with their plain "
+               "versions")
 
     # 4-7. rsvd, single_pass (on rsvd's matrix), rpca, PodI, RbfInterp
     def rsvd_input():
@@ -6534,18 +6718,16 @@ def main(argv=None) -> int:
         "tracing": run_tracing, "examples": run_examples, "bench": run_bench,
         "docs": run_docs}
 
-    # every counted phase runs with both launch counts from 0, read just
+    # every counted phase runs with the launch counts from 0, read just
     # after it (or handed back by the processes it spawned)
     launches = {}
     for name in selected:
-        rk.pairwise_kernel_matrix.launches = 0
-        rk.rbf_matvec.launches = 0
+        for kernel in KERNELS:
+            getattr(rk, kernel).launches = 0
         counts = bodies[name]()
         if name not in UNCOUNTED:
             if counts is None:
-                counts = {"pairwise_kernel_matrix":
-                          rk.pairwise_kernel_matrix.launches,
-                          "rbf_matvec": rk.rbf_matvec.launches}
+                counts = {k: getattr(rk, k).launches for k in KERNELS}
             need = MUST_LAUNCH.get(name, ())
             if need is None:
                 check(not any(counts.values()),

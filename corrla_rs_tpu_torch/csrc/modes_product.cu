@@ -52,6 +52,11 @@
 //      5.8 ms at the cell's shape). Element offsets are 64-bit (3.28e9
 //      elements at the cell's shape).
 //
+// The grid is the kernel matrix's (persistent_ctas in tile_store.cuh). Its
+// tiles cost about 0.05 ms whatever the width, so below about 96 queries
+// cuBLAS is faster, and ops/rbf_kernels.py sends such calls to
+// torch.matmul (_MODES_MIN_Q).
+//
 // Plain C interface for ctypes, as rbf_kernels.cu: raw device pointers,
 // int64 sizes and strides in elements, a cudaStream_t; launches on that
 // stream without synchronising and returns cudaGetLastError(). What it
@@ -61,7 +66,6 @@
 #include <cuda.h>
 #include <cuda_runtime.h>
 
-#include <atomic>
 #include <climits>
 #include <cstdint>
 #include <utility>
@@ -81,7 +85,6 @@ constexpr int MP_MAX_K = 32;
 constexpr int MP_MAX_SR = 8;               // row tiles a unit at most
 constexpr int MP_UNITS_PER_CTA = 16;       // fewest units a CTA, where sr > 1
 constexpr int MP_SMEM_ALIGN = 128;         // a TMA source's alignment
-constexpr int MP_MAX_DEVICES = 16;         // devices whose occupancy is kept
 
 // tile columns: a warp's 32 threads x 16 bytes
 template <typename T>
@@ -358,33 +361,12 @@ template <typename T, int K>
 cudaError_t launch_modes_product(MpArgs<T> a, cudaStream_t stream) {
   auto kern = modes_product_kernel<T, K>;
   const size_t smem = mp_smem_bytes<T, K>(a.tma != 0);
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
+  static CtaCache cache;
+  int64_t full = 0;
+  cudaError_t err = persistent_ctas(kern, MP_THREADS,
+                                    mp_smem_bytes<T, K>(true), smem, a.tma,
+                                    cache, &full);
   if (err != cudaSuccess) return err;
-  // CTAs an SM times the SMs, by device and store path, found on the first
-  // launch of this instance
-  static std::atomic<int64_t> found[MP_MAX_DEVICES][2];
-  int64_t full = dev < MP_MAX_DEVICES
-                     ? found[dev][a.tma].load(std::memory_order_relaxed)
-                     : 0;
-  if (full == 0) {
-    err = cudaFuncSetAttribute(kern,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               static_cast<int>(mp_smem_bytes<T, K>(true)));
-    if (err != cudaSuccess) return err;
-    int ctas = 0;
-    int sms = 0;
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&ctas, kern,
-                                                        MP_THREADS, smem);
-    if (err != cudaSuccess) return err;
-    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-    if (err != cudaSuccess) return err;
-    if (ctas < 1) return cudaErrorInvalidConfiguration;
-    full = static_cast<int64_t>(ctas) * sms;
-    if (dev < MP_MAX_DEVICES) {
-      found[dev][a.tma].store(full, std::memory_order_relaxed);
-    }
-  }
   // as many row tiles a unit as leave every CTA MP_UNITS_PER_CTA units
   const int64_t tiles = a.row_tiles * a.col_tiles;
   int64_t sr = tiles / (full * MP_UNITS_PER_CTA);

@@ -75,7 +75,6 @@
 #include <cuda.h>
 #include <cuda_runtime.h>
 
-#include <atomic>
 #include <climits>
 #include <cstdint>
 
@@ -93,7 +92,6 @@ constexpr int KM_RPW = KM_TM / KM_WARPS;   // rows a warp
 constexpr int KM_RB = 2;                   // rows a thread finishes at once
 constexpr int KM_DK = 16;                  // features a slab (d > 8)
 constexpr int KM_SMEM_ALIGN = 128;         // a TMA source's alignment
-constexpr int KM_MAX_DEVICES = 16;         // devices whose occupancy is kept
 
 // tile columns: a warp's 32 threads x 16 bytes
 template <typename T>
@@ -383,33 +381,11 @@ template <typename T, int PHI, int D>
 cudaError_t launch_kernel_matrix(const KmArgs<T>& a, cudaStream_t stream) {
   auto kern = kernel_matrix_kernel<T, PHI, D>;
   const size_t smem = km_smem_bytes<T>(D, a.tma != 0);
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
+  static CtaCache cache;
+  int64_t full = 0;
+  cudaError_t err = persistent_ctas(kern, KM_THREADS, km_smem_bytes<T>(D, true),
+                                    smem, a.tma, cache, &full);
   if (err != cudaSuccess) return err;
-  // CTAs an SM times the SMs, by device and store path, found on the first
-  // launch
-  static std::atomic<int64_t> found[KM_MAX_DEVICES][2];
-  int64_t full = dev < KM_MAX_DEVICES
-                     ? found[dev][a.tma].load(std::memory_order_relaxed)
-                     : 0;
-  if (full == 0) {
-    err = cudaFuncSetAttribute(kern,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               static_cast<int>(km_smem_bytes<T>(D, true)));
-    if (err != cudaSuccess) return err;
-    int ctas = 0;
-    int sms = 0;
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&ctas, kern,
-                                                        KM_THREADS, smem);
-    if (err != cudaSuccess) return err;
-    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-    if (err != cudaSuccess) return err;
-    if (ctas < 1) return cudaErrorInvalidConfiguration;
-    full = static_cast<int64_t>(ctas) * sms;
-    if (dev < KM_MAX_DEVICES) {
-      found[dev][a.tma].store(full, std::memory_order_relaxed);
-    }
-  }
   const int64_t grid = a.tiles < full ? a.tiles : full;
   CUtensorMap map{};
   if (a.tma) {

@@ -1,6 +1,6 @@
 // Shared by the port's store-bound kernels (the kernel matrix in
 // rbf_kernels.cu, the modes product in modes_product.cu): how a finished
-// output tile leaves the CTA.
+// output tile leaves the CTA, and how many persistent CTAs fill the card.
 //
 // - TMA: the tile sits in shared memory and one thread stores it with
 //   cp.async.bulk.tensor and an evict-first L2 hint; the hardware clips the
@@ -16,6 +16,7 @@
 #include <cuda.h>
 #include <cuda_runtime.h>
 
+#include <atomic>
 #include <climits>
 #include <cstdint>
 
@@ -151,6 +152,42 @@ cudaError_t encode_store_map(CUtensorMap* map, T* out, int64_t rows,
       CU_TENSOR_MAP_SWIZZLE_NONE, CU_TENSOR_MAP_L2_PROMOTION_NONE,
       CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+// the persistent grid of one kernel instance, by device and store path,
+// found on its first launch there; each instance keeps one in a static
+struct CtaCache {
+  static constexpr int kDevices = 16;   // devices whose grid is kept
+  std::atomic<int64_t> full[kDevices][2];
+};
+
+// the CTAs an SM holds of kern (threads a CTA, smem bytes of dynamic shared
+// memory on this launch's store path, smem_max on the larger one) times the
+// SMs: the grid of persistent CTAs that fills the card, into *full
+template <typename Kern>
+cudaError_t persistent_ctas(Kern kern, int threads, size_t smem_max,
+                            size_t smem, int tma, CtaCache& cache,
+                            int64_t* full) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  const bool kept = dev < CtaCache::kDevices;
+  *full = kept ? cache.full[dev][tma].load(std::memory_order_relaxed) : 0;
+  if (*full != 0) return cudaSuccess;
+  err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             static_cast<int>(smem_max));
+  if (err != cudaSuccess) return err;
+  int ctas = 0;
+  int sms = 0;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&ctas, kern, threads,
+                                                      smem);
+  if (err != cudaSuccess) return err;
+  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err != cudaSuccess) return err;
+  if (ctas < 1) return cudaErrorInvalidConfiguration;
+  *full = static_cast<int64_t>(ctas) * sms;
+  if (kept) cache.full[dev][tma].store(*full, std::memory_order_relaxed);
+  return cudaSuccess;
 }
 
 }  // namespace corrla

@@ -43,7 +43,8 @@ and ``csrc/modes_product.cu`` (modes product), built on first use by
   row's modes by broadcast shared loads, k FMAs an element in mode order,
   and the kernel matrix's two store paths (``_kmat_store_path`` reports
   either kernel's choice for an output). Both layouts of the modes go in
-  without a copy. k > 32, bound by compute, goes to ``torch.matmul``.
+  without a copy. k > 32, bound by compute, and fewer than 96 queries,
+  where cuBLAS is faster, go to ``torch.matmul``.
 
 All take f32 or f64 (all operands of one dtype) and return that dtype.
 Distances are direct differences, as the JAX XLA path computes them
@@ -112,6 +113,12 @@ _MV_BLOCKS_PER_SM = 2
 # in f32, 10 in f64), so the stores bound the product; a wider one is bound
 # by compute and goes to torch.matmul (csrc/modes_product.cu: MP_MAX_K)
 _MODES_MAX_K = 32
+# the modes product's fewest queries on the kernel: below it cuBLAS (gemv,
+# then narrow GEMMs) beats the kernel, whose persistent grid of 160-row
+# tiles costs about 0.05 ms whatever the width. The crossover on an H100 at
+# 200,000 points, 20 modes, f32: 64 queries 0.050 ms against torch.matmul's
+# 0.041, 96 queries 0.052 against 0.065 (32: 0.048 against 0.022)
+_MODES_MIN_Q = 96
 
 
 class MatvecPlan(NamedTuple):
@@ -493,10 +500,12 @@ def modes_product(modes: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """``modes @ w.mT``: sum_m modes[i, m] w[j, m] as an (n_pts, n_q) matrix
     for modes (n_pts, k) and w (n_q, k), either in any strides.
 
-    CPU tensors run ``modes_product_ref``. CUDA tensors with k <= 32 launch
-    the kernel (``launches`` counts one a launch); with k > 32, bound by
-    compute, they go to ``torch.matmul``. ``launches_by`` counts the CUDA
-    calls by (route, dtype, k), the route ``"kernel"`` or ``"matmul"``.
+    CPU tensors run ``modes_product_ref``. CUDA tensors with k <= 32 and
+    at least 96 queries launch the kernel (``launches`` counts one a
+    launch); with k > 32, bound by compute, or fewer queries, where
+    cuBLAS is faster, they go to ``torch.matmul``. ``launches_by``
+    counts the CUDA calls by (route, dtype, k), the route ``"kernel"`` or
+    ``"matmul"``.
     """
     _modes_operands(modes, w)
     if modes.device.type == "cpu":
@@ -514,10 +523,10 @@ modes_product.launches_by = {}
 
 def _modes_product_cuda(modes, w):
     """The modes product of checked CUDA operands on its route: one launch
-    of the kernel for k <= 32 (none for an empty output), else
-    ``torch.matmul``."""
+    of the kernel for k <= 32 and n_q >= 96 (none for an empty output),
+    else ``torch.matmul``."""
     k = modes.shape[1]
-    if k > _MODES_MAX_K:
+    if k > _MODES_MAX_K or w.shape[0] < _MODES_MIN_Q:
         out, route = modes @ w.mT, "matmul"
     else:
         out = torch.empty((modes.shape[0], w.shape[0]), dtype=modes.dtype,

@@ -171,11 +171,9 @@ def run_in_process(block: Block) -> str:
 
 
 def _launches() -> dict:
-    from corrla_rs_tpu_torch.ops import rbf_kernels
+    from examples_torch import _harness as h
 
-    return {"pairwise_kernel_matrix":
-            rbf_kernels.pairwise_kernel_matrix.launches,
-            "rbf_matvec": rbf_kernels.rbf_matvec.launches}
+    return h.launches()
 
 
 def main(argv=None) -> int:

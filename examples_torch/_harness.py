@@ -13,8 +13,8 @@ The last line of every script is one JSON object::
      "headline": "one line of its main figures", "metrics": {...}}
 
 and the line before it is ``launches: {"pairwise_kernel_matrix": N,
-"rbf_matvec": M}``, the CUDA kernels' launch counts over the whole run (0 on
-the CPU, where the wrappers run their plain versions). With
+"rbf_matvec": M, "modes_product": P}``, the CUDA kernels' launch counts over
+the whole run (0 on the CPU, where the wrappers run their plain versions). With
 ``--check-kernels`` every launch is held against its plain PyTorch version
 in f64 on the same inputs, and a ``kernel checks: [...]`` line (one entry a
 kernel, phi, dtype and shape) comes before the launch line. ``ok`` says
@@ -103,20 +103,22 @@ def host(x) -> np.ndarray:
 
 
 def launches() -> dict:
-    return {"pairwise_kernel_matrix":
-            rbf_kernels.pairwise_kernel_matrix.launches,
-            "rbf_matvec": rbf_kernels.rbf_matvec.launches}
+    return {name: getattr(rbf_kernels, name).launches
+            for name in ("pairwise_kernel_matrix", "rbf_matvec",
+                         "modes_product")}
 
 
 # ---------------------------------------------------------------------------
-# --check-kernels: every launch of the two CUDA kernels held against its
+# --check-kernels: every launch of the three CUDA kernels held against its
 # plain PyTorch version in f64 on the same inputs, as chip_smoke.py holds
 # them at its own shapes: the kernel matrix entrywise to KMAT_RTOL of
 # |plain| + the largest |plain| of its block of rows, the matvec to
-# MATVEC_RTOL of sum_j |phi_ij c_j|
+# MATVEC_RTOL of sum_j |phi_ij c_j|, the modes product entrywise to
+# MODES_ERR_KU k u sum_m |a_m w_m|
 
 KMAT_RTOL = {torch.float32: 5e-6, torch.float64: 1e-12}
 MATVEC_RTOL = {torch.float32: 1e-4, torch.float64: 1e-12}
+MODES_ERR_KU = 2
 CHECK_ROWS = 1024   # rows of the plain kernel matrix formed at a time
 # "kernel phi dtype shape" -> {"calls", "max_abs_err", "worst_ratio"}
 CHECKS: dict = {}
@@ -155,6 +157,22 @@ def matvec_error(out, x_query, x_support, coeffs, kernel: str, eps: float):
             _worst(err, MATVEC_RTOL[out.dtype] * scale + 1e-300))
 
 
+def modes_error(out, modes, w):
+    """(max |out - plain|, worst ratio to the tolerance) of a modes product
+    ``out`` = ``modes @ w.mT``."""
+    k = modes.shape[1]
+    u = torch.finfo(out.dtype).eps / 2
+    wd = w.double()
+    max_err = worst = 0.0
+    for r0 in range(0, modes.shape[0], CHECK_ROWS):
+        md = modes[r0:r0 + CHECK_ROWS].double()
+        err = (out[r0:r0 + CHECK_ROWS].double() - md @ wd.mT).abs()
+        allowed = MODES_ERR_KU * k * u * (md.abs() @ wd.abs().mT) + 1e-300
+        max_err = max(max_err, float(err.max()) if err.numel() else 0.0)
+        worst = max(worst, _worst(err, allowed))
+    return max_err, worst
+
+
 def _record(key: str, max_err: float, worst: float) -> None:
     got = CHECKS.setdefault(key, {"calls": 0, "max_abs_err": 0.0,
                                   "worst_ratio": 0.0})
@@ -164,13 +182,14 @@ def _record(key: str, max_err: float, worst: float) -> None:
 
 
 def check_kernels() -> None:
-    """Hold every launch of the two kernels in this process against its
-    plain version (see above). It wraps the two functions through which
+    """Hold every launch of the three kernels in this process against its
+    plain version (see above). It wraps the three functions through which
     every launch goes, so the launch counts are the program's own; the
     plain versions launch no kernel."""
     phis = {code: name for name, code in rbf_kernels._PHI_CODES.items()}
     launch_kmat = rbf_kernels._launch_kernel_matrix
     matvec_cuda = rbf_kernels._matvec_cuda
+    launch_modes = rbf_kernels._launch_modes_product
 
     def checked_kmat(out, xa, xb, phi, eps):
         launch_kmat(out, xa, xb, phi, eps)
@@ -191,8 +210,16 @@ def check_kernels() -> None:
                                        kernel, eps))
         return out
 
+    def checked_modes(out, modes, w):
+        launch_modes(out, modes, w)
+        with torch.no_grad():
+            key = (f"modes_product {str(out.dtype)[6:]} "
+                   f"{modes.shape[0]}x{w.shape[0]} k={modes.shape[1]}")
+            _record(key, *modes_error(out, modes, w))
+
     rbf_kernels._launch_kernel_matrix = checked_kmat
     rbf_kernels._matvec_cuda = checked_matvec
+    rbf_kernels._launch_modes_product = checked_modes
 
 
 def merge_checks(*checks: dict) -> dict:

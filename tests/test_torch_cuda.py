@@ -1812,7 +1812,9 @@ def test_slice_export_serves_kernels_on_the_card(dev, tmp_path, dtype, rtol):
     x = torch.randn(64, 400, generator=gen, device=dev, dtype=dtype)
     t = torch.linspace(0, 1, 64, device=dev, dtype=dtype)[:, None]
     pod = PodI(x, t, 4)
-    tq = torch.rand(9, 1, generator=gen, device=dev, dtype=dtype)
+    # as many queries as take the modes product to its kernel
+    tq = torch.rand(rk._MODES_MIN_Q, 1, generator=gen, device=dev,
+                    dtype=dtype)
     path = str(tmp_path / "p.pt2")
     program = export_model_call(pod, "predict", (tq,), path)
     targets = [str(n.target) for n in program.graph.nodes
@@ -1900,8 +1902,8 @@ def test_cholesky_qr2_on_the_cells_panels(dev, n, k, panel):
 
 # ---------------------------------------------------------------------------
 # the modes product of PodI.predict: every k instance, both layouts of the
-# modes, both store paths, the cell's shape, narrow outputs, the route past
-# k = 32
+# modes, both store paths, the cell's shape, narrow outputs on both sides of
+# the route's crossover, the route past k = 32
 
 
 def _modes_operands(dev, dtype, n_pts, n_q, k, layout="col", seed=0):
@@ -1960,16 +1962,27 @@ def test_modes_product_at_the_cells_shape(dev):
     _assert_modes_product(got, modes, w, rows=4096)
 
 
-@pytest.mark.parametrize("n_q,path", [(1, "direct"), (512, "tma")])
+@pytest.mark.parametrize("n_q,path", [(1, "direct"),
+                                      (rk._MODES_MIN_Q - 1, "direct"),
+                                      (rk._MODES_MIN_Q, "tma"), (512, "tma")])
 def test_modes_product_narrow_outputs(dev, n_q, path):
-    # one query, and pod2k.fit's judge's 512 probes
+    # one query, the two sides of the route's crossover (below it cuBLAS is
+    # faster, and the wrapper takes torch.matmul), and pod2k.fit's judge's
+    # 512 probes; the kernel launched straight is right at each
     modes, w = _modes_operands(dev, torch.float32, 200_000, n_q, 20)
     before = rk.modes_product.launches
     got = rk.modes_product(modes, w)
     torch.cuda.synchronize()
-    assert rk.modes_product.launches == before + 1
-    assert rk._kmat_store_path(got) == path
+    on_kernel = n_q >= rk._MODES_MIN_Q
+    assert rk.modes_product.launches == before + on_kernel
     _assert_modes_product(got, modes, w, rows=50_000)
+    out = torch.empty_like(got)
+    rk._launch_modes_product(out, modes, w)
+    torch.cuda.synchronize()
+    assert rk._kmat_store_path(out) == path
+    _assert_modes_product(out, modes, w, rows=50_000)
+    if on_kernel:
+        assert torch.equal(out, got)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])

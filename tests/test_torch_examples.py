@@ -194,7 +194,8 @@ def _result(out):
     assert len(launch) == 1, lines[-5:]
     assert lines[0].startswith("card: none"), lines[0]
     counts = json.loads(launch[0][len("launches: "):])
-    assert counts == {"pairwise_kernel_matrix": 0, "rbf_matvec": 0}
+    assert counts == {"pairwise_kernel_matrix": 0, "rbf_matvec": 0,
+                      "modes_product": 0}
     return json.loads(lines[-1])
 
 
@@ -450,7 +451,7 @@ def test_sweep_has_41_stages_and_no_smallpath(capsys):
 
 # ---------------------------------------------------------------------------
 # --check-kernels: each launch held against its plain version (on the CPU
-# the wrappers launch nothing, so stand-ins take the two launches' places)
+# the wrappers launch nothing, so stand-ins take the three launches' places)
 
 
 def test_kernel_checks_hold_each_launch_to_the_plain_version(monkeypatch,
@@ -472,33 +473,44 @@ def test_kernel_checks_hold_each_launch_to_the_plain_version(monkeypatch,
                                                     names[phi], eps)[2, 1]
         return out
 
+    def modes(out, m, w):
+        out.copy_(m @ w.mT)
+        # off by a relative 1e-6 of sum_m |a_m w_m|; 2 k u is 6e-7 at k = 5
+        out[4, 6] += off["by"] * 1e-3 * (m.abs() @ w.abs().mT)[4, 6]
+
     monkeypatch.setattr(h, "CHECKS", {})
     monkeypatch.setattr(rk, "_launch_kernel_matrix", kmat)
     monkeypatch.setattr(rk, "_matvec_cuda", matvec)
+    monkeypatch.setattr(rk, "_launch_modes_product", modes)
     h.check_kernels()
     gen = torch.Generator().manual_seed(0)
     xa, xb = torch.randn(40, 3, generator=gen), torch.randn(70, 3,
                                                             generator=gen)
     c = torch.randn(70, 2, generator=gen)
+    m, w = torch.randn(5, 30, generator=gen).mT, torch.randn(9, 5,
+                                                             generator=gen)
     for by in (0.0, 1e-3):
         off["by"] = by
         rk._launch_kernel_matrix(torch.empty(40, 70), xa, xb,
                                  rk._PHI_CODES["multiquadric"], 0.7)
         rk._matvec_cuda(xa, xb, c, rk._PHI_CODES["gaussian"], 0.7)
+        rk._launch_modes_product(torch.empty(30, 9), m, w)
     kkey = "pairwise_kernel_matrix multiquadric float32 40x70 d=3"
     mkey = "rbf_matvec gaussian float32 40q x 70s d=3 C=2"
-    assert sorted(h.CHECKS) == [kkey, mkey]
+    pkey = "modes_product float32 30x9 k=5"
+    assert sorted(h.CHECKS) == [pkey, kkey, mkey]
     assert all(got["calls"] == 2 for got in h.CHECKS.values())
     # the exact stand-in is within tolerance, the one off by 1e-3 is not
     assert 1.0 < h.CHECKS[kkey]["worst_ratio"] < 1e3
     assert 1.0 < h.CHECKS[mkey]["worst_ratio"] < 1e3
+    assert 1.0 < h.CHECKS[pkey]["worst_ratio"] < 1e3
     h.finish("x", torch.device("cpu"), True, "a line", {})
     out = capsys.readouterr().out.splitlines()
     assert out[0].startswith("FAIL kernel check")
     assert out[1].startswith("kernel checks: ")
     assert json.loads(out[-1])["ok"] is False
     rows = json.loads(out[1][len("kernel checks: "):])
-    assert [r["check"] for r in rows] == [kkey, mkey]
+    assert [r["check"] for r in rows] == [pkey, kkey, mkey]
     assert h.merge_checks(h.CHECKS, h.CHECKS)[kkey]["calls"] == 4
 
 
@@ -516,6 +528,10 @@ def test_kernel_checks_pass_the_plain_version():
             assert h.kmat_error(k, xb, xa, kernel, 0.7)[1] <= 1.0
             y = rk.rbf_matvec_ref(xa, xb, c, kernel, 0.7)
             assert h.matvec_error(y, xa, xb, c, kernel, 0.7)[1] <= 1.0
+        # the modes product in either layout of the modes, past a block
+        for modes in (c, c.mT.contiguous().mT):
+            assert h.modes_error(rk.modes_product_ref(modes, c[:300]), modes,
+                                 c[:300])[1] <= 1.0
         # a NaN is never within tolerance
         k[7, 9] = float("nan")
         assert h.kmat_error(k, xb, xa, "gaussian", 0.7)[1] == float("inf")

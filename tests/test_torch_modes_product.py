@@ -1,7 +1,8 @@
 """The modes product of ``PodI.predict`` (``ops.rbf_kernels.modes_product``)
 on the CPU: the wrapper, its operator's CPU kernel and the plain version are
 ``modes @ w.mT`` bit for bit, in both layouts of the modes; the route by k
-and the counters, with a stand-in for the CUDA launch; and ``PodI.predict``
+and the number of queries, and the counters, with a stand-in for the CUDA
+launch; and ``PodI.predict``
 on the CPU is the plain product. The kernel itself runs in
 ``tests/test_torch_cuda.py``.
 """
@@ -56,32 +57,49 @@ def stand_in_launch(monkeypatch):
     return calls
 
 
+# the fewest queries on the kernel's route
+Q = rk._MODES_MIN_Q
+
+
 @pytest.mark.parametrize("layout", ["row", "col"])
 def test_k_up_to_32_takes_the_kernel_and_past_it_matmul(stand_in_launch,
                                                         layout):
     f32 = torch.float32
     strides = []
     for k in (1, 20, 32, 33, 64):
-        modes, w = _operands(70, 9, k, f32, layout)
+        modes, w = _operands(70, Q + 9, k, f32, layout)
         got = rk._modes_product_cuda(modes, w)
         assert torch.equal(got, modes @ w.mT)
         strides.append(modes.stride())
     # the kernel takes the modes as they are, in either layout: no copy
-    assert stand_in_launch == [((70, 9), s) for s in strides[:3]]
+    assert stand_in_launch == [((70, Q + 9), s) for s in strides[:3]]
     assert rk.modes_product.launches == 3
     assert rk.modes_product.launches_by == {
         ("kernel", f32, 1): 1, ("kernel", f32, 20): 1, ("kernel", f32, 32): 1,
         ("matmul", f32, 33): 1, ("matmul", f32, 64): 1}
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_fewer_queries_than_the_crossover_take_matmul(stand_in_launch,
+                                                      dtype):
+    # one query and the crossover's two sides: below it cuBLAS wins
+    for n_q in (1, Q - 1, Q, 512):
+        modes, w = _operands(300, n_q, 20, dtype, "col")
+        assert torch.equal(rk._modes_product_cuda(modes, w), modes @ w.mT)
+    assert stand_in_launch == [((300, Q), (1, 300)), ((300, 512), (1, 300))]
+    assert rk.modes_product.launches == 2
+    assert rk.modes_product.launches_by == {("matmul", dtype, 20): 2,
+                                            ("kernel", dtype, 20): 2}
+
+
 def test_launches_by_counts_each_route_by_dtype_and_k(stand_in_launch):
     for dtype in (torch.float32, torch.float64):
         for k, calls in ((20, 3), (40, 2)):
-            modes, w = _operands(10, 4, k, dtype, "col")
+            modes, w = _operands(10, Q, k, dtype, "col")
             for _ in range(calls):
                 rk._modes_product_cuda(modes, w)
     # an empty output takes the kernel's route without a launch
-    rk._modes_product_cuda(*_operands(0, 4, 20, torch.float32, "row"))
+    rk._modes_product_cuda(*_operands(0, Q, 20, torch.float32, "row"))
     assert rk.modes_product.launches_by == {
         ("kernel", torch.float32, 20): 4, ("matmul", torch.float32, 40): 2,
         ("kernel", torch.float64, 20): 3, ("matmul", torch.float64, 40): 2}
