@@ -53,7 +53,7 @@
 //      elements at the cell's shape).
 //
 // The grid is the kernel matrix's (persistent_ctas in tile_store.cuh). Its
-// tiles cost about 0.05 ms whatever the width, so below about 96 queries
+// tiles cost about 0.05 ms whatever the width, so below about 80 queries
 // cuBLAS is faster, and ops/rbf_kernels.py sends such calls to
 // torch.matmul (_MODES_MIN_Q).
 //

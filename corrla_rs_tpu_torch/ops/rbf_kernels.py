@@ -43,7 +43,7 @@ and ``csrc/modes_product.cu`` (modes product), built on first use by
   row's modes by broadcast shared loads, k FMAs an element in mode order,
   and the kernel matrix's two store paths (``_kmat_store_path`` reports
   either kernel's choice for an output). Both layouts of the modes go in
-  without a copy. k > 32, bound by compute, and fewer than 96 queries,
+  without a copy. k > 32, bound by compute, and fewer than 80 queries,
   where cuBLAS is faster, go to ``torch.matmul``.
 
 All take f32 or f64 (all operands of one dtype) and return that dtype.
@@ -117,8 +117,8 @@ _MODES_MAX_K = 32
 # then narrow GEMMs) beats the kernel, whose persistent grid of 160-row
 # tiles costs about 0.05 ms whatever the width. The crossover on an H100 at
 # 200,000 points, 20 modes, f32: 64 queries 0.050 ms against torch.matmul's
-# 0.041, 96 queries 0.052 against 0.065 (32: 0.048 against 0.022)
-_MODES_MIN_Q = 96
+# 0.041, 80 queries 0.051 against 0.067 (32: 0.048 against 0.022)
+_MODES_MIN_Q = 80
 
 
 class MatvecPlan(NamedTuple):
@@ -501,7 +501,7 @@ def modes_product(modes: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     for modes (n_pts, k) and w (n_q, k), either in any strides.
 
     CPU tensors run ``modes_product_ref``. CUDA tensors with k <= 32 and
-    at least 96 queries launch the kernel (``launches`` counts one a
+    at least 80 queries launch the kernel (``launches`` counts one a
     launch); with k > 32, bound by compute, or fewer queries, where
     cuBLAS is faster, they go to ``torch.matmul``. ``launches_by``
     counts the CUDA calls by (route, dtype, k), the route ``"kernel"`` or
@@ -523,7 +523,7 @@ modes_product.launches_by = {}
 
 def _modes_product_cuda(modes, w):
     """The modes product of checked CUDA operands on its route: one launch
-    of the kernel for k <= 32 and n_q >= 96 (none for an empty output),
+    of the kernel for k <= 32 and n_q >= 80 (none for an empty output),
     else ``torch.matmul``."""
     k = modes.shape[1]
     if k > _MODES_MAX_K or w.shape[0] < _MODES_MIN_Q:
